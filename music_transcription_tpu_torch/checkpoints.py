@@ -1,11 +1,26 @@
-"""Checkpoints: reference-format ``.pth`` load and the JAX weight mapping.
+"""Checkpoints: reference-format ``.pth`` files, training checkpoints, and
+the JAX weight and optimizer-state mapping.
 
 ``load_torch_checkpoint`` loads a bare ``state_dict`` ``.pth`` (the
 reference's format, and what the JAX package's ``save_torch_checkpoint``
-writes) into a port module. ``state_dict_from_jax`` carries the JAX
-package's weights across: it takes the ``{"params", "batch_stats"}`` tree as
-numpy arrays and returns the port's state_dict. It is the port's own copy of
-the mapping in the JAX package's ``export_torch_state_dict``:
+writes) into a port module.
+
+Training writes two kinds, each with an ``X.json`` sidecar (model and audio
+config, as ``transcribe.load_model`` reads it):
+
+  * ``model_best.pth``: the inference state only (a bare state_dict), its
+    step in the sidecar;
+  * ``model_epoch_N.pt`` / ``model_final.pt``: everything a resume needs:
+    the model state_dict (under ``model_state``, so ``load_torch_checkpoint``
+    and ``transcribe.load_model`` read it too), the optimizer state_dict, the
+    step and the dropout seed. The dropout generator of a step is derived
+    from (dropout seed, step), so the two are its whole state.
+
+``state_dict_from_jax`` carries the JAX package's weights across: it takes
+the ``{"params", "batch_stats"}`` tree as numpy arrays and returns the
+port's state_dict; ``optimizer_state_from_jax`` carries optax's Adam
+moments and count to ``torch.optim.Adam``. The mapping is the port's own
+copy of the one in the JAX package's ``export_torch_state_dict``:
 
   flax (JAX package)                       torch (this package)
   ------------------                       --------------------
@@ -19,6 +34,10 @@ the mapping in the JAX package's ``export_torch_state_dict``:
 
 from __future__ import annotations
 
+import json
+import os
+import re
+
 import numpy as np
 import torch
 import torch.nn as nn
@@ -28,18 +47,27 @@ from music_transcription_tpu_torch.config import ModelConfig
 
 def state_dict_from_jax(variables: dict, cfg: ModelConfig) -> dict[str, torch.Tensor]:
     """JAX variables tree (numpy leaves) -> the port module's state_dict
-    (keys without the ``model.`` prefix)."""
+    (keys without the ``model.`` prefix). Without ``batch_stats`` the
+    BatchNorm running statistics are left out."""
     p = variables["params"]
-    s = variables.get("batch_stats", {})
+    s = variables.get("batch_stats")
     out: dict[str, np.ndarray] = {}
 
     def put_conv(name, tree):
         out[f"{name}.weight"] = np.transpose(np.asarray(tree["kernel"]), (3, 2, 0, 1))
         out[f"{name}.bias"] = np.asarray(tree["bias"])
 
-    def put_bn(name, ptree, stree):
+    def put_bn(name, *path):
+        ptree = p
+        for key in path:
+            ptree = ptree[key]
         out[f"{name}.weight"] = np.asarray(ptree["scale"])
         out[f"{name}.bias"] = np.asarray(ptree["bias"])
+        if s is None:
+            return
+        stree = s
+        for key in path:
+            stree = stree[key]
         out[f"{name}.running_mean"] = np.asarray(stree["mean"])
         out[f"{name}.running_var"] = np.asarray(stree["var"])
         out[f"{name}.num_batches_tracked"] = np.asarray(0, np.int64)
@@ -59,23 +87,23 @@ def state_dict_from_jax(variables: dict, cfg: ModelConfig) -> dict[str, torch.Te
 
     if cfg.model_type == "cnn_rnn":
         put_conv("cnn.0", p["block1"]["conv"])
-        put_bn("cnn.1", p["block1"]["bn"], s["block1"]["bn"])
+        put_bn("cnn.1", "block1", "bn")
         put_conv("cnn.4", p["block2"]["conv"])
-        put_bn("cnn.5", p["block2"]["bn"], s["block2"]["bn"])
+        put_bn("cnn.5", "block2", "bn")
         put_lstm("rnn", p["rnn"], cfg.num_layers)
         put_dense("fc", p["fc"])
     elif cfg.model_type == "cnn_rnn_large":
         put_conv("conv1.0", p["conv1"]["conv"])
-        put_bn("conv1.1", p["conv1"]["bn"], s["conv1"]["bn"])
+        put_bn("conv1.1", "conv1", "bn")
         for rb in ("res_block1", "res_block2"):
             put_conv(f"{rb}.conv1", p[rb]["conv1"])
-            put_bn(f"{rb}.bn1", p[rb]["bn1"], s[rb]["bn1"])
+            put_bn(f"{rb}.bn1", rb, "bn1")
             put_conv(f"{rb}.conv2", p[rb]["conv2"])
-            put_bn(f"{rb}.bn2", p[rb]["bn2"], s[rb]["bn2"])
+            put_bn(f"{rb}.bn2", rb, "bn2")
             put_conv(f"{rb}.skip.0", p[rb]["skip_conv"])
-            put_bn(f"{rb}.skip.1", p[rb]["skip_bn"], s[rb]["skip_bn"])
+            put_bn(f"{rb}.skip.1", rb, "skip_bn")
         put_conv("freq_aware_conv.0", p["freq_aware_conv"]["conv"])
-        put_bn("freq_aware_conv.1", p["freq_aware_conv"]["bn"], s["freq_aware_conv"]["bn"])
+        put_bn("freq_aware_conv.1", "freq_aware_conv", "bn")
         put_lstm("rnn_main", p["rnn_main"], cfg.num_layers)
         put_lstm("rnn_local", p["rnn_local"], 1)
         if cfg.use_attention:
@@ -94,6 +122,33 @@ def state_dict_from_jax(variables: dict, cfg: ModelConfig) -> dict[str, torch.Te
     return {k: torch.from_numpy(np.array(v)) for k, v in out.items()}
 
 
+def optimizer_state_from_jax(opt_state, cfg: ModelConfig,
+                             module: nn.Module) -> dict[nn.Parameter, dict]:
+    """optax's Adam state (the ``mu``, ``nu`` and ``count`` of the
+    ``scale_by_adam`` link anywhere in the chain's state, numpy-convertible
+    leaves) -> ``torch.optim.Adam`` per-parameter state for ``module``'s
+    parameters: ``optimizer.state.update(optimizer_state_from_jax(...))``."""
+    def find(node):
+        if all(hasattr(node, a) for a in ("mu", "nu", "count")):
+            return node
+        if isinstance(node, (tuple, list)):
+            for child in node:
+                hit = find(child)
+                if hit is not None:
+                    return hit
+        return None
+
+    adam = find(opt_state)
+    if adam is None:
+        raise ValueError("no Adam state (mu, nu, count) in the optax state")
+    mu = state_dict_from_jax({"params": adam.mu}, cfg)
+    nu = state_dict_from_jax({"params": adam.nu}, cfg)
+    step = torch.tensor(float(np.asarray(adam.count)))
+    return {param: {"step": step.clone(), "exp_avg": mu[name].clone(),
+                    "exp_avg_sq": nu[name].clone()}
+            for name, param in module.named_parameters()}
+
+
 def load_torch_checkpoint(path, module: nn.Module) -> nn.Module:
     """Load a ``.pth`` state_dict into ``module`` (strict), stripping the
     ``module.`` / ``model.`` prefixes of wrapped checkpoints."""
@@ -104,3 +159,57 @@ def load_torch_checkpoint(path, module: nn.Module) -> nn.Module:
     sd = {k.removeprefix("module.").removeprefix("model."): v for k, v in sd.items()}
     module.load_state_dict(sd, strict=True)
     return module
+
+
+def write_sidecar(path, sidecar: dict) -> None:
+    """``X.json`` beside ``X.pth`` / ``X.pt``."""
+    with open(os.path.splitext(str(path))[0] + ".json", "w") as f:
+        json.dump(sidecar, f)
+
+
+def save_training_checkpoint(path, module: nn.Module, optimizer, step: int,
+                             dropout_seed: int, sidecar: dict) -> str:
+    """Everything a resume needs, in one ``.pt``, and its sidecar."""
+    torch.save({"model_state": module.state_dict(), "optimizer_state": optimizer.state_dict(),
+                "step": step, "dropout_seed": dropout_seed}, path)
+    write_sidecar(path, sidecar)
+    return str(path)
+
+
+def load_training_checkpoint(path, module: nn.Module, optimizer) -> int:
+    """Restore a ``.pt`` training checkpoint into ``module`` and
+    ``optimizer`` (strict) and return its step. A bare ``.pth`` (model_best)
+    restores the weights only, with the step from its sidecar: a partial
+    resume, the optimizer starting fresh."""
+    ckpt = torch.load(path, map_location="cpu")
+    if "optimizer_state" in ckpt:
+        module.load_state_dict(ckpt["model_state"], strict=True)
+        optimizer.load_state_dict(ckpt["optimizer_state"])
+        return int(ckpt["step"])
+    load_torch_checkpoint(path, module)
+    with open(os.path.splitext(str(path))[0] + ".json") as f:
+        return int(json.load(f).get("step", 0))
+
+
+def epoch_from_checkpoint_name(name) -> int | None:
+    """The epoch number in a checkpoint's file name (``model_epoch_7.pt`` -> 7)."""
+    m = re.search(r"epoch[_\-](\d+)", os.path.basename(str(name)))
+    return int(m.group(1)) if m else None
+
+
+def latest_resumable_checkpoint(run_dir) -> str | None:
+    """The target of ``--resume auto``: the highest-numbered
+    ``checkpoints/model_epoch_N.pt`` (exact resume), else
+    ``checkpoints/model_best.pth`` (partial resume), else None."""
+    ckpt_dir = os.path.join(str(run_dir), "checkpoints")
+    if not os.path.isdir(ckpt_dir):
+        return None
+    best_n, best_path = -1, None
+    for name in os.listdir(ckpt_dir):
+        n = epoch_from_checkpoint_name(name)
+        if name.startswith("model_epoch_") and name.endswith(".pt") and n is not None and n > best_n:
+            best_n, best_path = n, os.path.join(ckpt_dir, name)
+    if best_path is not None:
+        return best_path
+    best = os.path.join(ckpt_dir, "model_best.pth")
+    return best if os.path.exists(best) else None

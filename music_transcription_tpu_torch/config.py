@@ -1,6 +1,7 @@
 """Typed configuration for the PyTorch port.
 
-The port's own copy of the dataclasses in ``music_transcription_tpu.config``.
+The port's own copy of the dataclasses in ``music_transcription_tpu.config``
+(``AudioConfig``, ``ModelConfig``, ``TrainConfig``) and of its cache check.
 Field names and defaults are identical, so a sidecar ``config.json`` written
 by either package loads in both.
 """
@@ -87,9 +88,10 @@ class ModelConfig:
     freeze_encoder: bool = False
     # bf16 conv/dense compute, fp32 parameters, fp32 recurrence and softmax.
     compute_dtype: str = "bfloat16"
-    # "scan" | "pallas". In the port both run the K1 wrapper
-    # (ops/lstm_kernel.py): the hand-written kernel on a CUDA tensor, its
-    # plain version on a CPU tensor. The name is kept for sidecar parity.
+    # "scan" | "pallas". In the port both run the hand-written recurrence
+    # (ops/lstm_kernel.py: K1, or K2a/K2b when a gradient is wanted) on a
+    # CUDA tensor, its plain version on a CPU tensor. The name is kept for
+    # sidecar parity.
     lstm_backend: str = "scan"
     # "xla" (scores materialized, plain tensor code), "pallas" (the
     # hand-written clamped flash kernel, ops/attention_kernel.py) or "auto"
@@ -118,6 +120,89 @@ def canonical_model_type(model_type: str) -> str:
     if mt in ("ast", "transformer", "audio_transformer"):
         return "ast"
     raise ValueError(f"Unknown model type: {model_type}")
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """Training configuration (the JAX package's field set, defaults and
+    checks). Defaults follow the reference recipe: Adam(lr=1e-4, eps=1e-8,
+    weight_decay=1e-5), global-norm clip 1.0, 100 epochs, batch 24."""
+
+    epochs: int = 100
+    batch_size: int = 24
+    learning_rate: float = 1e-4
+    adam_eps: float = 1e-8
+    weight_decay: float = 1e-5
+    max_grad_norm: float = 1.0
+    chunk_length: float = 30.0
+    chunk_overlap: float = 0.0
+    save_every: int = 5
+    # model_best is written at most every k epochs on improvement, and once
+    # at loop exit; the loop keeps an exact copy of the best state meanwhile
+    save_best_every: int = 1
+    # stop when validation loss has not improved for this many epochs (0 = off)
+    early_stop_patience: int = 0
+    seed: int = 0
+    max_nan_batches: int = 10  # abort after this many NaN/Inf losses
+    # Parallelism and state partitioning: the port trains on one device
+    # (None or 1, "dp"); the rest is Queue 1 slice 5 of ROADMAP.md.
+    data_parallel: int | None = None
+    partitioning: str = "dp"
+    model_parallel: int = 1
+    # The JAX package's dropout PRNG choice; kept so sidecars round-trip. The
+    # port draws its masks from a torch.Generator seeded per step.
+    rng_impl: str = "auto"
+    # Abort with exit 66 when no train/val step completes for this many
+    # seconds (0 = off), so a supervisor can resume (train/watchdog.py).
+    stall_timeout_s: float = 0.0
+    # Planned process recycling (0 = off): past this host RSS in GB at an
+    # epoch boundary, write a full-resume checkpoint and exit 67.
+    rss_watermark_gb: float = 0.0
+    # Host input pipeline
+    num_workers: int = 8
+    prefetch_batches: int = 2
+
+    def __post_init__(self):
+        if self.save_best_every < 1:
+            raise ValueError(
+                f"save_best_every must be >= 1, got {self.save_best_every}"
+            )
+        if self.save_every < 0:
+            raise ValueError(f"save_every must be >= 0, got {self.save_every}")
+
+
+class CompatibilityError(ValueError):
+    """Raised when cache / model / request configurations disagree."""
+
+
+def validate_compatibility(*, model_n_mels: int | None = None,
+                           cache_meta: Mapping[str, Any] | None = None,
+                           audio: AudioConfig | None = None) -> list[str]:
+    """Cross-check n_mels / sr / hop / chunk between a cache and a request.
+    Returns warnings; raises CompatibilityError on hard mismatches."""
+    warnings: list[str] = []
+    if cache_meta is None:
+        return warnings
+    cache_n_mels = cache_meta.get("n_mels")
+    if (model_n_mels is not None and cache_n_mels is not None
+            and not cache_meta.get("return_waveform", False) and cache_n_mels != model_n_mels):
+        raise CompatibilityError(
+            f"Cache n_mels={cache_n_mels} does not match model n_mels={model_n_mels}. "
+            f"Re-run preprocessing with --n_mels {model_n_mels} or use a matching cache "
+            f"directory.")
+    if audio is not None:
+        for key, want in (("sr", audio.sample_rate), ("hop_length", audio.hop_length)):
+            have = cache_meta.get(key)
+            if have is not None and have != want:
+                raise CompatibilityError(
+                    f"Cache {key}={have} does not match requested {key}={want}.")
+        have_chunk = cache_meta.get("chunk_length")
+        if have_chunk is not None and have_chunk != audio.chunk_length:
+            warnings.append(
+                f"Cache chunk_length={have_chunk}s differs from requested "
+                f"{audio.chunk_length}s; the cache will be bypassed and chunks loaded "
+                f"from raw audio (slow).")
+    return warnings
 
 
 def config_to_dict(cfg) -> dict:

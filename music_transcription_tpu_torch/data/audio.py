@@ -149,6 +149,23 @@ def load_audio(path, sr=None, mono=True, offset=0.0, duration=None):
         )
 
 
+def audio_duration(path) -> float:
+    """Duration in seconds without decoding samples. Non-WAV containers go
+    through the optional ``soundfile`` package when it is installed."""
+    try:
+        with open(path, "rb") as f:
+            _, channels, sr, bits, _, data_size = _parse_wav_header(f)
+        return data_size / (channels * (bits // 8)) / sr
+    except AudioDecodeError:
+        try:
+            import soundfile as sf
+        except ImportError:
+            raise AudioDecodeError(f"{path}: not a WAV file and no optional decoder "
+                                   f"(soundfile) is installed; convert it to WAV") from None
+        info = sf.info(str(path))
+        return info.frames / info.samplerate
+
+
 def resample(y: np.ndarray, orig_sr: int, target_sr: int) -> np.ndarray:
     """Polyphase anti-aliased resampling along the last axis."""
     if orig_sr == target_sr:

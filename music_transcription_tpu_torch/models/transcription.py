@@ -1,9 +1,12 @@
-"""Unified model wrapper: config -> module, forward, thresholded predict.
+"""Unified model wrapper: config -> module, forward, loss, thresholded
+predict.
 
 Port of the JAX package's ``models/transcription.py`` for the two CNN-RNN
 types. The wrapped module sits under the attribute ``model``, so this
-wrapper's state_dict keys carry the reference's ``model.`` prefix. The loss
-is ported with the training path.
+wrapper's state_dict keys carry the reference's ``model.`` prefix. The
+forward follows the module's mode: ``.train()`` gives the training forward
+(batch-statistics BatchNorm, dropout masks from ``generator``), ``.eval()``
+the inference one.
 """
 
 from __future__ import annotations
@@ -15,6 +18,7 @@ import torch.nn as nn
 
 from music_transcription_tpu_torch.config import ModelConfig
 from music_transcription_tpu_torch.models.cnn_rnn import CNNRNN, CNNRNNLarge
+from music_transcription_tpu_torch.ops import losses
 from music_transcription_tpu_torch.ops.precision import full_fp32
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -51,13 +55,24 @@ class TranscriptionModel(nn.Module):
         if self.config.is_large and self.config.use_attention:
             self.model.attention.backend = backend
 
-    def forward(self, x: torch.Tensor, return_all_heads: bool = False):
+    @property
+    def multi_head(self) -> bool:
+        """Whether training reads all three heads (the large model's default)."""
+        return self.config.is_large and self.config.use_onset_offset_heads
+
+    def forward(self, x: torch.Tensor, return_all_heads: bool = False,
+                generator: torch.Generator | None = None):
         """(B, 1, n_mels, T) or (B, n_mels, T) mel -> logits (B, 88, T), or a
-        dict of heads for the large model with ``return_all_heads``."""
+        dict of heads for the large model with ``return_all_heads``.
+        ``generator`` draws the dropout masks of the training forward."""
         with full_fp32():
             if self.config.is_large:
-                return self.model(x, return_all_heads=return_all_heads)
-            return self.model(x)
+                return self.model(x, return_all_heads=return_all_heads, generator=generator)
+            return self.model(x, generator=generator)
+
+    def loss(self, logits, targets: torch.Tensor, lengths: torch.Tensor | None = None):
+        """Masked BCE, or the 0.5/0.25/0.25 multi-head loss for a dict."""
+        return losses.transcription_loss(logits, targets, lengths)
 
     def predict(self, x: torch.Tensor, threshold: float = 0.5) -> torch.Tensor:
         """Binary (B, 88, T) piano roll: sigmoid(frame logits) > threshold."""

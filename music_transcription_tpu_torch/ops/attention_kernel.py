@@ -11,6 +11,10 @@ version only for a CPU tensor. The plain version is the arithmetic of the
 model's materialized-scores ("xla") branch: fp32 scores from compute-dtype
 q and k, the clamp, an fp32 softmax, probabilities cast to the compute dtype
 before ``@ v`` with fp32 accumulation.
+
+The kernel has no backward yet (K4a/K4b, ``_flash_bwd`` in the JAX
+package): with a gradient wanted on a CUDA tensor the wrapper raises rather
+than return an output that gradients cannot flow through.
 """
 
 from __future__ import annotations
@@ -28,9 +32,11 @@ _ENTRY = {torch.bfloat16: "flash_attention_clamped_forward",
           torch.float32: "flash_attention_clamped_forward_f32"}
 
 
-def attention_clamped_plain(q, k, v, scale: float, clip_val: float = 10.0) -> torch.Tensor:
+def attention_clamped_plain(q, k, v, scale: float, clip_val: float = 10.0,
+                            prob_dropout=None) -> torch.Tensor:
     """(B, T, H, D) q and (B, S, H, D) k/v -> (B, T, H, D) in q's dtype,
-    scores materialized."""
+    scores materialized. ``prob_dropout``, a function of the fp32
+    probabilities, is the model's attention dropout in training."""
     b, t, h, d = q.shape
 
     def heads(x):  # (B, T, H, D) -> (B*H, T, D)
@@ -39,6 +45,8 @@ def attention_clamped_plain(q, k, v, scale: float, clip_val: float = 10.0) -> to
     qh, kh, vh = heads(q), heads(k), heads(v)
     s = matmul_f32(qh, kh.transpose(1, 2)) * scale
     p = torch.softmax(torch.clamp(s, -clip_val, clip_val), dim=-1)
+    if prob_dropout is not None:
+        p = prob_dropout(p)
     out = matmul_f32(p.to(v.dtype), vh)
     return out.view(b, h, t, d).permute(0, 2, 1, 3).to(q.dtype)
 
@@ -54,6 +62,11 @@ def flash_attention_clamped(q, k, v, scale: float, clip_val: float = 10.0) -> to
         return attention_clamped_plain(q, k, v, scale, clip_val)
     if not q.is_cuda or k.device != q.device or v.device != q.device:
         raise ValueError(f"flash_attention_clamped: q/k/v on {q.device}, {k.device}, {v.device}")
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        raise NotImplementedError(
+            "flash_attention_clamped has no backward kernel yet (K4a/K4b come with the "
+            "next slice of the port, training with attention_backend='pallas'); train "
+            "with attention_backend='xla'")
     if not (q.shape == k.shape == v.shape) or q.dim() != 4:
         raise ValueError(f"flash_attention_clamped: shapes {q.shape}, {k.shape}, {v.shape}")
     if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _ENTRY:

@@ -6,9 +6,11 @@ recurrence, as in the JAX package's ``ops/lstm.py``.
     ``proj_dtype`` (bf16 in the default model) with fp32 accumulation.
   * The backward direction's projections are time-reversed and stacked on
     the batch axis (2B rows), so one recurrence serves both directions.
-  * Gate order is torch's (i, f, g, o) and the bias is ``b_ih + b_hh``.
-  * The recurrence itself is fp32 and is a parameter: the K1 wrapper
-    ``ops.lstm_kernel.lstm_recurrence`` (default) or its plain version.
+  * Gate order is torch's (i, f, g, o) and the bias is one combined bias
+    (torch's ``b_ih + b_hh``).
+  * The recurrence itself is fp32 and is a parameter; by default
+    ``ops.lstm_kernel.recurrence``: K2a/K2b (differentiable) when a gradient
+    is wanted, K1 otherwise.
 
 Parameters of one layer are a dict in the JAX package's layout:
   {"wi_fwd": (I, 4H), "wh_fwd": (H, 4H), "b_fwd": (4H,),
@@ -18,9 +20,9 @@ Parameters of one layer are a dict in the JAX package's layout:
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
-from music_transcription_tpu_torch.ops.lstm_kernel import lstm_recurrence
+from music_transcription_tpu_torch.ops.dropout import dropout
+from music_transcription_tpu_torch.ops.lstm_kernel import recurrence as default_recurrence
 from music_transcription_tpu_torch.ops.precision import matmul_f32
 
 
@@ -49,7 +51,7 @@ def split_direction_outputs(hs: torch.Tensor, b: int) -> torch.Tensor:
 
 
 def bilstm_layer(x: torch.Tensor, layer_params: dict, proj_dtype=torch.float32,
-                 recurrence=lstm_recurrence) -> torch.Tensor:
+                 recurrence=default_recurrence) -> torch.Tensor:
     """One bidirectional layer: (B, T, I) -> (B, T, 2H)."""
     xw, wh = fused_direction_inputs(x, layer_params, proj_dtype)
     return split_direction_outputs(recurrence(xw, wh), x.shape[0])
@@ -61,14 +63,16 @@ def bilstm_stack(
     *,
     dropout_rate: float = 0.0,
     training: bool = False,
+    generator: torch.Generator | None = None,
     proj_dtype=torch.float32,
-    recurrence=lstm_recurrence,
+    recurrence=default_recurrence,
 ) -> torch.Tensor:
     """Multi-layer BiLSTM with torch inter-layer dropout semantics (dropout
-    on each layer's output except the last, in training only)."""
+    on each layer's output except the last, in training only, masks drawn
+    from ``generator``)."""
     out = x
     for li, params in enumerate(layers):
         out = bilstm_layer(out, params, proj_dtype=proj_dtype, recurrence=recurrence)
-        if dropout_rate > 0.0 and training and li < len(layers) - 1:
-            out = F.dropout(out, dropout_rate, training=True)
+        if training and li < len(layers) - 1:
+            out = dropout(out, dropout_rate, generator)
     return out

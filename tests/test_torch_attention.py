@@ -86,7 +86,7 @@ def _modules(t, dtype, backend):
                     backend="xla")
     variables = jm.init(jax.random.key(0), jnp.asarray(x), train=False)
     ref = np.asarray(jm.apply(variables, jnp.asarray(x), train=False).astype(jnp.float32))
-    pm = MultiHeadSelfAttention(hidden, heads, backend=backend)
+    pm = MultiHeadSelfAttention(hidden, heads, backend=backend).eval()
     p = jax.tree.map(np.asarray, variables["params"])
     with torch.no_grad():
         for name in ("qkv", "proj"):

@@ -1,5 +1,5 @@
-"""The PyTorch port and chip_smoke.py import neither JAX nor flax nor the
-JAX package: checked in a fresh interpreter (tests/conftest.py imports jax
+"""The PyTorch port and chip_smoke.py import neither JAX, flax, optax nor
+pandas, nor the JAX package: checked in a fresh interpreter (tests/conftest.py imports jax
 into this one) and by scanning the sources' import statements."""
 
 import ast
@@ -13,7 +13,7 @@ import music_transcription_tpu_torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG_DIR = os.path.dirname(music_transcription_tpu_torch.__file__)
-FORBIDDEN = ("jax", "flax", "music_transcription_tpu")
+FORBIDDEN = ("jax", "flax", "optax", "pandas", "music_transcription_tpu")
 
 
 def _forbidden(name: str) -> bool:

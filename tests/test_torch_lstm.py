@@ -1,10 +1,15 @@
-"""PyTorch port: the fused-direction BiLSTM and the K1 recurrence wrapper.
+"""PyTorch port: the fused-direction BiLSTM and the recurrence wrappers
+(K1; K2a/K2b and the ``LSTMRecurrence`` autograd Function).
 
 The plain recurrence is held against the JAX Pallas kernel run in interpret
 mode (as tests/test_lstm_pallas.py runs it) and against the JAX scan
 BiLSTM, at atol 1e-5 in fp32; a stack with loaded weights against
-torch.nn.LSTM. The hand-written kernel is held against the plain version on
-the card in tests/test_torch_gpu.py.
+torch.nn.LSTM. K2a's plain version (h and c) is held against
+``_lstm_recurrence_fwd_impl``, K2b's and ``LSTMRecurrence``'s gradients
+against the JAX custom VJP (``jax.grad`` through ``lstm_recurrence``), within
+1e-5 of the gradient's largest magnitude, and against autograd through the
+plain forward. The hand-written kernels are held against the plain versions
+on the card in tests/test_torch_gpu.py.
 """
 
 import functools
@@ -101,8 +106,101 @@ def test_inter_layer_dropout_only_in_training():
     x = torch.from_numpy(rng.standard_normal((2, 5, 6)).astype(np.float32))
     base = L.bilstm_stack(x, params, dropout_rate=0.5, training=False)
     assert torch.equal(base, L.bilstm_stack(x, params))
-    torch.manual_seed(0)
-    assert not torch.equal(base, L.bilstm_stack(x, params, dropout_rate=0.5, training=True))
+
+    def gen():
+        return torch.Generator().manual_seed(0)
+
+    dropped = L.bilstm_stack(x, params, dropout_rate=0.5, training=True, generator=gen())
+    assert not torch.equal(base, dropped)
+    # the masks come from the generator passed in, and only from it
+    assert torch.equal(dropped, L.bilstm_stack(x, params, dropout_rate=0.5, training=True,
+                                               generator=gen()))
+    with pytest.raises(ValueError, match="explicit torch.Generator"):
+        L.bilstm_stack(x, params, dropout_rate=0.5, training=True)
     one = params[:1]  # no dropout after the last layer
-    assert torch.equal(L.bilstm_stack(x, one, dropout_rate=0.5, training=True), L.bilstm_stack(x, one))
+    assert torch.equal(L.bilstm_stack(x, one, dropout_rate=0.5, training=True, generator=gen()),
+                       L.bilstm_stack(x, one))
+
+
+def _recurrence_inputs(b, t, h, seed):
+    rng = np.random.default_rng(seed)
+    xw = rng.standard_normal((2 * b, t, 4 * h)).astype(np.float32)
+    wh = (0.5 * rng.standard_normal((2, h, 4 * h))).astype(np.float32)
+    dh = rng.standard_normal((2 * b, t, h)).astype(np.float32)
+    return xw, wh, dh
+
+
+def _close(got, ref, rel=1e-5):
+    got, ref = np.asarray(got), np.asarray(ref)
+    assert got.shape == ref.shape
+    assert np.abs(got - ref).max() <= rel * max(1.0, np.abs(ref).max())
+
+
+SHAPES = [(3, 17, 8), (1, 9, 16), (2, 1, 4)]
+
+
+@pytest.mark.parametrize("b,t,h", SHAPES)
+def test_k2a_plain_matches_pallas_fwd_impl(interpret_pallas, b, t, h):
+    xw, wh, _ = _recurrence_inputs(b, t, h, seed=10 + t)
+    ref_h, (_, _, c_tm, _) = JLP._lstm_recurrence_fwd_impl(jnp.asarray(xw), jnp.asarray(wh))
+    got_h, got_c = LK.lstm_recurrence_fwd_plain(torch.from_numpy(xw), torch.from_numpy(wh))
+    _close(got_h.numpy(), ref_h)
+    _close(got_c.numpy(), np.swapaxes(np.asarray(c_tm)[:t], 0, 1))
+    # the CPU wrapper is the plain version, with no launch counted
+    before = LK.lstm_recurrence_fwd.launches
+    h2, c2 = LK.lstm_recurrence_fwd(torch.from_numpy(xw), torch.from_numpy(wh))
+    assert torch.equal(h2, got_h) and torch.equal(c2, got_c)
+    assert LK.lstm_recurrence_fwd.launches == before
+
+
+@pytest.mark.parametrize("b,t,h", SHAPES)
+def test_k2b_plain_and_lstm_recurrence_match_jax_custom_vjp(interpret_pallas, b, t, h):
+    xw, wh, dh = _recurrence_inputs(b, t, h, seed=20 + t)
+    # the JAX package's custom VJP: K2b for dxw, the einsum for dW_hh
+    _, residuals = JLP._lstm_recurrence_fwd(jnp.asarray(xw), jnp.asarray(wh))
+    ref_dxw, ref_dwh = JLP._lstm_recurrence_bwd(residuals, jnp.asarray(dh))
+    # and jax.grad through it
+    grad_xw, grad_wh = jax.grad(lambda a, w: jnp.sum(JLP.lstm_recurrence(a, w) * dh),
+                                argnums=(0, 1))(jnp.asarray(xw), jnp.asarray(wh))
+    _close(grad_xw, ref_dxw)
+    _close(grad_wh, ref_dwh)
+
+    txw, twh, tdh = (torch.from_numpy(a) for a in (xw, wh, dh))
+    h_seq, c_seq = LK.lstm_recurrence_fwd_plain(txw, twh)
+    dxw = LK.lstm_recurrence_bwd_plain(txw, twh, h_seq, c_seq, tdh)
+    _close(dxw.numpy(), ref_dxw)
+    _close(LK.recurrent_weight_grad(h_seq, dxw).numpy(), ref_dwh)
+
+    a, w = txw.clone().requires_grad_(), twh.clone().requires_grad_()
+    before = LK.lstm_recurrence_bwd.launches
+    got_xw, got_wh = torch.autograd.grad(LK.LSTMRecurrence.apply(a, w), (a, w), tdh)
+    assert LK.lstm_recurrence_bwd.launches == before  # CPU: the plain version
+    _close(got_xw.numpy(), grad_xw)
+    _close(got_wh.numpy(), grad_wh)
+
+
+@pytest.mark.parametrize("b,t,h", SHAPES)
+def test_lstm_recurrence_matches_autograd_through_plain(b, t, h):
+    xw, wh, dh = (torch.from_numpy(a) for a in _recurrence_inputs(b, t, h, seed=30 + t))
+    grads = []
+    for fn in (LK.LSTMRecurrence.apply, LK.lstm_recurrence_plain):
+        a, w = xw.clone().requires_grad_(), wh.clone().requires_grad_()
+        out = fn(a, w)
+        grads.append((out.detach(),) + torch.autograd.grad(out, (a, w), dh))
+    for got, ref in zip(*grads):
+        _close(got.numpy(), ref.numpy())
+
+
+def test_recurrence_routes_on_grad_mode():
+    """A gradient wanted -> LSTMRecurrence (its output has a grad_fn); under
+    no_grad or inference_mode -> K1, as in serving."""
+    xw, wh, _ = (torch.from_numpy(a) for a in _recurrence_inputs(1, 5, 4, seed=40))
+    a, w = xw.clone().requires_grad_(), wh.clone().requires_grad_()
+    out = LK.recurrence(a, w)
+    assert out.grad_fn is not None and "LSTMRecurrence" in type(out.grad_fn).__name__
+    with torch.no_grad():
+        assert LK.recurrence(a, w).grad_fn is None
+    with torch.inference_mode():
+        assert torch.equal(LK.recurrence(a, w), LK.lstm_recurrence_plain(xw, wh))
+    assert LK.recurrence(xw, wh).grad_fn is None
 

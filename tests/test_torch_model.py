@@ -16,10 +16,11 @@ import torch
 
 from music_transcription_tpu.config import AudioConfig as JAudioConfig
 from music_transcription_tpu.config import ModelConfig as JModelConfig
+from music_transcription_tpu.config import TrainConfig as JTrainConfig
 from music_transcription_tpu.models.transcription import TranscriptionModel as JModel
 from music_transcription_tpu.train.checkpoints import export_torch_state_dict, save_torch_checkpoint
 from music_transcription_tpu_torch.checkpoints import load_torch_checkpoint, state_dict_from_jax
-from music_transcription_tpu_torch.config import AudioConfig, ModelConfig
+from music_transcription_tpu_torch.config import AudioConfig, ModelConfig, TrainConfig, config_to_dict
 from music_transcription_tpu_torch.models.transcription import TranscriptionModel
 
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
@@ -93,7 +94,9 @@ def test_ast_is_not_ported_and_training_forward_raises():
     with pytest.raises(NotImplementedError, match="AST tier not yet ported"):
         TranscriptionModel(ModelConfig(model_type="ast"))
     pm = TranscriptionModel(ModelConfig(n_mels=16, hidden_size=8, num_layers=1))
-    with pytest.raises(NotImplementedError):
+    # the training forward draws its dropout masks from an explicit generator
+    # only: without one it raises rather than use the global RNG
+    with pytest.raises(ValueError, match="explicit torch.Generator"):
         pm.train()(torch.zeros(1, 16, 4))
 
 
@@ -109,6 +112,14 @@ def test_predict_thresholds_sigmoid():
 
 
 def test_config_copies_keep_the_jax_fields_and_defaults():
-    for ours, ref in ((AudioConfig, JAudioConfig), (ModelConfig, JModelConfig)):
+    for ours, ref in ((AudioConfig, JAudioConfig), (ModelConfig, JModelConfig),
+                      (TrainConfig, JTrainConfig)):
         assert [(f.name, f.default) for f in dataclasses.fields(ours)] == \
             [(f.name, f.default) for f in dataclasses.fields(ref)]
+    # a parameters.json section written by either package loads in the other
+    train = config_to_dict(JTrainConfig(epochs=3, partitioning="dp", stall_timeout_s=5.0))
+    assert config_to_dict(TrainConfig(**train)) == train
+    for bad in (dict(save_best_every=0), dict(save_every=-1)):
+        for cls in (TrainConfig, JTrainConfig):
+            with pytest.raises(ValueError):
+                cls(**bad)
