@@ -21,11 +21,14 @@ Phases, in order; any failure exits non-zero:
   4. the long-window route (-w 120) on a seeded ~8 min WAV (4 windows):
      the clamped flash kernel K3 must run and the MIDI must decode; time a
      warm request and break it down as in phase 3;
-  5. hold the training kernels K2a and K2b against their plain versions at
-     the training shapes (batch 24: 2B=48, T=938, H=512 and 256) and time
-     them, their plain versions and cuDNN's bidirectional LSTM forward and
-     backward; the LSTMRecurrence gradient against autograd through the
-     plain recurrence;
+  5. hold the training kernels against their plain versions at the training
+     shapes and time them: K2a and K2b (batch 24: 2B=48, T=938, H=512 and
+     256) beside cuDNN's bidirectional LSTM forward and backward, and the
+     LSTMRecurrence gradient against autograd through the plain recurrence;
+     K3 with lse, K4a and K4b (B=24, T=938, 8 heads of 192) in bf16 and
+     fp32, element by element, with the scores of a backward without the
+     clamp gate and of one skipping the last partial key tile, both of
+     which must fail the bound;
   6. train the default 89M cnn_rnn_large (TrainConfig defaults, batch 24)
      through the training CLI on a seeded synthetic cache written here (48
      train and 24 validation chunks of 30 s): 2 epochs of 2 steps with the
@@ -34,7 +37,18 @@ Phases, in order; any failure exits non-zero:
      batch; model_best must serve the phase-3 WAV; --resume auto must
      continue from model_epoch_2. Then time warm train steps, profile one,
      and hold one full-width fp32 step on the card against the CPU;
-  7. print the kernels line (JSON: launches on the main path, error against
+  7. the same through the flash attention: ModelConfig(attention_backend=
+     "pallas") into train/loop.train_model on the same cache, 2 epochs of 2
+     steps. Per train step K3 with lse, K4a and K4b must rise by 1 and K2a,
+     K2b by 4; per validation batch K3 (no lse) by 1 and K1 by 4; model_best's
+     sidecar must say "pallas". Warm steps timed beside phase 6's, one
+     profiled, and one full-width fp32 flash step on the card against the CPU;
+  8. evaluate on the card with python -m music_transcription_tpu_torch.evaluate
+     (in this process): phase 7's model_best on the cache's validation split
+     with a tuned threshold (K1 4 and K3 1 per batch of 8), and phase 6's
+     model_best at --window 120 on a seeded raw MAESTRO-layout tree written
+     here, where "auto" must take K3;
+  9. print the kernels line (JSON: launches on the main path, error against
      the plain version, times, bound; a failed check has already exited),
      the card's name and power limit, and as the last line
      {"ok": true, "device": {...}}.
@@ -42,6 +56,7 @@ Phases, in order; any failure exits non-zero:
 Exits non-zero, printing no result, when no CUDA device is visible.
 """
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -295,6 +310,165 @@ def check_k3(torch, ak, rows):
     return record
 
 
+# K3 with lse, K4a and K4b against their plain versions, element by element:
+#   |got - ref| <= rtol |ref| + ptol m,
+# m the same product over magnitudes: |dS| |K| for dq, |dS|^T |Q| for dk,
+# P^T |dO| for dv. bf16: both versions round dS and p to bf16 before the
+# products; where their fp32 values straddle a rounding boundary, a term
+# comes out one bf16 unit (up to 2^-7 of it, so up to 2^-7 m) apart, and the
+# bound allows two such terms of the largest size: ptol 2^-6. Both round the
+# fp32 results to bf16 (a unit, 2^-8 |ref|, apart at most): rtol 2^-7. fp32:
+# summation order only. The forward's o is held to K3_TOL, its lse to
+# 1e-5 |lse| + 1e-5 (fp32 summation order).
+K4_TOL = {"bfloat16": (2.0**-7, 2.0**-6), "float32": (1e-4, 1e-5)}
+K4_KEY_TILE = {"bfloat16": 64, "float32": 32}  # K4a's key tile
+
+
+def attention_grad_terms(torch, q, k, v, o, do, lse, scale, clip, *, gate=True, keys=None):
+    """fp32 (dq, dk, dv) of the clamped attention from the first ``keys``
+    keys (dk and dv 0 past them), with or without the clamp gate on dS, and
+    their magnitudes (|dS| |K|, |dS|^T |Q|, P^T |dO|); all (B, T, H, D)."""
+    q, k, v, o, do = (x.float() for x in (q, k, v, o, do))
+    keys = q.shape[1] if keys is None else keys
+    ks, vs = k[:, :keys], v[:, :keys]
+    z = torch.einsum("bthd,bshd->bhts", q, ks) * scale
+    p = torch.exp(torch.clamp(z, -clip, clip) - lse[..., None])
+    delta = (do * o).sum(-1).permute(0, 2, 1)[..., None]
+    ds = p * (torch.einsum("bthd,bshd->bhts", do, vs) - delta) * scale
+    if gate:
+        ds = torch.where((z >= -clip) & (z <= clip), ds, torch.zeros_like(ds))
+    del z, delta
+
+    def pad(x):  # key rows past ``keys`` get no gradient
+        return torch.nn.functional.pad(x, (0, 0, 0, 0, 0, q.shape[1] - keys))
+
+    grads = (torch.einsum("bhts,bshd->bthd", ds, ks),
+             pad(torch.einsum("bhts,bthd->bshd", ds, q)),
+             pad(torch.einsum("bhts,bthd->bshd", p, do)))
+    ds = ds.abs_()
+    mags = (torch.einsum("bhts,bshd->bthd", ds, ks.abs()),
+            pad(torch.einsum("bhts,bthd->bshd", ds, q.abs())),
+            pad(torch.einsum("bhts,bthd->bshd", p, do.abs())))
+    return grads, mags
+
+
+def k4_score(got, ref, mag, dtype: str) -> float:
+    """Largest |got - ref| / (rtol |ref| + ptol m) over dq, dk, dv: <= 1 passes."""
+    rtol, ptol = K4_TOL[dtype]
+    return max(float(((g.float() - r.float()).abs() / (rtol * r.float().abs() + ptol * m)).max())
+               for g, r, m in zip(got, ref, mag))
+
+
+def check_k4(torch, ak, rows):
+    """K3 with lse, K4a and K4b against their plain versions at the training
+    shape (batch 24: B=24, T=938, 8 heads of 192), bf16 (the training path)
+    and fp32 (compute_dtype="float32"), q scaled so that the clamp binds on
+    a share of the logits. Returns the bf16 records of the three."""
+    from music_transcription_tpu_torch.ops.precision import full_fp32
+
+    rng = np.random.default_rng(SEED + 8)
+    b, t, nh, d = 24, 938, 8, 192
+    scale, clip = d**-0.5, 10.0
+    q32, k32, v32, do32 = (torch.from_numpy(m * rng.standard_normal((b, t, nh, d))
+                                            .astype(np.float32)).cuda()
+                           for m in (6.0, 1.0, 1.0, 1.0))
+    clamped = float(((torch.einsum("bthd,bshd->bhts", q32[:1], k32[:1]) * scale).abs() > clip)
+                    .float().mean())
+    records = {}
+    for dtype, elt in (("bfloat16", 2.0), ("float32", 4.0)):
+        q, k, v, do = (x.to(getattr(torch, dtype)) for x in (q32, k32, v32, do32))
+        with full_fp32():
+            o, lse = ak.flash_attention_clamped_fwd(q, k, v, scale, clip)
+            ref_o, ref_lse = ak.attention_clamped_fwd_plain(q, k, v, scale, clip)
+            ref_abs_v = ak.attention_clamped_plain(q, k, v.abs(), scale, clip)
+            # the backward's inputs are the plain forward's, for both versions
+            dq = ak.flash_attention_clamped_dq(q, k, v, ref_o, do, ref_lse, scale, clip)
+            dk, dv = ak.flash_attention_clamped_dkv(q, k, v, ref_o, do, ref_lse, scale, clip)
+            ref = ak.attention_clamped_bwd_plain(q, k, v, ref_o, do, ref_lse, scale, clip)
+            torch.cuda.synchronize()
+            fwd_score = k3_score(o, ref_o, ref_abs_v, dtype)
+            lse_err = float((lse - ref_lse).abs().max())
+            lse_ok = bool(((lse - ref_lse).abs() <= 1e-5 * ref_lse.abs() + 1e-5).all())
+            del ref_abs_v
+            _, mag = attention_grad_terms(torch, q, k, v, ref_o, do, ref_lse, scale, clip)
+            got = (dq, dk, dv)
+            score = k4_score(got, ref, mag, dtype)
+            # what a backward without the clamp gate, or one that skipped the
+            # last partial key tile, would give
+            ungated, _ = attention_grad_terms(torch, q, k, v, ref_o, do, ref_lse, scale, clip,
+                                              gate=False)
+            fault_gate = k4_score(ungated, ref, mag, dtype)
+            del ungated
+            kept = t // K4_KEY_TILE[dtype] * K4_KEY_TILE[dtype]
+            skipped, _ = attention_grad_terms(torch, q, k, v, ref_o, do, ref_lse, scale, clip,
+                                              keys=kept)
+            fault_tile = k4_score(skipped, ref, mag, dtype)
+            del skipped, mag
+            errs = [float((g.float() - r.float()).abs().max()) for g, r in zip(got, ref)]
+            fwd_ms = cuda_ms(lambda: ak.flash_attention_clamped_fwd(q, k, v, scale, clip), reps=5)
+            dq_ms = cuda_ms(lambda: ak.flash_attention_clamped_dq(q, k, v, ref_o, do, ref_lse,
+                                                                  scale, clip), reps=5)
+            dkv_ms = cuda_ms(lambda: ak.flash_attention_clamped_dkv(q, k, v, ref_o, do, ref_lse,
+                                                                    scale, clip), reps=5)
+            fwd_plain_ms = cuda_ms(lambda: ak.attention_clamped_fwd_plain(q, k, v, scale, clip),
+                                   reps=2)
+            bwd_plain_ms = cuda_ms(lambda: ak.attention_clamped_bwd_plain(
+                q, k, v, ref_o, do, ref_lse, scale, clip), reps=2)
+        peak = PEAK_BF16 if dtype == "bfloat16" else PEAK_FP32
+        prod = 2.0 * b * nh * t * t * d  # one (T x T) by D product of every head
+        x_bytes, lse_bytes = elt * q.numel(), 4.0 * lse.numel()
+        # K3: q k^T, P v; K4a: + dO v^T, dS k; K4b: q k^T, dO v^T, P^T dO, dS^T q.
+        # Bytes: q, k, v (and o, dO, lse) read once, o / dq / dk and dv written once
+        bounds = {"K3+lse": bound(2 * prod, peak, 4 * x_bytes + lse_bytes),
+                  "K4a": bound(3 * prod, peak, 6 * x_bytes + lse_bytes),
+                  "K4b": bound(4 * prod, peak, 7 * x_bytes + lse_bytes)}
+        ok = (fwd_score <= 1.0 and lse_ok and score <= 1.0 and fault_gate > 1.0
+              and fault_tile > 1.0 and all(bool(torch.isfinite(g.float()).all()) for g in got))
+        rtol, ptol = K4_TOL[dtype]
+        rows.append(
+            f"K3+lse/K4a/K4b {dtype} B={b} T={t} heads={nh} D={d}: o worst |err|/K3_TOL "
+            f"{fwd_score:.3f}, lse max_abs_err {lse_err:.3e}; dq/dk/dv max_abs_err "
+            f"{errs[0]:.3e}/{errs[1]:.3e}/{errs[2]:.3e}, worst |err|/({rtol:g}|ref| + {ptol:g}m) "
+            f"{score:.3f} (a backward without the clamp gate: {fault_gate:.1f}; one skipping "
+            f"the last {t - kept} keys: {fault_tile:.1f}), clamped share {clamped:.4f}; "
+            f"ms K3+lse {fwd_ms:.4f} K4a {dq_ms:.4f} K4b {dkv_ms:.4f}; plain ms fwd "
+            f"{fwd_plain_ms:.3f} bwd {bwd_plain_ms:.3f}; bound ms "
+            + ", ".join(f"{n} {v[0]:.4f} ({v[1]})" for n, v in bounds.items())
+            + f" {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(rows[-1])
+        if dtype == "bfloat16":
+            for name, err, ms, plain_ms in (("K3+lse", float((o.float() - ref_o.float()).abs().max()),
+                                             fwd_ms, fwd_plain_ms),
+                                            ("K4a", errs[0], dq_ms, bwd_plain_ms),
+                                            ("K4b", max(errs[1:]), dkv_ms, bwd_plain_ms)):
+                records[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                     bound_ms=bounds[name][0], bound_by=bounds[name][1],
+                                     library_ms=None)
+        del q, k, v, do, o, lse, ref_o, ref_lse, dq, dk, dv, ref, got
+    return records
+
+
+def conv_stage_bounds() -> dict:
+    """Bounds of K5 and K6, still to port, at the stages of the default
+    cnn_rnn_large they would replace on the 30 s route (4 chunks: B=4, 320
+    mel bins, T=938, bf16): conv1 + BN + ReLU + pool (K5), res_block1 + pool
+    and res_block2 (K6, its two 3x3 convs and the 1x1 skip). Operations at
+    the bf16 tensor-core peak; bytes: input, weights and output once."""
+    b, t = 4, 938
+    out = {}
+    for name, f, c_in, convs, c_out, pool in (
+            ("K5 conv1+pool", 320, 1, [(9, 1, 32)], 32, True),
+            ("K6 res_block1+pool", 160, 32, [(9, 32, 64), (9, 64, 64), (1, 32, 64)], 64, True),
+            ("K6 res_block2", 80, 64, [(9, 64, 128), (9, 128, 128), (1, 64, 128)], 128, False)):
+        pixels = b * f * t
+        weights = sum(k * ci * co for k, ci, co in convs)
+        flops = 2.0 * pixels * weights
+        nbytes = 2.0 * (pixels * c_in + weights + pixels * c_out // (2 if pool else 1))
+        out[name] = (flops, nbytes, *bound(flops, PEAK_BF16, nbytes))
+    return out
+
+
 def device_time_by_kernel(prof, wall_s: float, top: int = 12):
     """Print a profile's device busy time, idle share and top kernels."""
     from torch.autograd import DeviceType
@@ -384,22 +558,76 @@ def write_train_cache(path, acfg, seed: int, n_train: int = 48, n_val: int = 24)
             "n_mels": acfg.n_mels, "sr": acfg.sample_rate, "hop_length": acfg.hop_length})
 
 
-def train_phase(torch, lk, ak, wav30, rows):
-    """Phase 6. Returns the main path's launch counts."""
-    from music_transcription_tpu_torch.config import AudioConfig, ModelConfig, TrainConfig
-    from music_transcription_tpu_torch.data.cache import HybridMaestroDataset
-    from music_transcription_tpu_torch.data.midi import load_midi
-    from music_transcription_tpu_torch.data.pipeline import DeviceStagedLoader
-    from music_transcription_tpu_torch.models.cnn_rnn import CNNRNNLarge
-    from music_transcription_tpu_torch.models.transcription import TranscriptionModel
-    from music_transcription_tpu_torch.parallel.train_step import (
-        TrainState,
-        init_train_state,
-        train_step,
-    )
-    from music_transcription_tpu_torch.train import __main__ as train_cli
+def write_maestro_tree(root, seed: int, seconds: float = 121.0, pieces: int = 2) -> None:
+    """A seeded raw MAESTRO-v3 layout (CSV + WAV + MIDI): ``pieces`` recordings
+    of the test split, each a ``write_wav`` signal with a MIDI file of random
+    notes."""
+    import csv
+
+    from music_transcription_tpu_torch.data import midi as midi_io
+
+    rng = np.random.default_rng(seed)
+    rows = []
+    for i in range(pieces):
+        rel_wav, rel_mid = f"2018/piece{i}.wav", f"2018/piece{i}.midi"
+        os.makedirs(os.path.join(root, "2018"), exist_ok=True)
+        write_wav(os.path.join(root, rel_wav), seconds, seed + i)
+        starts = np.sort(rng.random(200) * (seconds - 1.0))
+        notes = [midi_io.Note(pitch=int(p), start=float(s), end=float(s + d), velocity=80)
+                 for p, s, d in zip(rng.integers(30, 100, 200), starts, 0.1 + rng.random(200))]
+        midi_io.save_midi(midi_io.notes_to_midi(notes), os.path.join(root, rel_mid))
+        rows.append({"canonical_composer": "Seeded", "canonical_title": f"Piece {i}",
+                     "split": "test", "year": 2018, "midi_filename": rel_mid,
+                     "audio_filename": rel_wav, "duration": seconds})
+    with open(os.path.join(root, "maestro-v3.0.0.csv"), "w", newline="") as f:
+        writer = csv.DictWriter(f, fieldnames=list(rows[0]))
+        writer.writeheader()
+        writer.writerows(rows)
+
+
+def run_evaluate(argv) -> dict:
+    """``python -m music_transcription_tpu_torch.evaluate`` in this process
+    (so that its launches are counted): its EVAL_* lines, or raises."""
+    import io
+
+    from music_transcription_tpu_torch import evaluate
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = evaluate.main(argv)
+    if rc != 0:
+        raise AssertionError(f"evaluate {argv} exited {rc}:\n{out.getvalue()[-3000:]}")
+    return {line.split("=")[0]: float(line.split("=")[1]) for line in out.getvalue().splitlines()
+            if line.startswith("EVAL_")}
+
+
+@contextlib.contextmanager
+def recorded_steps():
+    """train/loop's train steps, recorded with their host time (each ends in
+    a host read of its loss): yields the list they are appended to."""
     from music_transcription_tpu_torch.train import loop as train_loop
-    from music_transcription_tpu_torch.train.optim import make_optimizer
+
+    steps, real_step = [], train_loop.train_step
+
+    def recorded_step(*args, **kwargs):
+        t_start = time.perf_counter()
+        metrics = real_step(*args, **kwargs)
+        steps.append(dict(metrics, ms=(time.perf_counter() - t_start) * 1e3))
+        return metrics
+
+    train_loop.train_step = recorded_step
+    try:
+        yield steps
+    finally:
+        train_loop.train_step = real_step
+
+
+def train_phase(torch, lk, ak, wav30, rows):
+    """Phase 6. Returns the main path's launch counts, the median warm step
+    (ms) and the path of model_best."""
+    from music_transcription_tpu_torch.config import AudioConfig, ModelConfig, TrainConfig
+    from music_transcription_tpu_torch.data.midi import load_midi
+    from music_transcription_tpu_torch.train import __main__ as train_cli
     from music_transcription_tpu_torch.transcribe import transcribe_audio
 
     acfg, mcfg, tcfg = AudioConfig(), ModelConfig(), TrainConfig()
@@ -410,31 +638,20 @@ def train_phase(torch, lk, ak, wav30, rows):
     print(f"[6] training: cache of 48 train + 24 validation chunks written in "
           f"{time.perf_counter() - t0:.1f} s")
 
-    # the loop's steps, recorded (each ends in a host read of its loss)
-    steps = []
-    real_step = train_loop.train_step
-
-    def recorded_step(*args, **kwargs):
-        t_start = time.perf_counter()
-        metrics = real_step(*args, **kwargs)
-        steps.append(dict(metrics, ms=(time.perf_counter() - t_start) * 1e3))
-        return metrics
-
-    train_loop.train_step = recorded_step
     argv = ["--cache_dir", cache_dir, "--root_dir", os.path.join(WORK, "no_raw_audio"),
             "--run_dir", run_dir, "--save_every", "1", "--device_data", "on",
             "--num_workers", "4", "--seed", str(SEED)]
-    for counter in (lk.lstm_recurrence, lk.lstm_recurrence_fwd, lk.lstm_recurrence_bwd,
-                    ak.flash_attention_clamped):
-        counter.launches = 0
-    t0 = time.perf_counter()
-    rc = train_cli.main(argv + ["--epochs", "2"])
-    wall = time.perf_counter() - t0
-    launches = {"lstm_recurrence": lk.lstm_recurrence.launches,
-                "lstm_recurrence_fwd": lk.lstm_recurrence_fwd.launches,
-                "lstm_recurrence_bwd": lk.lstm_recurrence_bwd.launches,
-                "flash_attention_clamped": ak.flash_attention_clamped.launches}
-    train_loop.train_step = real_step
+    with recorded_steps() as steps:
+        for counter in (lk.lstm_recurrence, lk.lstm_recurrence_fwd, lk.lstm_recurrence_bwd,
+                        ak.flash_attention_clamped):
+            counter.launches = 0
+        t0 = time.perf_counter()
+        rc = train_cli.main(argv + ["--epochs", "2"])
+        wall = time.perf_counter() - t0
+        launches = {"lstm_recurrence": lk.lstm_recurrence.launches,
+                    "lstm_recurrence_fwd": lk.lstm_recurrence_fwd.launches,
+                    "lstm_recurrence_bwd": lk.lstm_recurrence_bwd.launches,
+                    "flash_attention_clamped": ak.flash_attention_clamped.launches}
     with open(os.path.join(run_dir, "training_log.txt")) as f:
         log = [line.split() for line in f if line.strip()]
     losses = [float(r[k].split("=")[1]) for r in log for k in (2, 3)]
@@ -474,7 +691,21 @@ def train_phase(torch, lk, ak, wav30, rows):
     if rc != 0 or epochs != [1, 2, 3] or start_epoch != 3 or final_step != 6:
         raise AssertionError("--resume auto did not continue from model_epoch_2")
 
-    # warm steps, timed, and one profiled
+    ms, _ = time_train_steps(torch, mcfg, tcfg, acfg, cache_dir)
+    check_fp32_step(torch, mcfg, tcfg, rows)
+    return launches, ms, best
+
+
+def time_train_steps(torch, mcfg, tcfg, acfg, cache_dir):
+    """Warm train steps of ``mcfg`` (the recurrence on K2a/K2b) on the staged
+    train split, timed (median of 6), peak memory, and one step profiled.
+    Returns (median ms, peak bytes)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from music_transcription_tpu_torch.data.cache import HybridMaestroDataset
+    from music_transcription_tpu_torch.data.pipeline import DeviceStagedLoader
+    from music_transcription_tpu_torch.parallel.train_step import init_train_state, train_step
+
     train_set = HybridMaestroDataset(cache_dir, cache_dir, "train", chunk_length=30.0,
                                      verbose=False)
     loader = DeviceStagedLoader(train_set, tcfg.batch_size, device="cuda", shuffle=True,
@@ -493,12 +724,10 @@ def train_phase(torch, lk, ak, wav30, rows):
     peak = torch.cuda.max_memory_allocated()
     ms = float(np.median(times))
     audio_s = tcfg.batch_size * acfg.chunk_length
-    print(f"    warm train step (batch {tcfg.batch_size}, T={acfg.mel_frames_per_chunk}): "
-          f"median {ms:.1f} ms of {[round(t, 1) for t in times]}; "
+    print(f"    warm train step, attention {mcfg.attention_backend!r} (batch {tcfg.batch_size}, "
+          f"T={acfg.mel_frames_per_chunk}): median {ms:.1f} ms of {[round(t, 1) for t in times]}; "
           f"{tcfg.batch_size / ms * 1e3:.2f} samples/s, {audio_s / ms * 1e3:.1f} audio-s/s; "
           f"peak memory {peak / 2**30:.2f} GiB; loss {metrics['loss']:.5f}")
-    from torch.profiler import ProfilerActivity, profile
-
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t_start = time.perf_counter()
         train_step(state, batches[7], SEED + 1, max_grad_norm=1.0)
@@ -507,8 +736,17 @@ def train_phase(torch, lk, ak, wav30, rows):
     print("    one train step under torch.profiler:")
     device_time_by_kernel(prof, wall, top=15)
     del state, loader, batches
+    return ms, peak
 
-    # one full-width fp32 step, dropout 0, on the card against the CPU
+
+def check_fp32_step(torch, mcfg, tcfg, rows) -> None:
+    """One full-width fp32 step of ``mcfg``, dropout 0, on the card against
+    the CPU, held to the GRAD_TOL classes."""
+    from music_transcription_tpu_torch.models.cnn_rnn import CNNRNNLarge
+    from music_transcription_tpu_torch.models.transcription import TranscriptionModel
+    from music_transcription_tpu_torch.parallel.train_step import TrainState, train_step
+    from music_transcription_tpu_torch.train.optim import make_optimizer
+
     saved_rates = CNNRNNLarge.CHANNEL_DROPOUT
     CNNRNNLarge.CHANNEL_DROPOUT = (0.0, 0.0, 0.0)
     try:
@@ -536,13 +774,120 @@ def train_phase(torch, lk, ak, wav30, rows):
     loss_err = abs(got["loss"] - ref["loss"]) / abs(ref["loss"])
     worst = grad_agreement(torch, models[0], models[1])
     ok = loss_err <= 1e-4 and all(w[0] <= GRAD_TOL[k] for k, w in worst.items())
-    rows.append(f"train step fp32 full width, T=63, card vs CPU: loss rel err {loss_err:.3e} "
-                f"(tol 1e-4); gradients, worst of each class (tol): " + ", ".join(
-                    f"{k} {w[0]:.3e} at {w[1]} ({GRAD_TOL[k]:g})" for k, w in worst.items())
+    rows.append(f"train step fp32 full width, attention {mcfg.attention_backend!r}, T=63, card "
+                f"vs CPU: loss rel err {loss_err:.3e} (tol 1e-4); gradients, worst of each class "
+                f"(tol): " + ", ".join(f"{k} {w[0]:.3e} at {w[1]} ({GRAD_TOL[k]:g})"
+                                       for k, w in worst.items())
                 + f" {'ok' if ok else 'FAIL'}")
     print("    " + rows[-1])
     if not ok:
         raise AssertionError(rows[-1])
+
+
+def flash_train_phase(torch, lk, ak, rows, xla_ms):
+    """Phase 7: the default model with attention_backend="pallas" through
+    train/loop.train_model on the phase-6 cache staged on the card, 2 epochs
+    of 2 steps. Returns the main path's launch counts and the path of
+    model_best."""
+    from music_transcription_tpu_torch.config import AudioConfig, ModelConfig, TrainConfig
+    from music_transcription_tpu_torch.data.cache import HybridMaestroDataset
+    from music_transcription_tpu_torch.data.pipeline import DeviceStagedLoader
+    from music_transcription_tpu_torch.train import loop as train_loop
+
+    acfg = AudioConfig()
+    tcfg = TrainConfig(epochs=2, save_every=1, seed=SEED)
+    mcfg = ModelConfig(attention_backend="pallas", lstm_backend="pallas")
+    cache_dir, run_dir = os.path.join(WORK, "train_cache"), os.path.join(WORK, "flash_run")
+    shutil.rmtree(run_dir, ignore_errors=True)
+
+    def staged(split, **kw):
+        data = HybridMaestroDataset(cache_dir, cache_dir, split, chunk_length=30.0, verbose=False)
+        return DeviceStagedLoader(data, tcfg.batch_size, device="cuda", seed=SEED,
+                                  pad_to=acfg.mel_frames_per_chunk, bf16_fields=(0,),
+                                  u8_fields=(1,), **kw)
+
+    train_loader = staged("train", shuffle=True, drop_last=True)
+    val_loader = staged("validation", pad_last_batch=True)
+    counters = {c.__name__: c for c in (
+        lk.lstm_recurrence, lk.lstm_recurrence_fwd, lk.lstm_recurrence_bwd,
+        ak.flash_attention_clamped, ak.flash_attention_clamped_fwd,
+        ak.flash_attention_clamped_dq, ak.flash_attention_clamped_dkv)}
+    with recorded_steps() as steps:
+        for counter in counters.values():
+            counter.launches = 0
+        t0 = time.perf_counter()
+        _, history = train_loop.train_model(
+            model_cfg=mcfg, train_cfg=tcfg, audio_cfg=acfg, train_loader=train_loader,
+            val_loader=val_loader, run_dir=run_dir, device="cuda", verbose=False)
+        wall = time.perf_counter() - t0
+        launches = {name: c.launches for name, c in counters.items()}
+    losses = history["train_loss"] + history["val_loss"]
+    print(f"[7] training through the flash attention (attention_backend='pallas'), "
+          f"train_model: 2 epochs x {len(steps) // 2} steps, wall {wall:.1f} s; step losses "
+          f"{[round(m['loss'], 5) for m in steps]}, skipped {sum(m['skipped'] for m in steps)}, "
+          f"step ms {[round(m['ms'], 1) for m in steps]}, epoch train/val losses "
+          f"{[round(v, 6) for v in losses]}; launches {launches}")
+    if (len(steps) != 4 or any(m["skipped"] for m in steps)
+            or not all(np.isfinite(v) for v in [m["loss"] for m in steps] + losses)):
+        raise AssertionError("flash training run failed")
+    n, n_val = len(steps), 2  # one validation batch per epoch
+    expected = {"lstm_recurrence": 4 * n_val, "lstm_recurrence_fwd": 4 * n,
+                "lstm_recurrence_bwd": 4 * n, "flash_attention_clamped": n_val,
+                "flash_attention_clamped_fwd": n, "flash_attention_clamped_dq": n,
+                "flash_attention_clamped_dkv": n}
+    if launches != expected:
+        raise AssertionError(f"flash training missed a kernel: {launches}, expected {expected}")
+    best = os.path.join(run_dir, "checkpoints", "model_best.pth")
+    with open(os.path.splitext(best)[0] + ".json") as f:
+        route = json.load(f)["model"]["attention_backend"]
+    print(f"    model_best sidecar: attention_backend {route!r}")
+    if route != "pallas":
+        raise AssertionError("model_best's sidecar lost the flash route")
+
+    ms, _ = time_train_steps(torch, mcfg, tcfg, acfg, cache_dir)
+    print(f"    flash step {ms:.1f} ms against the materialized-scores step {xla_ms:.1f} ms "
+          f"(phase 6): {ms / xla_ms:.3f}x")
+    check_fp32_step(torch, mcfg, tcfg, rows)
+    return launches, best
+
+
+def eval_phase(torch, lk, ak, flash_best, xla_best):
+    """Phase 8: the evaluation CLI on the card. Returns the launch counts of
+    the --window 120 run."""
+    cache_dir, root = os.path.join(WORK, "train_cache"), os.path.join(WORK, "maestro_raw")
+    counters = (lk.lstm_recurrence, ak.flash_attention_clamped)
+
+    # the flash-trained model_best on the cache's validation split: 3 batches of 8
+    for c in counters:
+        c.launches = 0
+    t0 = time.perf_counter()
+    scores = run_evaluate(["--model", flash_best, "--cache_dir", cache_dir, "--split",
+                           "validation", "--headless", "--tune_threshold", "--tune_split",
+                           "validation", "--batch_size", "8", "-d", "cuda"])
+    launches = [c.launches for c in counters]
+    print(f"[8] evaluate the flash-trained model_best, validation split (24 chunks, batch 8): "
+          f"{scores}, wall {time.perf_counter() - t0:.1f} s; launches K1 {launches[0]}, "
+          f"K3 {launches[1]}")
+    if (not 0.0 <= scores.get("EVAL_MEAN_F1", -1.0) <= 1.0
+            or not 0.0 < scores.get("EVAL_BEST_THRESHOLD", -1.0) < 1.0 or launches != [12, 3]):
+        raise AssertionError("evaluation of the flash-trained model failed")
+
+    # the phase-6 model_best at --window 120 on a raw MAESTRO-layout tree: one
+    # batch of 2 windows padded to 8 rows, 4*8*8*3751^2 bytes of scores, so
+    # "auto" takes K3
+    write_maestro_tree(root, SEED + 9)
+    for c in counters:
+        c.launches = 0
+    t0 = time.perf_counter()
+    scores = run_evaluate(["--model", xla_best, "--root_dir", root, "--data_source", "full",
+                           "--split", "test", "--window", "120", "--batch_size", "8",
+                           "--headless", "-d", "cuda"])
+    launches = {c.__name__: c.launches for c in counters}
+    print(f"    evaluate the phase-6 model_best --window 120 on 2 raw 121 s pieces: {scores}, "
+          f"wall {time.perf_counter() - t0:.1f} s; launches {launches}")
+    if (not 0.0 <= scores.get("EVAL_MEAN_F1", -1.0) <= 1.0
+            or launches != {"lstm_recurrence": 4, "flash_attention_clamped": 1}):
+        raise AssertionError("--window 120 evaluation missed K3")
     return launches
 
 
@@ -679,14 +1024,21 @@ def main() -> int:
     # 5. the training kernels against their plain versions
     rows = []
     k2 = check_k2(torch, lk, rows)
+    k4 = check_k4(torch, ak, rows)
     print("[5] training kernels vs plain versions on " + card)
     for r in rows:
         print("    " + r)
 
-    # 6. training at full width
-    train_launches = train_phase(torch, lk, ak, wav30, rows)
+    # 6. training at full width through the CLI (attention on the plain route)
+    train_launches, xla_ms, xla_best = train_phase(torch, lk, ak, wav30, rows)
 
-    # 7. report
+    # 7. training at full width through the flash attention
+    flash_launches, flash_best = flash_train_phase(torch, lk, ak, rows, xla_ms)
+
+    # 8. evaluation on the card
+    eval_phase(torch, lk, ak, flash_best, xla_best)
+
+    # 9. report
     kernels = [
         dict(name="lstm_recurrence", route="cuda",
              source="music_transcription_tpu_torch/csrc/lstm_recurrence.cu",
@@ -704,7 +1056,22 @@ def main() -> int:
              source="music_transcription_tpu_torch/csrc/lstm_recurrence.cu",
              replaces="music_transcription_tpu/ops/lstm_pallas.py:147",
              launches=train_launches["lstm_recurrence_bwd"], ok=True, **k2["K2b"]),
+        dict(name="flash_attention_clamped_fwd", route="cuda",
+             source="music_transcription_tpu_torch/csrc/flash_attention_clamped.cu",
+             replaces="music_transcription_tpu/ops/attention_pallas.py:38",
+             launches=flash_launches["flash_attention_clamped_fwd"], ok=True, **k4["K3+lse"]),
+        dict(name="flash_attention_clamped_dq", route="cuda",
+             source="music_transcription_tpu_torch/csrc/flash_attention_clamped.cu",
+             replaces="music_transcription_tpu/ops/attention_pallas.py:152",
+             launches=flash_launches["flash_attention_clamped_dq"], ok=True, **k4["K4a"]),
+        dict(name="flash_attention_clamped_dkv", route="cuda",
+             source="music_transcription_tpu_torch/csrc/flash_attention_clamped.cu",
+             replaces="music_transcription_tpu/ops/attention_pallas.py:173",
+             launches=flash_launches["flash_attention_clamped_dkv"], ok=True, **k4["K4b"]),
     ]
+    for name, (flops, nbytes, b_ms, b_by) in conv_stage_bounds().items():
+        print(f"    still to port, {name} at the 30 s route's shape: {flops / 1e9:.2f} GFLOP, "
+              f"{nbytes / 1e6:.1f} MB, bound_ms={b_ms:.4f} ({b_by})")
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -138,7 +138,8 @@ class MultiHeadSelfAttention(nn.Module):
     """Self-attention with the ±10 logit clamp.
 
     ``backend``: "xla" materializes the (B, heads, T, T) scores in plain
-    tensor code; "pallas" runs the clamped flash kernel (K3); "auto" picks
+    tensor code; "pallas" runs the clamped flash kernel (K3; in training K3
+    with lse forward and K4a/K4b backward); "auto" picks
     the kernel once the fp32 score tensor 4*B*heads*T^2 bytes passes
     ``AUTO_SCORE_BYTES``. The rule and its threshold are the JAX package's,
     kept as behaviour so a request takes the same route in both packages.

@@ -98,16 +98,65 @@ def test_lstm_recurrence_function_matches_autograd_through_plain(cuda):
 
 
 def test_flash_attention_refuses_a_gradient_on_card(cuda):
-    q = torch.zeros(1, 8, 2, 16, device=cuda, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="K4a/K4b"):
-        AK.flash_attention_clamped(q, q, q, 0.25)
-    with torch.no_grad():  # serving is unaffected
-        AK.flash_attention_clamped(q, q, q, 0.25)
+    """A gradient through the flash route on the card is not refused: it
+    takes K3 with lse forward and K4a / K4b backward; without one, K3."""
+    rng = np.random.default_rng(6)
+    q, k, v = (torch.from_numpy(rng.standard_normal((1, 40, 2, 16)).astype(np.float32))
+               .to(cuda).requires_grad_() for _ in range(3))
+    counters = (AK.flash_attention_clamped, AK.flash_attention_clamped_fwd,
+                AK.flash_attention_clamped_dq, AK.flash_attention_clamped_dkv)
+    before = [c.launches for c in counters]
+    AK.flash_attention_clamped(q, k, v, 0.25).sum().backward()
+    assert [c.launches - n for c, n in zip(counters, before)] == [0, 1, 1, 1]
+    assert all(bool(torch.isfinite(x.grad).all()) for x in (q, k, v))
+    with torch.no_grad():  # serving: K3 without lse
+        AK.flash_attention_clamped(q, k, v, 0.25)
+    assert [c.launches - n for c, n in zip(counters, before)] == [1, 1, 1, 1]
 
 
-def test_train_step_on_card_matches_cpu(cuda, monkeypatch):
+# K3 with lse, K4a and K4b against their plain versions: lse to 1e-5 |lse| +
+# 1e-5 (fp32 summation order); each gradient to a share of its largest
+# magnitude: fp32 1e-5 (summation order), bf16 2^-7 (both round dS, p and the
+# result to bf16; where their fp32 values straddle a rounding boundary they
+# come out a bf16 unit apart).
+FLASH_GRAD_TOL = {torch.bfloat16: 2.0**-7, torch.float32: 1e-5}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("b,t,nh,d", [(1, 37, 2, 192), (2, 130, 8, 192), (1, 100, 2, 24),
+                                      (1, 70, 1, 18), (1, 150, 2, 256)])
+def test_flash_training_kernels_match_plain(cuda, b, t, nh, d, dtype):
+    rng = np.random.default_rng(t + d + 1)
+    q, k, v, do = (torch.from_numpy((m * rng.standard_normal((b, t, nh, d))).astype(np.float32))
+                   .to(cuda, dtype) for m in (6.0, 1.0, 1.0, 1.0))
+    scale = d**-0.5
+    before = [c.launches for c in (AK.flash_attention_clamped_fwd, AK.flash_attention_clamped_dq,
+                                   AK.flash_attention_clamped_dkv)]
+    o, lse = AK.flash_attention_clamped_fwd(q, k, v, scale)
+    ref_o, ref_lse = AK.attention_clamped_fwd_plain(q, k, v, scale)
+    dq = AK.flash_attention_clamped_dq(q, k, v, ref_o, do, ref_lse, scale)
+    dk, dv = AK.flash_attention_clamped_dkv(q, k, v, ref_o, do, ref_lse, scale)
+    ref = AK.attention_clamped_bwd_plain(q, k, v, ref_o, do, ref_lse, scale)
+    torch.cuda.synchronize()
+    assert [c.launches - n for c, n in zip((AK.flash_attention_clamped_fwd,
+                                            AK.flash_attention_clamped_dq,
+                                            AK.flash_attention_clamped_dkv), before)] == [1, 1, 1]
+    rtol, ptol = FLASH_TOL[dtype]
+    ref_abs_v = AK.attention_clamped_plain(q, k, v.abs(), scale).float()
+    assert bool(((o.float() - ref_o.float()).abs() <= rtol * ref_o.float().abs() + ptol * ref_abs_v).all())
+    assert lse.shape == (b, nh, t)
+    assert bool(((lse - ref_lse).abs() <= 1e-5 * ref_lse.abs() + 1e-5).all())
+    for got, want in zip((dq, dk, dv), ref):
+        assert got.dtype == dtype
+        err = float((got.float() - want.float()).abs().max())
+        assert err <= FLASH_GRAD_TOL[dtype] * float(want.float().abs().max())
+
+
+@pytest.mark.parametrize("attention", ["xla", "pallas"])
+def test_train_step_on_card_matches_cpu(cuda, monkeypatch, attention):
     """One step at dropout 0, fp32: loss within 1e-4 relative; K2a and K2b
-    launched once per BiLSTM layer; each gradient within 1e-3 of its largest
+    launched once per BiLSTM layer, and on the flash route K3 with lse, K4a
+    and K4b once each; each gradient within 1e-3 of its largest
     magnitude, but for the convolutions and BatchNorms (1e-2: under a
     training-mode BatchNorm their per-channel sums cancel) and the
     convolutions' biases, whose exact gradient is 0 (the BatchNorm after them
@@ -115,7 +164,7 @@ def test_train_step_on_card_matches_cpu(cuda, monkeypatch):
     monkeypatch.setattr(CNNRNNLarge, "CHANNEL_DROPOUT", (0.0, 0.0, 0.0))
     torch.manual_seed(0)
     cfg = ModelConfig(n_mels=64, hidden_size=32, num_layers=2, dropout=0.0,
-                      compute_dtype="float32", lstm_backend="pallas")
+                      compute_dtype="float32", lstm_backend="pallas", attention_backend=attention)
     models = [TranscriptionModel(cfg), TranscriptionModel(cfg)]
     models[1].load_state_dict(models[0].state_dict())
     models[1].to(cuda)
@@ -124,12 +173,16 @@ def test_train_step_on_card_matches_cpu(cuda, monkeypatch):
              torch.from_numpy((rng.random((3, 88, 63)) > 0.9).astype(np.float32)),
              torch.tensor([63, 50, 20], dtype=torch.int32))
     fwd, bwd = LK.lstm_recurrence_fwd.launches, LK.lstm_recurrence_bwd.launches
+    flash = (AK.flash_attention_clamped_fwd, AK.flash_attention_clamped_dq,
+             AK.flash_attention_clamped_dkv)
+    flash_before = [c.launches for c in flash]
     metrics = []
     for m in models:
         dev = next(m.parameters()).device
         state = TrainState(m, make_optimizer(m.parameters(), TrainConfig()))
         metrics.append(train_step(state, tuple(x.to(dev) for x in batch), 1, max_grad_norm=1.0))
     assert (LK.lstm_recurrence_fwd.launches, LK.lstm_recurrence_bwd.launches) == (fwd + 3, bwd + 3)
+    assert [c.launches - n for c, n in zip(flash, flash_before)] == [int(attention == "pallas")] * 3
     ref, got = metrics
     assert got["skipped"] == 0.0 and abs(got["loss"] - ref["loss"]) <= 1e-4 * abs(ref["loss"])
     cnn = {f"{m}.{p}": type(mod) for m, mod in models[0].named_modules()

@@ -29,7 +29,8 @@ def _port_modules():
 
 def test_importing_the_port_loads_no_jax():
     modules = _port_modules()
-    assert "music_transcription_tpu_torch.ops.lstm_kernel" in modules
+    for name in ("ops.lstm_kernel", "ops.attention_kernel", "eval", "evaluate"):
+        assert f"music_transcription_tpu_torch.{name}" in modules
     code = (
         "import importlib, json, sys\n"
         f"for name in {modules!r} + ['chip_smoke']:\n"
