@@ -21,6 +21,15 @@ Phases, in order; any failure exits non-zero:
   4. the long-window route (-w 120) on a seeded ~8 min WAV (4 windows):
      the clamped flash kernel K3 must run and the MIDI must decode; time a
      warm request and break it down as in phase 3;
+  4b. hold K5 (fused ConvBNRelu + pool) against its plain version at the
+     default model's two ConvBNRelu stages (B=4, T=938: conv1 3x3 1->32 at
+     F=320, freq_aware_conv 7x3 128->256 at F=80; seeded weights, BatchNorm
+     statistics made non-trivial), element by element, with the scores of a
+     variant that reads the bottom halo without zero fill and of one that
+     pools the shifted row pairs, both of which must fail the bound; time K5,
+     its plain version and the model's own eager stage (cuDNN); then run the
+     model's inference CNN front end with both stages through K5 against the
+     model's own front end: exactly 2 K5 launches;
   5. hold the training kernels against their plain versions at the training
      shapes and time them: K2a and K2b (batch 24: 2B=48, T=938, H=512 and
      256) beside cuDNN's bidirectional LSTM forward and backward, and the
@@ -54,12 +63,19 @@ Phases, in order; any failure exits non-zero:
      {"ok": true, "device": {...}}.
 
 Exits non-zero, printing no result, when no CUDA device is visible.
+
+    python3 chip_smoke.py --conv_only
+
+builds the kernels and runs phase 4b alone (no result line), for work on
+the conv kernels.
 """
 
 import contextlib
+import copy
 import dataclasses
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -96,6 +112,24 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(torch, fn, reps: int) -> float:
+    """Device time of one call of ``fn`` (ms): the sum of its kernels' times
+    on the card under torch.profiler, without the host's gaps between them
+    (a call that launches several small kernels is host-bound under CUDA
+    events)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / reps / 1e3
 
 
 def bound(flops: float, peak: float, nbytes: float):
@@ -450,15 +484,17 @@ def check_k4(torch, ak, rows):
 
 
 def conv_stage_bounds() -> dict:
-    """Bounds of K5 and K6, still to port, at the stages of the default
-    cnn_rnn_large they would replace on the 30 s route (4 chunks: B=4, 320
-    mel bins, T=938, bf16): conv1 + BN + ReLU + pool (K5), res_block1 + pool
-    and res_block2 (K6, its two 3x3 convs and the 1x1 skip). Operations at
-    the bf16 tensor-core peak; bytes: input, weights and output once."""
+    """Bounds of K5 and K6 (K6 still to port) at the stages of the default
+    cnn_rnn_large they replace on the 30 s route (4 chunks: B=4, 320 mel
+    bins, T=938, bf16): conv1 + BN + ReLU + pool and freq_aware_conv (7x3) +
+    BN + ReLU + pool (K5), res_block1 + pool and res_block2 (K6, its two 3x3
+    convs and the 1x1 skip). Operations at the bf16 tensor-core peak; bytes:
+    input, weights and output once."""
     b, t = 4, 938
     out = {}
     for name, f, c_in, convs, c_out, pool in (
             ("K5 conv1+pool", 320, 1, [(9, 1, 32)], 32, True),
+            ("K5 freq_aware_conv+pool", 80, 128, [(21, 128, 256)], 256, True),
             ("K6 res_block1+pool", 160, 32, [(9, 32, 64), (9, 64, 64), (1, 32, 64)], 64, True),
             ("K6 res_block2", 80, 64, [(9, 64, 128), (9, 128, 128), (1, 64, 128)], 128, False)):
         pixels = b * f * t
@@ -467,6 +503,190 @@ def conv_stage_bounds() -> dict:
         nbytes = 2.0 * (pixels * c_in + weights + pixels * c_out // (2 if pool else 1))
         out[name] = (flops, nbytes, *bound(flops, PEAK_BF16, nbytes))
     return out
+
+
+# K5 against its plain version, element by element:
+#   |got - ref| <= 2^-7 |ref| + 2^-7 |s_c| m,
+# m the same convolution over magnitudes, |x| * |w| + |bias| (the larger of a
+# pool pair's), s_c the channel's BN factor g / sqrt(var + eps). Both versions
+# sum the exact products of bf16 values in fp32, in different orders: the
+# sums differ by far less than a bf16 unit (2^-24 per addition of n <= 2688
+# terms, below 2^-12 m), but where they straddle a rounding boundary
+# bf16(acc + bias) comes out one unit apart, at most 2^-7 |acc + bias| <=
+# 2^-7 m, which the affine scales by |s_c|. Both round the output to bf16,
+# half a unit each: at most 2^-7 |ref| together. ReLU and the max of a pair
+# move no two values further apart. The constants hold with room, since
+# |acc + bias| reaches m only when every product has one sign.
+K5_TOL = 2.0**-7
+K5_STAGES = (("conv1", 1, 320), ("freq_aware_conv", 128, 80))  # (module, C_in, F), B=4, T=938
+# the front end with both ConvBNRelu stages through K5 against the model's own
+# (bias added in bf16 after the product's rounding, the affine in another
+# order): each stage may put an element a bf16 unit or two (2^-7 relative)
+# apart, and the residual blocks and the 7x3 conv carry such differences on
+# as sums over many terms of either sign; on the CPU (tests/test_torch_conv.py)
+# they come out near 2^-8 of the largest feature, 2^-10 of the rms
+FRONT_END_TOL = {"max": 2.0**-5, "rms": 2.0**-7}
+
+
+def randomize_bn(model, seed: int) -> None:
+    """Non-trivial BatchNorm statistics and affine on every BatchNorm of
+    ``model``: variance |N| + 0.5, the rest 0.3 N (tests/test_conv_pallas.py)."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    with torch.no_grad():
+        for mod in model.modules():
+            if isinstance(mod, torch.nn.BatchNorm2d):
+                c = mod.num_features
+                mod.running_var.copy_(torch.from_numpy(np.abs(rng.standard_normal(c)) + 0.5))
+                for v in (mod.running_mean, mod.weight, mod.bias):
+                    v.copy_(torch.from_numpy(0.3 * rng.standard_normal(c)))
+
+
+def cnn_front_end(model, x, *, k5: bool):
+    """CNNRNNLarge's inference CNN front end (its forward up to the flatten),
+    (B, 1, F, T) -> (B, 256, F/8, T), with its two ConvBNRelu stages through
+    K5 (``conv_bn_relu_stage``) or through the model's own code. The residual
+    blocks and the pool between them are the model's own either way."""
+    import torch
+
+    from music_transcription_tpu_torch.models import cnn_rnn
+    from music_transcription_tpu_torch.ops.conv_kernel import conv_bn_relu_stage
+
+    dt = model.dtype
+
+    def stage(h, seq):
+        if k5:
+            return conv_bn_relu_stage(h, seq[0], seq[1], pool=True)
+        return cnn_rnn._maxpool_freq(cnn_rnn._conv_bn_relu(h, seq[0], seq[1], dt))
+
+    with torch.no_grad():
+        h = stage(x.to(dt), model.conv1)
+        h = model.res_block2(cnn_rnn._maxpool_freq(model.res_block1(h, dt)), dt)
+        return stage(h, model.freq_aware_conv)
+
+
+def k5_score(torch, ck, got, ref, args, pool: bool) -> float:
+    """Largest |got - ref| / (K5_TOL |ref| + K5_TOL |s_c| m) of K5 on
+    ``args`` (x, weight, conv bias, BN scale, bias, mean, variance): <= 1
+    passes."""
+    from music_transcription_tpu_torch.ops.precision import full_fp32
+
+    x, weight, conv_bias = args[:3]
+    with full_fp32():
+        m = torch.nn.functional.conv2d(
+            ck.same_pad(x.to(torch.bfloat16).float().abs(), *weight.shape[2:]),
+            weight.to(torch.bfloat16).float().abs()) + conv_bias.float().abs().view(1, -1, 1, 1)
+    if pool:
+        m = torch.nn.functional.max_pool2d(m, (2, 1))
+    s, _ = ck.bn_affine(*args[3:])
+    err = (got.float() - ref.float()).abs()
+    bound_ = K5_TOL * ref.float().abs() + K5_TOL * s.abs().view(1, -1, 1, 1) * m
+    return float(torch.where(err == 0, torch.zeros_like(err), err / bound_).max())
+
+
+def check_k5(torch, ck, model, rows):
+    """K5 against its plain version at the default model's two ConvBNRelu
+    stages (B=4, T=938, pool) on ``model``'s weights, with the scores of two
+    faulty variants, both of which must fail the bound; K5, its plain version
+    and the model's own eager stage (cuDNN bf16 conv + elementwise passes)
+    timed, each as device time per call (``device_ms``; the record's times)
+    and with CUDA events around repeated calls, host included. Returns the
+    record of the two stages together, as the front end launches them."""
+    from music_transcription_tpu_torch.models import cnn_rnn
+
+    rng = np.random.default_rng(SEED + 10)
+    bounds = conv_stage_bounds()
+    total = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0, flops=0.0, nbytes=0.0)
+    for name, c_in, f in K5_STAGES:
+        conv, bn = getattr(model, name)
+        x = torch.from_numpy(rng.standard_normal((4, c_in, f, 938)).astype(np.float32)).to(
+            "cuda", torch.bfloat16)
+        args = (x, conv.weight, conv.bias, bn.weight, bn.bias, bn.running_mean, bn.running_var)
+        with torch.no_grad():
+            got = ck.fused_conv_bn_relu(*args, pool=True)
+            ref = ck.fused_conv_bn_relu_plain(*args, pool=True)
+            faults = {fault: ck._fused_conv_bn_relu_fault(*args, pool=True, fault=fault)
+                      for fault in ck.FAULTS}
+            torch.cuda.synchronize()
+            score = k5_score(torch, ck, got, ref, args, pool=True)
+            fault_scores = {k: k5_score(torch, ck, v, ref, args, pool=True)
+                            for k, v in faults.items()}
+            err = float((got.float() - ref.float()).abs().max())
+            same = float((got == ref).float().mean())
+            fns = (lambda: ck.fused_conv_bn_relu(*args, pool=True),
+                   lambda: ck.fused_conv_bn_relu_plain(*args, pool=True),
+                   lambda: cnn_rnn._maxpool_freq(cnn_rnn._conv_bn_relu(x, conv, bn, torch.bfloat16)))
+            ms, plain_ms, lib_ms = (device_ms(torch, fn, reps) for fn, reps in zip(fns, (20, 3, 20)))
+            ev_ms, ev_plain_ms, ev_lib_ms = (cuda_ms(fn, reps) for fn, reps in zip(fns, (20, 3, 20)))
+        flops, nbytes, b_ms, b_by = bounds[f"K5 {name}+pool"]
+        ok = (score <= 1.0 and all(v > 1.0 for v in fault_scores.values())
+              and got.shape == (4, conv.out_channels, f // 2, 938)
+              and bool(torch.isfinite(got.float()).all()))
+        rows.append(f"K5 {name}+pool B=4 C {c_in}->{conv.out_channels} F={f} T=938 "
+                    f"{'x'.join(map(str, conv.kernel_size))}: max_abs_err={err:.3e}, bit-identical "
+                    f"{same:.5f}, worst |err|/({K5_TOL:g}|ref| + {K5_TOL:g}|s|m) {score:.3f} "
+                    f"(faults: " + ", ".join(f"{k} {v:.1f}" for k, v in fault_scores.items())
+                    + f"); device ms={ms:.4f} plain_ms={plain_ms:.3f} model_stage_ms={lib_ms:.4f} "
+                    f"(CUDA events, host included: {ev_ms:.4f} / {ev_plain_ms:.3f} / {ev_lib_ms:.4f}) "
+                    f"bound_ms={b_ms:.4f} ({b_by}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(rows[-1])
+        for key, v in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", lib_ms),
+                       ("flops", flops), ("nbytes", nbytes)):
+            total[key] += v
+        total["max_abs_err"] = max(total["max_abs_err"], err)
+        del x, args, got, ref, faults
+    # the two launches of one front end: the least time for their work together
+    b_ms, b_by = bound(total.pop("flops"), PEAK_BF16, total.pop("nbytes"))
+    return dict(total, bound_ms=b_ms, bound_by=b_by)
+
+
+def conv_phase(torch, ck, model, card):
+    """Phase 4b on a copy of ``model`` (the port's CNNRNNLarge) with
+    non-trivial BatchNorm statistics. Returns K5's record and its launches
+    in the front end."""
+    k5_model = copy.deepcopy(model)
+    randomize_bn(k5_model, SEED + 10)
+    k5_model.cuda().eval()
+    rows = []
+    t0 = time.perf_counter()
+    k5 = check_k5(torch, ck, k5_model, rows)
+    launches = k5_front_end(torch, ck, k5_model, rows)
+    print(f"[4b] K5 vs its plain version and the model's front end on {card} "
+          f"({time.perf_counter() - t0:.1f} s)")
+    for r in rows:
+        print("    " + r)
+    return k5, launches
+
+
+def k5_front_end(torch, ck, model, rows) -> int:
+    """The model's inference CNN front end on the card (B=4, 320 mel bins,
+    T=938) with both ConvBNRelu stages through K5, against the model's own
+    front end: exactly 2 K5 launches. Returns the launch count."""
+    x = torch.from_numpy((np.random.default_rng(SEED + 11).standard_normal((4, 1, 320, 938))
+                          * 10.0 - 40.0).astype(np.float32)).cuda()
+    ref = cnn_front_end(model, x, k5=False)
+    ck.fused_conv_bn_relu.launches = 0
+    got = cnn_front_end(model, x, k5=True)
+    torch.cuda.synchronize()
+    launches = ck.fused_conv_bn_relu.launches
+    got, ref = got.float(), ref.float()
+    err = (got - ref).abs()
+    max_ratio = float(err.max()) / float(ref.abs().max())
+    rms_ratio = float(err.pow(2).mean().sqrt()) / float(ref.pow(2).mean().sqrt())
+    k5_ms, model_ms = (device_ms(torch, lambda: cnn_front_end(model, x, k5=k5), reps=5)
+                       for k5 in (True, False))
+    ok = (launches == 2 and got.shape == (4, 256, 40, 938) and bool(torch.isfinite(got).all())
+          and max_ratio <= FRONT_END_TOL["max"] and rms_ratio <= FRONT_END_TOL["rms"])
+    rows.append(f"front end (B=4, 320 x 938 -> {tuple(got.shape)}) with both ConvBNRelu stages "
+                f"through K5 vs the model's own: max|err|/max|ref| {max_ratio:.3e} (tol "
+                f"{FRONT_END_TOL['max']:g}), rms ratio {rms_ratio:.3e} (tol "
+                f"{FRONT_END_TOL['rms']:g}), K5 launches {launches}; device ms {k5_ms:.3f} "
+                f"through K5, {model_ms:.3f} the model's own {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(rows[-1])
+    return launches
 
 
 def device_time_by_kernel(prof, wall_s: float, top: int = 12):
@@ -891,9 +1111,16 @@ def eval_phase(torch, lk, ak, flash_best, xla_best):
     return launches
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
     import torch
 
+    parser = argparse.ArgumentParser(description="Smoke run of the PyTorch port on one CUDA card.")
+    parser.add_argument("--conv_only", action="store_true",
+                        help="build the kernels and run phase 4b (the conv kernels) alone; "
+                             "prints no result line")
+    args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
         return 1
@@ -904,6 +1131,7 @@ def main() -> int:
     from music_transcription_tpu_torch.models.transcription import TranscriptionModel
     from music_transcription_tpu_torch.ops import _build
     from music_transcription_tpu_torch.ops import attention_kernel as ak
+    from music_transcription_tpu_torch.ops import conv_kernel as ck
     from music_transcription_tpu_torch.ops import lstm_kernel as lk
     from music_transcription_tpu_torch.transcribe import Transcriber, transcribe_audio
 
@@ -916,8 +1144,14 @@ def main() -> int:
     print(f"[1] built {', '.join(_build.SOURCES)} in {time.perf_counter() - t0:.1f} s")
     for name, log in reports.items():
         for line in log.splitlines():
-            if "ptxas info" in line and ("Used" in line or "spill" in line or "Compiling" in line):
+            if ("ptxas info" in line and ("Used" in line or "spill" in line or "Compiling" in line)
+                    or re.search(r"[1-9]\d* bytes spill", line)):
                 print(f"    {name}: {line.strip()}")
+    if args.conv_only:
+        torch.manual_seed(SEED)
+        conv_phase(torch, ck, TranscriptionModel(ModelConfig()).model, card)
+        print(nvidia_smi_line())
+        return 0
 
     # 2. kernels against their plain versions at the serving shapes
     rows = []
@@ -1021,6 +1255,9 @@ def main() -> int:
     print(f"    warm request (load_audio excluded): {(time.perf_counter() - t0) * 1e3:.1f} ms")
     profile_request(torch, server120, y120)
 
+    # 4b. K5 at the default model's two ConvBNRelu stages, then its CNN front end
+    k5, k5_launches = conv_phase(torch, ck, model.model, card)
+
     # 5. the training kernels against their plain versions
     rows = []
     k2 = check_k2(torch, lk, rows)
@@ -1068,10 +1305,15 @@ def main() -> int:
              source="music_transcription_tpu_torch/csrc/flash_attention_clamped.cu",
              replaces="music_transcription_tpu/ops/attention_pallas.py:173",
              launches=flash_launches["flash_attention_clamped_dkv"], ok=True, **k4["K4b"]),
+        dict(name="fused_conv_bn_relu", route="cuda",
+             source="music_transcription_tpu_torch/csrc/conv_bn_relu.cu",
+             replaces="music_transcription_tpu/ops/conv_pallas.py:141",
+             launches=k5_launches, ok=True, **k5),
     ]
     for name, (flops, nbytes, b_ms, b_by) in conv_stage_bounds().items():
-        print(f"    still to port, {name} at the 30 s route's shape: {flops / 1e9:.2f} GFLOP, "
-              f"{nbytes / 1e6:.1f} MB, bound_ms={b_ms:.4f} ({b_by})")
+        if name.startswith("K6"):
+            print(f"    still to port, {name} at the 30 s route's shape: {flops / 1e9:.2f} GFLOP, "
+                  f"{nbytes / 1e6:.1f} MB, bound_ms={b_ms:.4f} ({b_by})")
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

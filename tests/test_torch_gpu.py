@@ -3,8 +3,8 @@ version, and the serving path and a training step on the card against the
 CPU.
 
 Every test needs a card, carries the ``gpu`` marker and skips without one.
-This file imports neither JAX nor the JAX package, so it runs on a machine
-without JAX:
+This file imports neither JAX nor the JAX package (chip_smoke.py, whose K5
+bound it shares, imports neither), so it runs on a machine without JAX:
 
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 """
@@ -16,11 +16,13 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import k5_score
 from music_transcription_tpu_torch.config import AudioConfig, ModelConfig, TrainConfig, config_to_dict
 from music_transcription_tpu_torch.data.midi import load_midi
 from music_transcription_tpu_torch.models.cnn_rnn import CNNRNNLarge
 from music_transcription_tpu_torch.models.transcription import TranscriptionModel
 from music_transcription_tpu_torch.ops import attention_kernel as AK
+from music_transcription_tpu_torch.ops import conv_kernel as CK
 from music_transcription_tpu_torch.ops import lstm_kernel as LK
 from music_transcription_tpu_torch.ops.mel import log_mel_batch
 from music_transcription_tpu_torch.parallel.train_step import TrainState, train_step
@@ -234,6 +236,54 @@ def test_wrappers_raise_on_inputs_the_kernels_do_not_take(cuda):
     q = torch.zeros(1, 4, 1, 8, device=cuda, dtype=torch.float16)  # fp16: bf16 or fp32 only
     with pytest.raises(ValueError):
         AK.flash_attention_clamped(q, q, q, 1.0)
+    vec = torch.ones(4, device=cuda)
+    w = torch.zeros(4, 2, 3, 3, device=cuda)
+    with pytest.raises(ValueError):  # the weight on the CPU
+        CK.fused_conv_bn_relu(torch.zeros(1, 2, 8, 8, device=cuda), w.cpu(), vec, vec, vec, vec, vec)
+    with pytest.raises(ValueError):  # F odd
+        CK.fused_conv_bn_relu(torch.zeros(1, 2, 7, 8, device=cuda), w, vec, vec, vec, vec, vec)
+    with pytest.raises(ValueError):  # C_in of x and weight differ
+        CK.fused_conv_bn_relu(torch.zeros(1, 3, 8, 8, device=cuda), w, vec, vec, vec, vec, vec)
+
+
+def _k5_args(cuda, seed, b, c_in, c_out, f, t, kh, kw):
+    """x (bf16), weight, conv bias, BN scale, bias, mean (0.3 N), var (|N| + 0.5)."""
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal((b, c_in, f, t)).astype(np.float32)).to(cuda, torch.bfloat16)
+    w = torch.from_numpy((rng.standard_normal((c_out, c_in, kh, kw)) / np.sqrt(c_in * kh * kw))
+                         .astype(np.float32)).to(cuda)
+    vecs = [torch.from_numpy((0.3 * rng.standard_normal(c_out)).astype(np.float32)).to(cuda)
+            for _ in range(4)]
+    var = torch.from_numpy((np.abs(rng.standard_normal(c_out)) + 0.5).astype(np.float32)).to(cuda)
+    return (x, w, *vecs, var)
+
+
+# C_in 1 and < 16 take the CUDA-core kernel, >= 16 the tensor cores (N tiles
+# of 32, 64 and 128 channels; a C_out that is not a multiple of 8); T not a
+# multiple of either kernel's column tile (64, 128); F not a multiple of 4
+# without pool
+@pytest.mark.parametrize("b,c_in,c_out,f,t,kh,kw,pool", [
+    (2, 1, 32, 16, 70, 3, 3, True), (1, 1, 32, 18, 130, 3, 3, False),
+    (2, 12, 16, 8, 20, 7, 3, False), (2, 3, 40, 12, 200, 7, 3, True),
+    (2, 32, 64, 16, 70, 3, 3, True), (1, 128, 256, 20, 130, 7, 3, False),
+    (1, 16, 20, 8, 65, 3, 3, True), (1, 40, 24, 8, 33, 7, 3, True),
+    (1, 128, 256, 80, 938, 7, 3, True), (1, 1, 32, 320, 938, 3, 3, True),
+])
+def test_k5_matches_plain(cuda, b, c_in, c_out, f, t, kh, kw, pool):
+    """K5 against its plain version, element by element to chip_smoke.py's
+    bound (K5_TOL: a bf16 unit before the affine and at the output)."""
+    args = _k5_args(cuda, c_in + c_out + f + t, b, c_in, c_out, f, t, kh, kw)
+    before = CK.fused_conv_bn_relu.launches
+    got = CK.fused_conv_bn_relu(*args, pool=pool)
+    ref = CK.fused_conv_bn_relu_plain(*args, pool=pool)
+    torch.cuda.synchronize()
+    assert CK.fused_conv_bn_relu.launches == before + 1
+    assert got.dtype == torch.bfloat16 and got.shape == ref.shape == (b, c_out, f // 2 if pool else f, t)
+    assert k5_score(torch, CK, got, ref, args, pool) <= 1.0
+    if pool and f >= 8:  # both faulty variants fail the bound
+        for fault in CK.FAULTS:
+            bad = CK._fused_conv_bn_relu_fault(*args, pool=True, fault=fault)
+            assert k5_score(torch, CK, bad, ref, args, pool) > 1.0, fault
 
 
 @pytest.mark.parametrize("dtype,attention,rel_tol", [("float32", "xla", 1e-4),
