@@ -24,12 +24,15 @@ Phases, in order; any failure exits non-zero:
   4b. hold K5 (fused ConvBNRelu + pool) against its plain version at the
      default model's two ConvBNRelu stages (B=4, T=938: conv1 3x3 1->32 at
      F=320, freq_aware_conv 7x3 128->256 at F=80; seeded weights, BatchNorm
-     statistics made non-trivial), element by element, with the scores of a
-     variant that reads the bottom halo without zero fill and of one that
-     pools the shifted row pairs, both of which must fail the bound; time K5,
-     its plain version and the model's own eager stage (cuDNN); then run the
-     model's inference CNN front end with both stages through K5 against the
-     model's own front end: exactly 2 K5 launches;
+     statistics made non-trivial), element by element, with the scores of
+     three faulty outputs built from the plain version (the bottom halo read
+     without zero fill, the shifted row pairs pooled, one tap of 16 input
+     channels left out), each of which must fail the bound; time K5, its
+     plain version and the model's own eager stage (cuDNN) with CUDA events,
+     and print their device time under torch.profiler beside them; then run
+     the model's inference CNN front end (CNNRNNLarge.cnn_features) with both
+     stages through K5 against the model's own: exactly 2 K5 launches. The
+     device memory held before and after the phase is printed;
   5. hold the training kernels against their plain versions at the training
      shapes and time them: K2a and K2b (batch 24: 2B=48, T=938, H=512 and
      256) beside cuDNN's bidirectional LSTM forward and backward, and the
@@ -63,16 +66,12 @@ Phases, in order; any failure exits non-zero:
      {"ok": true, "device": {...}}.
 
 Exits non-zero, printing no result, when no CUDA device is visible.
-
-    python3 chip_smoke.py --conv_only
-
-builds the kernels and runs phase 4b alone (no result line), for work on
-the conv kernels.
 """
 
 import contextlib
 import copy
 import dataclasses
+import gc
 import json
 import os
 import re
@@ -118,7 +117,7 @@ def device_ms(torch, fn, reps: int) -> float:
     """Device time of one call of ``fn`` (ms): the sum of its kernels' times
     on the card under torch.profiler, without the host's gaps between them
     (a call that launches several small kernels is host-bound under CUDA
-    events)."""
+    events). A reading beside ``cuda_ms``, which gives the records' times."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -505,27 +504,7 @@ def conv_stage_bounds() -> dict:
     return out
 
 
-# K5 against its plain version, element by element:
-#   |got - ref| <= 2^-7 |ref| + 2^-7 |s_c| m,
-# m the same convolution over magnitudes, |x| * |w| + |bias| (the larger of a
-# pool pair's), s_c the channel's BN factor g / sqrt(var + eps). Both versions
-# sum the exact products of bf16 values in fp32, in different orders: the
-# sums differ by far less than a bf16 unit (2^-24 per addition of n <= 2688
-# terms, below 2^-12 m), but where they straddle a rounding boundary
-# bf16(acc + bias) comes out one unit apart, at most 2^-7 |acc + bias| <=
-# 2^-7 m, which the affine scales by |s_c|. Both round the output to bf16,
-# half a unit each: at most 2^-7 |ref| together. ReLU and the max of a pair
-# move no two values further apart. The constants hold with room, since
-# |acc + bias| reaches m only when every product has one sign.
-K5_TOL = 2.0**-7
 K5_STAGES = (("conv1", 1, 320), ("freq_aware_conv", 128, 80))  # (module, C_in, F), B=4, T=938
-# the front end with both ConvBNRelu stages through K5 against the model's own
-# (bias added in bf16 after the product's rounding, the affine in another
-# order): each stage may put an element a bf16 unit or two (2^-7 relative)
-# apart, and the residual blocks and the 7x3 conv carry such differences on
-# as sums over many terms of either sign; on the CPU (tests/test_torch_conv.py)
-# they come out near 2^-8 of the largest feature, 2^-10 of the rms
-FRONT_END_TOL = {"max": 2.0**-5, "rms": 2.0**-7}
 
 
 def randomize_bn(model, seed: int) -> None:
@@ -543,56 +522,15 @@ def randomize_bn(model, seed: int) -> None:
                     v.copy_(torch.from_numpy(0.3 * rng.standard_normal(c)))
 
 
-def cnn_front_end(model, x, *, k5: bool):
-    """CNNRNNLarge's inference CNN front end (its forward up to the flatten),
-    (B, 1, F, T) -> (B, 256, F/8, T), with its two ConvBNRelu stages through
-    K5 (``conv_bn_relu_stage``) or through the model's own code. The residual
-    blocks and the pool between them are the model's own either way."""
-    import torch
-
-    from music_transcription_tpu_torch.models import cnn_rnn
-    from music_transcription_tpu_torch.ops.conv_kernel import conv_bn_relu_stage
-
-    dt = model.dtype
-
-    def stage(h, seq):
-        if k5:
-            return conv_bn_relu_stage(h, seq[0], seq[1], pool=True)
-        return cnn_rnn._maxpool_freq(cnn_rnn._conv_bn_relu(h, seq[0], seq[1], dt))
-
-    with torch.no_grad():
-        h = stage(x.to(dt), model.conv1)
-        h = model.res_block2(cnn_rnn._maxpool_freq(model.res_block1(h, dt)), dt)
-        return stage(h, model.freq_aware_conv)
-
-
-def k5_score(torch, ck, got, ref, args, pool: bool) -> float:
-    """Largest |got - ref| / (K5_TOL |ref| + K5_TOL |s_c| m) of K5 on
-    ``args`` (x, weight, conv bias, BN scale, bias, mean, variance): <= 1
-    passes."""
-    from music_transcription_tpu_torch.ops.precision import full_fp32
-
-    x, weight, conv_bias = args[:3]
-    with full_fp32():
-        m = torch.nn.functional.conv2d(
-            ck.same_pad(x.to(torch.bfloat16).float().abs(), *weight.shape[2:]),
-            weight.to(torch.bfloat16).float().abs()) + conv_bias.float().abs().view(1, -1, 1, 1)
-    if pool:
-        m = torch.nn.functional.max_pool2d(m, (2, 1))
-    s, _ = ck.bn_affine(*args[3:])
-    err = (got.float() - ref.float()).abs()
-    bound_ = K5_TOL * ref.float().abs() + K5_TOL * s.abs().view(1, -1, 1, 1) * m
-    return float(torch.where(err == 0, torch.zeros_like(err), err / bound_).max())
-
-
 def check_k5(torch, ck, model, rows):
     """K5 against its plain version at the default model's two ConvBNRelu
-    stages (B=4, T=938, pool) on ``model``'s weights, with the scores of two
-    faulty variants, both of which must fail the bound; K5, its plain version
-    and the model's own eager stage (cuDNN bf16 conv + elementwise passes)
-    timed, each as device time per call (``device_ms``; the record's times)
-    and with CUDA events around repeated calls, host included. Returns the
-    record of the two stages together, as the front end launches them."""
+    stages (B=4, T=938, pool) on ``model``'s weights, to ``ck.k5_score``'s
+    bound, with the scores of the faulty outputs ``ck.faulty_plain`` builds,
+    each of which must fail it; K5, its plain version and the model's own
+    eager stage (cuDNN bf16 conv + elementwise passes) timed with CUDA events
+    around repeated calls (the record's times), and their device time per
+    call under torch.profiler beside them. Returns the record of the two
+    stages together, as the front end launches them."""
     from music_transcription_tpu_torch.models import cnn_rnn
 
     rng = np.random.default_rng(SEED + 10)
@@ -606,37 +544,37 @@ def check_k5(torch, ck, model, rows):
         with torch.no_grad():
             got = ck.fused_conv_bn_relu(*args, pool=True)
             ref = ck.fused_conv_bn_relu_plain(*args, pool=True)
-            faults = {fault: ck._fused_conv_bn_relu_fault(*args, pool=True, fault=fault)
-                      for fault in ck.FAULTS}
             torch.cuda.synchronize()
-            score = k5_score(torch, ck, got, ref, args, pool=True)
-            fault_scores = {k: k5_score(torch, ck, v, ref, args, pool=True)
-                            for k, v in faults.items()}
+            score = ck.k5_score(got, ref, args, pool=True)
+            fault_scores = {k: ck.k5_score(ck.faulty_plain(args, k, pool=True), ref, args, pool=True)
+                            for k in ck.FAULTS}
             err = float((got.float() - ref.float()).abs().max())
             same = float((got == ref).float().mean())
             fns = (lambda: ck.fused_conv_bn_relu(*args, pool=True),
                    lambda: ck.fused_conv_bn_relu_plain(*args, pool=True),
-                   lambda: cnn_rnn._maxpool_freq(cnn_rnn._conv_bn_relu(x, conv, bn, torch.bfloat16)))
-            ms, plain_ms, lib_ms = (device_ms(torch, fn, reps) for fn, reps in zip(fns, (20, 3, 20)))
-            ev_ms, ev_plain_ms, ev_lib_ms = (cuda_ms(fn, reps) for fn, reps in zip(fns, (20, 3, 20)))
+                   lambda: cnn_rnn._pooled_conv_bn_relu(x, conv, bn, torch.bfloat16))
+            ms, plain_ms, lib_ms = (cuda_ms(fn, reps) for fn, reps in zip(fns, (20, 3, 20)))
+            dev_ms, dev_plain_ms, dev_lib_ms = (device_ms(torch, fn, reps)
+                                                for fn, reps in zip(fns, (20, 3, 20)))
         flops, nbytes, b_ms, b_by = bounds[f"K5 {name}+pool"]
         ok = (score <= 1.0 and all(v > 1.0 for v in fault_scores.values())
               and got.shape == (4, conv.out_channels, f // 2, 938)
               and bool(torch.isfinite(got.float()).all()))
         rows.append(f"K5 {name}+pool B=4 C {c_in}->{conv.out_channels} F={f} T=938 "
                     f"{'x'.join(map(str, conv.kernel_size))}: max_abs_err={err:.3e}, bit-identical "
-                    f"{same:.5f}, worst |err|/({K5_TOL:g}|ref| + {K5_TOL:g}|s|m) {score:.3f} "
-                    f"(faults: " + ", ".join(f"{k} {v:.1f}" for k, v in fault_scores.items())
-                    + f"); device ms={ms:.4f} plain_ms={plain_ms:.3f} model_stage_ms={lib_ms:.4f} "
-                    f"(CUDA events, host included: {ev_ms:.4f} / {ev_plain_ms:.3f} / {ev_lib_ms:.4f}) "
-                    f"bound_ms={b_ms:.4f} ({b_by}) {'ok' if ok else 'FAIL'}")
+                    f"{same:.5f}, worst |err|/({ck.K5_TOL:g}|ref| + |s|({ck.K5_TOL:g}|h| + "
+                    f"2n2^-23 m)) {score:.3f} (faults: "
+                    + ", ".join(f"{k} {v:.1f}" for k, v in fault_scores.items())
+                    + f"); ms={ms:.4f} plain_ms={plain_ms:.3f} model_stage_ms={lib_ms:.4f} "
+                    f"(device time under torch.profiler: {dev_ms:.4f} / {dev_plain_ms:.3f} / "
+                    f"{dev_lib_ms:.4f}) bound_ms={b_ms:.4f} ({b_by}) {'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(rows[-1])
         for key, v in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", lib_ms),
                        ("flops", flops), ("nbytes", nbytes)):
             total[key] += v
         total["max_abs_err"] = max(total["max_abs_err"], err)
-        del x, args, got, ref, faults
+        del x, args, got, ref
     # the two launches of one front end: the least time for their work together
     b_ms, b_by = bound(total.pop("flops"), PEAK_BF16, total.pop("nbytes"))
     return dict(total, bound_ms=b_ms, bound_by=b_by)
@@ -646,6 +584,7 @@ def conv_phase(torch, ck, model, card):
     """Phase 4b on a copy of ``model`` (the port's CNNRNNLarge) with
     non-trivial BatchNorm statistics. Returns K5's record and its launches
     in the front end."""
+    held = torch.cuda.memory_allocated()
     k5_model = copy.deepcopy(model)
     randomize_bn(k5_model, SEED + 10)
     k5_model.cuda().eval()
@@ -653,8 +592,14 @@ def conv_phase(torch, ck, model, card):
     t0 = time.perf_counter()
     k5 = check_k5(torch, ck, k5_model, rows)
     launches = k5_front_end(torch, ck, k5_model, rows)
+    del k5_model
+    # torch.profiler (device_ms) leaves the frames of the stack it ran in,
+    # and their tensors, in a reference cycle once they return: collect it
+    # here, or it counts in a later phase's memory
+    gc.collect()
     print(f"[4b] K5 vs its plain version and the model's front end on {card} "
-          f"({time.perf_counter() - t0:.1f} s)")
+          f"({time.perf_counter() - t0:.1f} s); device memory allocated before / after "
+          f"{held} / {torch.cuda.memory_allocated()} bytes")
     for r in rows:
         print("    " + r)
     return k5, launches
@@ -664,26 +609,34 @@ def k5_front_end(torch, ck, model, rows) -> int:
     """The model's inference CNN front end on the card (B=4, 320 mel bins,
     T=938) with both ConvBNRelu stages through K5, against the model's own
     front end: exactly 2 K5 launches. Returns the launch count."""
+    def k5_stage(h, conv, bn, dt):
+        return ck.conv_bn_relu_stage(h, conv, bn, pool=True)
+
+    def front_end(k5: bool):
+        with torch.no_grad():
+            return model.cnn_features(x, **({"stage": k5_stage} if k5 else {}))
+
     x = torch.from_numpy((np.random.default_rng(SEED + 11).standard_normal((4, 1, 320, 938))
                           * 10.0 - 40.0).astype(np.float32)).cuda()
-    ref = cnn_front_end(model, x, k5=False)
+    ref = front_end(k5=False)
     ck.fused_conv_bn_relu.launches = 0
-    got = cnn_front_end(model, x, k5=True)
+    got = front_end(k5=True)
     torch.cuda.synchronize()
     launches = ck.fused_conv_bn_relu.launches
     got, ref = got.float(), ref.float()
     err = (got - ref).abs()
     max_ratio = float(err.max()) / float(ref.abs().max())
     rms_ratio = float(err.pow(2).mean().sqrt()) / float(ref.pow(2).mean().sqrt())
-    k5_ms, model_ms = (device_ms(torch, lambda: cnn_front_end(model, x, k5=k5), reps=5)
-                       for k5 in (True, False))
+    k5_ms, model_ms = (cuda_ms(lambda: front_end(k5), reps=5) for k5 in (True, False))
+    k5_dev, model_dev = (device_ms(torch, lambda: front_end(k5), reps=5) for k5 in (True, False))
+    tol = ck.FRONT_END_TOL
     ok = (launches == 2 and got.shape == (4, 256, 40, 938) and bool(torch.isfinite(got).all())
-          and max_ratio <= FRONT_END_TOL["max"] and rms_ratio <= FRONT_END_TOL["rms"])
+          and max_ratio <= tol["max"] and rms_ratio <= tol["rms"])
     rows.append(f"front end (B=4, 320 x 938 -> {tuple(got.shape)}) with both ConvBNRelu stages "
                 f"through K5 vs the model's own: max|err|/max|ref| {max_ratio:.3e} (tol "
-                f"{FRONT_END_TOL['max']:g}), rms ratio {rms_ratio:.3e} (tol "
-                f"{FRONT_END_TOL['rms']:g}), K5 launches {launches}; device ms {k5_ms:.3f} "
-                f"through K5, {model_ms:.3f} the model's own {'ok' if ok else 'FAIL'}")
+                f"{tol['max']:g}), rms ratio {rms_ratio:.3e} (tol {tol['rms']:g}), K5 launches "
+                f"{launches}; ms {k5_ms:.3f} through K5, {model_ms:.3f} the model's own (device "
+                f"time under torch.profiler {k5_dev:.3f} / {model_dev:.3f}) {'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(rows[-1])
     return launches
@@ -919,6 +872,10 @@ def train_phase(torch, lk, ak, wav30, rows):
 def time_train_steps(torch, mcfg, tcfg, acfg, cache_dir):
     """Warm train steps of ``mcfg`` (the recurrence on K2a/K2b) on the staged
     train split, timed (median of 6), peak memory, and one step profiled.
+    The peak is the caching allocator's: the blocks it handed out, which may
+    exceed the bytes the tensors asked for (a block is not split when less
+    than 1 MiB would remain), so it also depends on the blocks earlier work
+    left cached; the peak of the bytes asked for is printed beside it.
     Returns (median ms, peak bytes)."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -936,18 +893,21 @@ def time_train_steps(torch, mcfg, tcfg, acfg, cache_dir):
     train_step(state, batches[0], SEED + 1, max_grad_norm=1.0)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
     times = []
     for batch in batches[1:7]:
         t_start = time.perf_counter()
         metrics = train_step(state, batch, SEED + 1, max_grad_norm=1.0)
         times.append((time.perf_counter() - t_start) * 1e3)
     peak = torch.cuda.max_memory_allocated()
+    requested = torch.cuda.memory_stats().get("requested_bytes.all.peak", float("nan"))
     ms = float(np.median(times))
     audio_s = tcfg.batch_size * acfg.chunk_length
     print(f"    warm train step, attention {mcfg.attention_backend!r} (batch {tcfg.batch_size}, "
           f"T={acfg.mel_frames_per_chunk}): median {ms:.1f} ms of {[round(t, 1) for t in times]}; "
           f"{tcfg.batch_size / ms * 1e3:.2f} samples/s, {audio_s / ms * 1e3:.1f} audio-s/s; "
-          f"peak memory {peak / 2**30:.2f} GiB; loss {metrics['loss']:.5f}")
+          f"peak memory {peak / 2**30:.2f} GiB (requested {requested / 2**30:.2f} GiB; "
+          f"{held / 2**30:.2f} GiB held before the steps); loss {metrics['loss']:.5f}")
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t_start = time.perf_counter()
         train_step(state, batches[7], SEED + 1, max_grad_norm=1.0)
@@ -1111,16 +1071,9 @@ def eval_phase(torch, lk, ak, flash_best, xla_best):
     return launches
 
 
-def main(argv=None) -> int:
-    import argparse
-
+def main() -> int:
     import torch
 
-    parser = argparse.ArgumentParser(description="Smoke run of the PyTorch port on one CUDA card.")
-    parser.add_argument("--conv_only", action="store_true",
-                        help="build the kernels and run phase 4b (the conv kernels) alone; "
-                             "prints no result line")
-    args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
         return 1
@@ -1147,12 +1100,6 @@ def main(argv=None) -> int:
             if ("ptxas info" in line and ("Used" in line or "spill" in line or "Compiling" in line)
                     or re.search(r"[1-9]\d* bytes spill", line)):
                 print(f"    {name}: {line.strip()}")
-    if args.conv_only:
-        torch.manual_seed(SEED)
-        conv_phase(torch, ck, TranscriptionModel(ModelConfig()).model, card)
-        print(nvidia_smi_line())
-        return 0
-
     # 2. kernels against their plain versions at the serving shapes
     rows = []
     k1 = check_k1(torch, lk, rows)

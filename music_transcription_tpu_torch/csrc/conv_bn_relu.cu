@@ -53,11 +53,6 @@
 // channels for its two rows, reads two inputs and four float4 weight vectors
 // per tap (the weights are one address for the whole block: a broadcast),
 // and writes its 16 outputs along T. The same epilogue.
-//
-// Both are templated on a debug variant, reached only from the checks that
-// their bound catches such mistakes (chip_smoke.py, tests/test_torch_gpu.py):
-// kHaloNoZero reads the bottom halo rows past F from the top of the plane (a
-// wrap-around) instead of zeros; kShiftedPool pools the pairs (2f+1, 2f+2).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -70,7 +65,6 @@ namespace {
 
 constexpr int kThreads = 256, kWarps = kThreads / 32;
 constexpr int kSmemLimit = 232448;  // bytes of shared memory a block may have
-enum Fault { kNone = 0, kHaloNoZero = 1, kShiftedPool = 2 };
 
 // tensor-core kernel tile
 constexpr int CK = 16;            // input channels per K chunk
@@ -83,15 +77,6 @@ constexpr int LDC = FR * TM + 4;  // row stride of the fp32 [NT][FR*TM] epilogue
 constexpr int FRC = 4;            // output rows per block: two row pairs
 constexpr int TC = 128;           // output columns per block
 constexpr int NC = 16;            // output channels a thread accumulates at once
-
-
-// The input row a staged row reads, or -1 for a row of zeros.
-template <int kFault>
-__device__ __forceinline__ int source_row(int gr, int F) {
-  if (gr < 0) return -1;
-  if (gr >= F) return kFault == kHaloNoZero && gr < 2 * F ? gr - F : -1;
-  return gr;
-}
 
 // 16 bytes from global to shared memory without a register round trip
 // (cp.async); zeros instead when !valid (src-size 0 reads nothing).
@@ -150,7 +135,7 @@ size_t smem_bytes_tc(int NT, int KH, int KW) {
   return staging > epilogue ? staging : epilogue;
 }
 
-template <int NT, int kFault>
+template <int NT>
 __global__ void __launch_bounds__(kThreads, 2)
 conv_bn_relu_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
                        const float* __restrict__ bias, const float* __restrict__ scale,
@@ -171,7 +156,7 @@ conv_bn_relu_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
   const int n_tiles = (C_out + NT - 1) / NT;
   const int b = blockIdx.z / n_tiles, n0 = (blockIdx.z % n_tiles) * NT;
   const int t0 = blockIdx.x * TM;
-  const int f0 = blockIdx.y * FR + (kFault == kShiftedPool ? 1 : 0);
+  const int f0 = blockIdx.y * FR;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int wm = warp / WARPS_N, wn = warp % WARPS_N;
   const bf16 zero = __float2bfloat16(0.0f);
@@ -210,8 +195,8 @@ conv_bn_relu_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
     // input window, channel-innermost, zeros outside the tensor
     for (int e = tid; e < R * W; e += kThreads) {
       const int r = e / W, col = e % W;
-      const int gr = source_row<kFault>(f0 - KH / 2 + r, F), gt = t0 - KW / 2 + col;
-      const bool inside = gr >= 0 && gt >= 0 && gt < T;
+      const int gr = f0 - KH / 2 + r, gt = t0 - KW / 2 + col;
+      const bool inside = gr >= 0 && gr < F && gt >= 0 && gt < T;
       uint32_t pk[CK / 2];  // channel pairs, the lower channel in the low half
 #pragma unroll
       for (int p = 0; p < CK / 2; ++p) {
@@ -298,7 +283,6 @@ size_t smem_bytes_cc(int C_in, int C_out, int KH, int KW) {
   return sizeof(float) * ((size_t)C_in * KH * KW * cp + (size_t)C_in * (FRC + KH - 1) * (TC + KW - 1));
 }
 
-template <int kFault>
 __global__ void __launch_bounds__(kThreads)
 conv_bn_relu_cc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
                        const float* __restrict__ bias, const float* __restrict__ scale,
@@ -311,7 +295,7 @@ conv_bn_relu_cc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
   float* xs = wsm + C_in * taps * cp;                // [C_in][R][W]
 
   const int t0 = blockIdx.x * TC;
-  const int f0 = blockIdx.y * FRC + (kFault == kShiftedPool ? 1 : 0);
+  const int f0 = blockIdx.y * FRC;
   const int b = blockIdx.z;
   const int tid = threadIdx.x;
 
@@ -321,8 +305,8 @@ conv_bn_relu_cc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
   }
   for (int e = tid; e < C_in * R * W; e += kThreads) {
     const int c = e / (R * W), r = (e / W) % R, col = e % W;
-    const int gr = source_row<kFault>(f0 - KH / 2 + r, F), gt = t0 - KW / 2 + col;
-    xs[e] = gr >= 0 && gt >= 0 && gt < T
+    const int gr = f0 - KH / 2 + r, gt = t0 - KW / 2 + col;
+    xs[e] = gr >= 0 && gr < F && gt >= 0 && gt < T
                 ? __bfloat162float(x[(((size_t)b * C_in + c) * F + gr) * T + gt]) : 0.0f;
   }
   __syncthreads();
@@ -383,13 +367,12 @@ int launch(Kernel kernel, dim3 grid, size_t smem, void* stream, Args... args) {
   return cudaGetLastError();
 }
 
-template <int kFault>
 int forward(const bf16* x, const bf16* w, const float* bias, const float* scale,
             const float* offset, bf16* out, int B, int C_in, int C_out, int F, int T, int KH,
             int KW, int pool, void* stream) {
   const size_t cc_smem = smem_bytes_cc(C_in, C_out, KH, KW);
   if (C_in < 16 && cc_smem <= (size_t)kSmemLimit)
-    return launch(conv_bn_relu_cc_kernel<kFault>,
+    return launch(conv_bn_relu_cc_kernel,
                   dim3((T + TC - 1) / TC, (F + FRC - 1) / FRC, B), cc_smem, stream, x, w, bias,
                   scale, offset, out, C_in, C_out, F, T, KH, KW, pool);
   const int NT = C_out > 64 ? 128 : C_out > 32 ? 64 : 32;
@@ -397,12 +380,12 @@ int forward(const bf16* x, const bf16* w, const float* bias, const float* scale,
   if (grid.z > 65535) return cudaErrorInvalidValue;
   const size_t smem = smem_bytes_tc(NT, KH, KW);
   if (NT == 128)
-    return launch(conv_bn_relu_tc_kernel<128, kFault>, grid, smem, stream, x, w, bias, scale,
+    return launch(conv_bn_relu_tc_kernel<128>, grid, smem, stream, x, w, bias, scale,
                   offset, out, C_in, C_out, F, T, KH, KW, pool);
   if (NT == 64)
-    return launch(conv_bn_relu_tc_kernel<64, kFault>, grid, smem, stream, x, w, bias, scale,
+    return launch(conv_bn_relu_tc_kernel<64>, grid, smem, stream, x, w, bias, scale,
                   offset, out, C_in, C_out, F, T, KH, KW, pool);
-  return launch(conv_bn_relu_tc_kernel<32, kFault>, grid, smem, stream, x, w, bias, scale,
+  return launch(conv_bn_relu_tc_kernel<32>, grid, smem, stream, x, w, bias, scale,
                 offset, out, C_in, C_out, F, T, KH, KW, pool);
 }
 
@@ -410,26 +393,17 @@ int forward(const bf16* x, const bf16* w, const float* bias, const float* scale,
 
 extern "C" {
 
-// K5 (fault 0), or one of its debug variants (1: kHaloNoZero, 2: kShiftedPool,
-// pool only). Launch on `stream`. Returns 0 or a cudaError_t code.
+// K5 on `stream`. Returns 0 or a cudaError_t code.
 int conv_bn_relu_forward(const void* x, const void* w, const void* bias, const void* scale,
                          const void* offset, void* out, int B, int C_in, int C_out, int F, int T,
-                         int KH, int KW, int pool, int fault, void* stream) {
+                         int KH, int KW, int pool, void* stream) {
   if (B <= 0 || C_in <= 0 || C_out <= 0 || F <= 0 || T <= 0 || KH <= 0 || KW <= 0 || F % 2 ||
-      (pool && F % 4) || F > 65535 * FR || B > 65535 || fault < 0 || fault > 2 ||
-      (fault == kShiftedPool && !pool))
+      (pool && F % 4) || F > 65535 * FR || B > 65535)
     return cudaErrorInvalidValue;
-  const auto* xp = static_cast<const bf16*>(x);
-  const auto* wp = static_cast<const bf16*>(w);
-  const auto* bp = static_cast<const float*>(bias);
-  const auto* sp = static_cast<const float*>(scale);
-  const auto* op = static_cast<const float*>(offset);
-  auto* yp = static_cast<bf16*>(out);
-  if (fault == kHaloNoZero)
-    return forward<kHaloNoZero>(xp, wp, bp, sp, op, yp, B, C_in, C_out, F, T, KH, KW, pool, stream);
-  if (fault == kShiftedPool)
-    return forward<kShiftedPool>(xp, wp, bp, sp, op, yp, B, C_in, C_out, F, T, KH, KW, pool, stream);
-  return forward<kNone>(xp, wp, bp, sp, op, yp, B, C_in, C_out, F, T, KH, KW, pool, stream);
+  return forward(static_cast<const bf16*>(x), static_cast<const bf16*>(w),
+                 static_cast<const float*>(bias), static_cast<const float*>(scale),
+                 static_cast<const float*>(offset), static_cast<bf16*>(out), B, C_in, C_out, F,
+                 T, KH, KW, pool, stream);
 }
 
 const char* kernel_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }

@@ -104,6 +104,10 @@ def _maxpool_freq(x: torch.Tensor) -> torch.Tensor:
     return F.max_pool2d(x, kernel_size=(2, 1))
 
 
+def _pooled_conv_bn_relu(x, conv, bn, dt):
+    return _maxpool_freq(_conv_bn_relu(x, conv, bn, dt))
+
+
 def _to_nchw(x: torch.Tensor) -> torch.Tensor:
     """Accept (B, 1, n_mels, T) or (B, n_mels, T)."""
     return x[:, None] if x.dim() == 3 else x
@@ -297,21 +301,30 @@ class CNNRNNLarge(nn.Module):
         else:
             self.fc = nn.Linear(combined, NUM_KEYS)
 
+    def cnn_features(self, x: torch.Tensor, generator: torch.Generator | None = None, *,
+                     stage=_pooled_conv_bn_relu) -> torch.Tensor:
+        """The CNN front end, (B, 1, n_mels, T) -> (B, 256, n_mels // 8, T),
+        before the last channel dropout. ``stage(h, conv, bn, dt)`` computes
+        a ConvBNRelu stage with its (2, 1) max-pool (conv1, freq_aware_conv):
+        the model's own code, or another implementation of it."""
+        dt = self.dtype
+        d1, d2 = self.CHANNEL_DROPOUT[:2] if self.training else (0.0, 0.0)
+        h = stage(x.to(dt), self.conv1[0], self.conv1[1], dt)
+        h = channel_dropout(_maxpool_freq(self.res_block1(h, dt)), d1, generator)
+        h = channel_dropout(self.res_block2(h, dt), d2, generator)
+        return stage(h, self.freq_aware_conv[0], self.freq_aware_conv[1], dt)
+
     def forward(self, x: torch.Tensor, return_all_heads: bool = False,
                 generator: torch.Generator | None = None):
         dt = self.dtype
         train = self.training
-        d1, d2, d3 = self.CHANNEL_DROPOUT if train else (0.0, 0.0, 0.0)
+        d3 = self.CHANNEL_DROPOUT[2] if train else 0.0
         if x.shape[-1] == 0:  # zero-length input
             zero = torch.zeros(x.shape[0], NUM_KEYS, 1, device=x.device)
             if self.use_onset_offset_heads and return_all_heads:
                 return {"frame": zero, "onset": zero, "offset": zero}
             return zero
-        h = _to_nchw(x).to(dt)
-        h = _maxpool_freq(_conv_bn_relu(h, self.conv1[0], self.conv1[1], dt))
-        h = channel_dropout(_maxpool_freq(self.res_block1(h, dt)), d1, generator)
-        h = channel_dropout(self.res_block2(h, dt), d2, generator)
-        h = _maxpool_freq(_conv_bn_relu(h, self.freq_aware_conv[0], self.freq_aware_conv[1], dt))
+        h = self.cnn_features(_to_nchw(x), generator)
         feats = _flatten_ct(channel_dropout(h, d3, generator))  # (B, T, 256 * n_mels//8)
         rnn_out = torch.cat([self.rnn_main(feats, dt, generator),
                              self.rnn_local(feats, dt, generator)], dim=-1)

@@ -34,10 +34,29 @@ from music_transcription_tpu_torch.ops import _build
 from music_transcription_tpu_torch.ops.precision import full_fp32
 
 BN_EPS = 1e-5
-# the kernel's debug variants (``_fused_conv_bn_relu_fault``): reading the
-# bottom halo rows past F from the top of the plane instead of zeros, and
-# pooling the shifted row pairs (2f + 1, 2f + 2)
-FAULTS = {"halo_no_zero_fill": 1, "shifted_pool_pair": 2}
+# K5 against its plain version, element by element (``k5_score``):
+#   |got - ref| <= 2^-7 |ref| + |s_c| (2^-7 |h| + 2 n 2^-23 m),
+# h = bf16(acc + bias) the plain version's value before the affine, m the
+# same convolution over magnitudes (|x| * |w| + |bias|), n = C_in kh kw the
+# terms of a sum, s_c the channel's BN factor g / sqrt(var + eps); with pool
+# h and m are the larger of the pair's. Both versions sum the exact products
+# of bf16 values in fp32, in different orders: each sum is within n 2^-23 m
+# of the exact one (2^-23, not 2^-24: tensor-core accumulators may truncate),
+# so the two within 2 n 2^-23 m. Where they straddle a rounding boundary
+# bf16(acc + bias) comes out one bf16 unit apart, at most 2^-7 |h|; the
+# affine scales both by |s_c| (its fp32 rounding is far below these terms).
+# Both round the output to bf16, one unit apart at most where the values
+# before it straddle a boundary: 2^-7 |ref|. ReLU and the max of a pair move
+# no two values further apart.
+K5_TOL = 2.0**-7
+# The inference CNN front end with both ConvBNRelu stages through K5 against
+# the model's own (which adds the bias in bf16 after rounding the product,
+# and applies the affine in another order): each stage may put an element a
+# bf16 unit or two (2^-7 relative) apart, and the residual blocks and the 7x3
+# conv carry such differences on as sums over many terms of either sign; at
+# the 89M widths they come out near 2^-8 of the largest feature and 2^-10 of
+# the rms, on the CPU at T=40 and on the card at T=938.
+FRONT_END_TOL = {"max": 2.0**-5, "rms": 2.0**-7}
 
 
 def _check_rows(f: int, pool: bool) -> None:
@@ -60,27 +79,88 @@ def same_pad(x: torch.Tensor, kh: int, kw: int) -> torch.Tensor:
     return F.pad(x, (kw // 2, kw - 1 - kw // 2, kh // 2, kh - 1 - kh // 2))
 
 
-def fused_conv_bn_relu_plain(x, weight, conv_bias, bn_scale, bn_bias, bn_mean, bn_var, *,
-                             pool: bool = False) -> torch.Tensor:
-    """K5's plain version: (B, C_in, F, T) x and (C_out, C_in, kh, kw)
-    weight -> (B, C_out, F[/2], T) bf16, rounded where the Pallas kernel
-    rounds. The convolution sums the exact products of the bf16 values in
-    fp32 (no TF32)."""
-    _check_rows(x.shape[2], pool)
-    kh, kw = weight.shape[2:]
+def _padded(x: torch.Tensor, kh: int, kw: int) -> torch.Tensor:
+    """x's bf16 values in fp32, SAME-padded."""
+    return same_pad(x.to(torch.bfloat16).float(), kh, kw)
+
+
+def _pre_affine(xp, weight, conv_bias) -> torch.Tensor:
+    """bf16(conv + bias) in fp32: the convolution of the padded ``xp`` sums
+    the exact products of the bf16 values in fp32 (no TF32)."""
     with full_fp32():
-        acc = F.conv2d(same_pad(x.to(torch.bfloat16).float(), kh, kw),
-                       weight.to(torch.bfloat16).float())
-    h = (acc + conv_bias.float().view(1, -1, 1, 1)).to(torch.bfloat16).float()
+        acc = F.conv2d(xp, weight.to(torch.bfloat16).float())
+    return (acc + conv_bias.float().view(1, -1, 1, 1)).to(torch.bfloat16).float()
+
+
+def _bn_relu_pool(h, bn_scale, bn_bias, bn_mean, bn_var, pool: bool) -> torch.Tensor:
+    """The affine, ReLU and bf16 of K5's epilogue, then the (2, 1) max-pool."""
     s, o = bn_affine(bn_scale, bn_bias, bn_mean, bn_var)
     h = torch.relu(h * s.view(1, -1, 1, 1) + o.view(1, -1, 1, 1)).to(torch.bfloat16)
     return F.max_pool2d(h.float(), (2, 1)).to(torch.bfloat16) if pool else h
 
 
-def _launch(x, weight, conv_bias, bn_scale, bn_bias, bn_mean, bn_var, pool: bool,
-            fault: int) -> torch.Tensor:
-    """Check the inputs and launch K5 (``fault`` 0 is K5 itself) on the
-    current stream of x's device; returns the output."""
+def fused_conv_bn_relu_plain(x, weight, conv_bias, bn_scale, bn_bias, bn_mean, bn_var, *,
+                             pool: bool = False) -> torch.Tensor:
+    """K5's plain version: (B, C_in, F, T) x and (C_out, C_in, kh, kw)
+    weight -> (B, C_out, F[/2], T) bf16, rounded where the Pallas kernel
+    rounds."""
+    _check_rows(x.shape[2], pool)
+    h = _pre_affine(_padded(x, *weight.shape[2:]), weight, conv_bias)
+    return _bn_relu_pool(h, bn_scale, bn_bias, bn_mean, bn_var, pool)
+
+
+def k5_score(got, ref, args, *, pool: bool) -> float:
+    """Largest |got - ref| over its bound (``K5_TOL``) for K5 on ``args``
+    (x, weight, conv bias, BN scale, bias, mean, variance) against
+    ``ref = fused_conv_bn_relu_plain(*args, pool=pool)``: <= 1 passes."""
+    x, weight, conv_bias = args[:3]
+    kh, kw = weight.shape[2:]
+    xp = _padded(x, kh, kw)
+    h = _pre_affine(xp, weight, conv_bias).abs_()
+    with full_fp32():
+        m = F.conv2d(xp.abs_(), weight.to(torch.bfloat16).float().abs())
+    m += conv_bias.float().abs().view(1, -1, 1, 1)
+    if pool:
+        h, m = F.max_pool2d(h, (2, 1)), F.max_pool2d(m, (2, 1))
+    s = bn_affine(*args[3:])[0].abs().view(1, -1, 1, 1)
+    terms = x.shape[1] * kh * kw
+    bound = K5_TOL * ref.float().abs() + s * (K5_TOL * h + 2 * terms * 2.0**-23 * m)
+    err = (got.float() - ref.float()).abs()
+    return float(torch.where(err == 0, torch.zeros_like(err), err / bound).max())
+
+
+def faulty_plain(args, fault: str, *, pool: bool) -> torch.Tensor:
+    """What K5 on ``args`` would give with one of three mistakes, from its
+    plain version: ``halo_no_zero_fill`` reads the bottom halo rows past F
+    from the top of the plane instead of zeros; ``shifted_pool_pair`` pools
+    the rows (2f + 1, 2f + 2) (the last pair (F - 1, F - 1)); and
+    ``one_tap_of_a_chunk_dropped`` leaves out the last tap (kh - 1, kw - 1)
+    of the last 16 input channels. For showing that ``k5_score``'s bound
+    catches such mistakes (``FAULTS``)."""
+    x, weight, conv_bias, *bn = args
+    kh, kw = weight.shape[2:]
+    if fault == "shifted_pool_pair":
+        y = fused_conv_bn_relu_plain(*args, pool=False).float()
+        y = torch.cat([y[:, :, 1:], y[:, :, -1:]], dim=2)
+        return F.max_pool2d(y, (2, 1)).to(torch.bfloat16) if pool else y.to(torch.bfloat16)
+    xp = _padded(x, kh, kw)
+    if fault == "halo_no_zero_fill":
+        below = kh - 1 - kh // 2  # padding rows after the last row: x's first rows instead
+        xp[:, :, xp.shape[2] - below:] = xp[:, :, kh // 2: kh // 2 + below]
+    elif fault == "one_tap_of_a_chunk_dropped":
+        weight = weight.clone()
+        weight[:, -16:, kh - 1, kw - 1] = 0
+    else:
+        raise ValueError(f"unknown fault {fault!r}")
+    return _bn_relu_pool(_pre_affine(xp, weight, conv_bias), *bn, pool)
+
+
+FAULTS = ("halo_no_zero_fill", "shifted_pool_pair", "one_tap_of_a_chunk_dropped")
+
+
+def _launch(x, weight, conv_bias, bn_scale, bn_bias, bn_mean, bn_var, pool: bool) -> torch.Tensor:
+    """Check the inputs and launch K5 on the current stream of x's device;
+    returns the output."""
     tensors = (x, weight, conv_bias, bn_scale, bn_bias, bn_mean, bn_var)
     if not x.is_cuda or any(t.device != x.device for t in tensors):
         raise ValueError(f"fused_conv_bn_relu: inputs on {[str(t.device) for t in tensors]}")
@@ -106,7 +186,7 @@ def _launch(x, weight, conv_bias, bn_scale, bn_bias, bn_mean, bn_var, pool: bool
         lib, fn = _entry()
         with torch.cuda.device(x.device):
             err = fn(*(a.data_ptr() for a in args), b, c_in, c_out, f, t, kh, kw, int(pool),
-                     fault, torch.cuda.current_stream().cuda_stream)
+                     torch.cuda.current_stream().cuda_stream)
         _build.check(lib, err, "conv_bn_relu_forward kernel")
     return out
 
@@ -116,7 +196,7 @@ def _entry():
     """The library and its launch function, typed once."""
     lib = _build.load("conv_bn_relu")
     fn = lib.conv_bn_relu_forward
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib, fn
 
@@ -133,20 +213,13 @@ def fused_conv_bn_relu(x, weight, conv_bias, bn_scale, bn_bias, bn_mean, bn_var,
     if x.device.type == "cpu":
         return fused_conv_bn_relu_plain(x, weight, conv_bias, bn_scale, bn_bias, bn_mean,
                                         bn_var, pool=pool)
-    out = _launch(x, weight, conv_bias, bn_scale, bn_bias, bn_mean, bn_var, pool, 0)
+    out = _launch(x, weight, conv_bias, bn_scale, bn_bias, bn_mean, bn_var, pool)
     if out.numel():
         fused_conv_bn_relu.launches += 1
     return out
 
 
 fused_conv_bn_relu.launches = 0
-
-
-def _fused_conv_bn_relu_fault(x, weight, conv_bias, bn_scale, bn_bias, bn_mean, bn_var, *,
-                              pool: bool, fault: str) -> torch.Tensor:
-    """One of K5's deliberately faulty variants (``FAULTS``) on the card, for
-    showing that a check's bound catches the mistake. Not counted."""
-    return _launch(x, weight, conv_bias, bn_scale, bn_bias, bn_mean, bn_var, pool, FAULTS[fault])
 
 
 def conv_bn_relu_stage(x, conv: torch.nn.Conv2d, bn: torch.nn.BatchNorm2d, *,

@@ -5,9 +5,9 @@ where the port's wrapper takes its plain version.
 Both sum the exact products of bf16 values in fp32, in different orders, so
 a sum that lands next to a bf16 rounding boundary can come out one bf16 unit
 apart, before the BatchNorm affine or at the output: at least 99% of the
-elements must be the same bits, and every element within 2^-7 of the
-reference's largest magnitude. The port's NCHW output is transposed to NHWC
-for the comparison.
+elements must be the same bits, every element within 2^-7 of the
+reference's largest magnitude, and within ``k5_score``'s element-wise bound.
+The port's NCHW output is transposed to NHWC for the comparison.
 """
 
 import json
@@ -18,7 +18,6 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import FRONT_END_TOL, cnn_front_end, randomize_bn
 from music_transcription_tpu.ops.conv_pallas import fused_conv_bn_relu as jax_fused_conv_bn_relu
 from music_transcription_tpu.train.checkpoints import load_checkpoint
 from music_transcription_tpu_torch.checkpoints import state_dict_from_jax
@@ -53,7 +52,11 @@ def _nchw(x_nhwc):
     return torch.from_numpy(np.ascontiguousarray(x_nhwc.transpose(0, 3, 1, 2)))
 
 
-def _assert_close(got, ref):
+def _assert_close(got, ref, args=None, pool=False):
+    """``args`` (x, weight, conv bias, BN scale, bias, mean, variance), when
+    given, add ``k5_score``'s element-wise bound."""
+    if args is not None:
+        assert CK.k5_score(got, _nchw(ref), args, pool=pool) <= 1.0
     got = got.float().numpy().transpose(0, 2, 3, 1)
     assert got.shape == ref.shape
     assert float(np.mean(got == ref)) >= 0.99
@@ -71,12 +74,26 @@ def test_k5_matches_jax(b, c_in, c_out, f, t, kh, kw, pool, f_blk):
     x, kernel, conv_bias, scale, bias, mean, var = _stage_inputs(c_in + f, b, c_in, c_out, f, t, kh, kw)
     ref = _jax_k5(x, kernel, conv_bias, scale, bias, mean, var, pool, f_blk)
     weight = torch.from_numpy(np.ascontiguousarray(kernel.transpose(3, 2, 0, 1)))
+    args = (_nchw(x), weight, *(torch.from_numpy(v) for v in (conv_bias, scale, bias, mean, var)))
     before = CK.fused_conv_bn_relu.launches
-    got = CK.fused_conv_bn_relu(_nchw(x), weight, *(torch.from_numpy(v) for v in
-                                                    (conv_bias, scale, bias, mean, var)), pool=pool)
+    got = CK.fused_conv_bn_relu(*args, pool=pool)
     assert got.dtype == torch.bfloat16
     assert CK.fused_conv_bn_relu.launches == before  # a CPU tensor: the plain version
-    _assert_close(got, ref)
+    _assert_close(got, ref, args, pool)
+
+
+@pytest.mark.parametrize("fault", CK.FAULTS)
+@pytest.mark.parametrize("c_in,c_out,f,kh", [(1, 32, 320, 3), (128, 256, 80, 7)],
+                         ids=["conv1-89M", "freq_aware_conv-89M"])
+def test_k5_bound_catches_faults(fault, c_in, c_out, f, kh):
+    """Each faulty output ``faulty_plain`` builds fails ``k5_score``'s bound at
+    the 89M stages' widths (B=1, T=24, pool), which the plain version meets."""
+    x, kernel, *vecs = _stage_inputs(c_in + f, 1, c_in, c_out, f, 24, kh, 3)
+    args = (_nchw(x), torch.from_numpy(np.ascontiguousarray(kernel.transpose(3, 2, 0, 1))),
+            *(torch.from_numpy(v) for v in vecs))
+    ref = CK.fused_conv_bn_relu_plain(*args, pool=True)
+    assert CK.k5_score(ref, ref, args, pool=True) == 0.0
+    assert CK.k5_score(CK.faulty_plain(args, fault, pool=True), ref, args, pool=True) > 1.0
 
 
 @pytest.fixture(scope="module")
@@ -118,15 +135,26 @@ def test_k5_raises_where_jax_raises(f, pool):
 
 def test_front_end_through_k5_matches_the_model():
     """chip_smoke.py's front-end check on the CPU: the 89M model's widths
-    (n_mels 320) at T=40, seeded weights, K5's plain version against the
-    model's own stages, to the same FRONT_END_TOL."""
+    (n_mels 320) at T=40, seeded weights and BatchNorm statistics (variance
+    |N| + 0.5, the rest 0.3 N), ``cnn_features`` with both ConvBNRelu stages
+    through K5's plain version against the model's own, to FRONT_END_TOL."""
     torch.manual_seed(3)
     model = TranscriptionModel(ModelConfig()).model.eval()
-    randomize_bn(model, 3)
-    x = torch.from_numpy(np.random.default_rng(3).standard_normal((1, 1, 320, 40)).astype(np.float32)
-                         * 10.0 - 40.0)
-    got, ref = (cnn_front_end(model, x, k5=k5).float() for k5 in (True, False))
+    rng = np.random.default_rng(3)
+    with torch.no_grad():
+        for bn in (m for m in model.modules() if isinstance(m, torch.nn.BatchNorm2d)):
+            bn.running_var.copy_(torch.from_numpy(np.abs(rng.standard_normal(bn.num_features)) + 0.5))
+            for v in (bn.running_mean, bn.weight, bn.bias):
+                v.copy_(torch.from_numpy(0.3 * rng.standard_normal(bn.num_features)))
+    x = torch.from_numpy(rng.standard_normal((1, 1, 320, 40)).astype(np.float32) * 10.0 - 40.0)
+
+    def k5_stage(h, conv, bn, dt):
+        return CK.conv_bn_relu_stage(h, conv, bn, pool=True)
+
+    with torch.no_grad():
+        got = model.cnn_features(x, stage=k5_stage).float()
+        ref = model.cnn_features(x).float()
     assert got.shape == ref.shape == (1, 256, 40, 40)
     err = (got - ref).abs()
-    assert float(err.max()) <= FRONT_END_TOL["max"] * float(ref.abs().max())
-    assert float(err.pow(2).mean().sqrt()) <= FRONT_END_TOL["rms"] * float(ref.pow(2).mean().sqrt())
+    assert float(err.max()) <= CK.FRONT_END_TOL["max"] * float(ref.abs().max())
+    assert float(err.pow(2).mean().sqrt()) <= CK.FRONT_END_TOL["rms"] * float(ref.pow(2).mean().sqrt())
