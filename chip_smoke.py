@@ -27,12 +27,18 @@ Phases, in order; any failure exits non-zero:
      statistics made non-trivial), element by element, with the scores of
      three faulty outputs built from the plain version (the bottom halo read
      without zero fill, the shifted row pairs pooled, one tap of 16 input
-     channels left out), each of which must fail the bound; time K5, its
-     plain version and the model's own eager stage (cuDNN) with CUDA events,
-     and print their device time under torch.profiler beside them; then run
-     the model's inference CNN front end (CNNRNNLarge.cnn_features) with both
-     stages through K5 against the model's own: exactly 2 K5 launches. The
-     device memory held before and after the phase is printed;
+     channels left out), each of which must fail the bound; the same for K6
+     (a whole residual block) at res_block1 + pool (32->64, F=160) and
+     res_block2 (64->128, F=80), and at a seeded ResidualBlock(64, 64) (the
+     identity skip), with four faulty outputs (h1 not zeroed outside the
+     tensor, the skip read one column off, shifted pool pairs, one tap of
+     conv2 left out); time each kernel, its plain version and the model's own
+     eager stage or block (cuDNN) with CUDA events, and print their device
+     time under torch.profiler beside them; then run the model's inference
+     CNN front end (CNNRNNLarge.cnn_features) with both ConvBNRelu stages
+     through K5 and both residual blocks through K6 against the model's own:
+     exactly 2 K5 and 2 K6 launches. The device memory held before and after
+     the phase is printed;
   5. hold the training kernels against their plain versions at the training
      shapes and time them: K2a and K2b (batch 24: 2B=48, T=938, H=512 and
      256) beside cuDNN's bidirectional LSTM forward and backward, and the
@@ -483,11 +489,11 @@ def check_k4(torch, ak, rows):
 
 
 def conv_stage_bounds() -> dict:
-    """Bounds of K5 and K6 (K6 still to port) at the stages of the default
-    cnn_rnn_large they replace on the 30 s route (4 chunks: B=4, 320 mel
-    bins, T=938, bf16): conv1 + BN + ReLU + pool and freq_aware_conv (7x3) +
-    BN + ReLU + pool (K5), res_block1 + pool and res_block2 (K6, its two 3x3
-    convs and the 1x1 skip). Operations at the bf16 tensor-core peak; bytes:
+    """Bounds of K5 and K6 at the stages of the default cnn_rnn_large they
+    replace on the 30 s route (4 chunks: B=4, 320 mel bins, T=938, bf16):
+    conv1 + BN + ReLU + pool and freq_aware_conv (7x3) + BN + ReLU + pool
+    (K5), res_block1 + pool and res_block2 (K6, its two 3x3 convs and the 1x1
+    skip). Operations at the bf16 tensor-core peak; bytes:
     input, weights and output once."""
     b, t = 4, 938
     out = {}
@@ -522,6 +528,15 @@ def randomize_bn(model, seed: int) -> None:
                     v.copy_(torch.from_numpy(0.3 * rng.standard_normal(c)))
 
 
+def time_kernel_plain_model(torch, kernel, plain, model_stage):
+    """A kernel, its plain version and the model's own eager stage, timed
+    with CUDA events around repeated calls (20, 3, 20: the record's times),
+    and their device time per call under torch.profiler."""
+    fns, reps = (kernel, plain, model_stage), (20, 3, 20)
+    return (tuple(cuda_ms(fn, n) for fn, n in zip(fns, reps)),
+            tuple(device_ms(torch, fn, n) for fn, n in zip(fns, reps)))
+
+
 def check_k5(torch, ck, model, rows):
     """K5 against its plain version at the default model's two ConvBNRelu
     stages (B=4, T=938, pool) on ``model``'s weights, to ``ck.k5_score``'s
@@ -550,12 +565,10 @@ def check_k5(torch, ck, model, rows):
                             for k in ck.FAULTS}
             err = float((got.float() - ref.float()).abs().max())
             same = float((got == ref).float().mean())
-            fns = (lambda: ck.fused_conv_bn_relu(*args, pool=True),
-                   lambda: ck.fused_conv_bn_relu_plain(*args, pool=True),
-                   lambda: cnn_rnn._pooled_conv_bn_relu(x, conv, bn, torch.bfloat16))
-            ms, plain_ms, lib_ms = (cuda_ms(fn, reps) for fn, reps in zip(fns, (20, 3, 20)))
-            dev_ms, dev_plain_ms, dev_lib_ms = (device_ms(torch, fn, reps)
-                                                for fn, reps in zip(fns, (20, 3, 20)))
+            (ms, plain_ms, lib_ms), (dev_ms, dev_plain_ms, dev_lib_ms) = time_kernel_plain_model(
+                torch, lambda: ck.fused_conv_bn_relu(*args, pool=True),
+                lambda: ck.fused_conv_bn_relu_plain(*args, pool=True),
+                lambda: cnn_rnn._pooled_conv_bn_relu(x, conv, bn, torch.bfloat16))
         flops, nbytes, b_ms, b_by = bounds[f"K5 {name}+pool"]
         ok = (score <= 1.0 and all(v > 1.0 for v in fault_scores.values())
               and got.shape == (4, conv.out_channels, f // 2, 938)
@@ -580,63 +593,148 @@ def check_k5(torch, ck, model, rows):
     return dict(total, bound_ms=b_ms, bound_by=b_by)
 
 
+K6_BLOCKS = (("res_block1", 32, 160, True), ("res_block2", 64, 80, False))  # (module, C_in, F, pool)
+
+
+def hold_k6(torch, ck, x, block, pool: bool, name: str):
+    """K6 on ``block`` (a port ResidualBlock on the card) and ``x`` against its
+    plain version, to ``ck.k6_score``'s bound, with the scores of the faulty
+    outputs ``ck.faulty_plain_k6`` builds, each of which must fail it.
+    Returns (args, max |err|, text); raises on a failure."""
+    args = (x, *ck.res_block_args(block))
+    with torch.no_grad():
+        got = ck.fused_res_block(*args, pool=pool)
+        ref = ck.fused_res_block_plain(*args, pool=pool)
+        torch.cuda.synchronize()
+        score = ck.k6_score(got, ref, args, pool=pool)
+        faults = {k: ck.k6_score(ck.faulty_plain_k6(args, k, pool=pool), ref, args, pool=pool)
+                  for k in ck.FAULTS_K6}
+    b, c_in, f, t = x.shape
+    c_out = block.conv2.out_channels
+    err = float((got.float() - ref.float()).abs().max())
+    same = float((got == ref).float().mean())
+    ok = (score <= 1.0 and all(v > 1.0 for v in faults.values())
+          and got.shape == (b, c_out, f // 2 if pool else f, t)
+          and bool(torch.isfinite(got.float()).all()))
+    text = (f"K6 {name}{'+pool' if pool else ''} B={b} C {c_in}->{c_out} F={f} T={t} "
+            f"({'1x1 skip' if block.skip is not None else 'identity skip'}): max_abs_err={err:.3e}, "
+            f"bit-identical {same:.6f}, worst |err|/bound {score:.3f} (faults: "
+            + ", ".join(f"{k} {v:.1f}" for k, v in faults.items()) + ")")
+    if not ok:
+        raise AssertionError(text + " FAIL")
+    return args, err, text
+
+
+def check_k6(torch, ck, model, rows):
+    """K6 against its plain version at the default model's two residual
+    blocks (B=4, T=938; res_block1 with the pool that follows it) on
+    ``model``'s weights, and at a seeded ResidualBlock(64, 64), the identity
+    skip, at B=4, F=80; K6, its plain version and the model's own eager block
+    (cuDNN bf16 convs + elementwise passes, + pool) timed as K5's stages.
+    Returns the record of the two blocks together, as the front end launches
+    them."""
+    from music_transcription_tpu_torch.models import cnn_rnn
+
+    rng = np.random.default_rng(SEED + 12)
+    bounds = conv_stage_bounds()
+    total = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0, flops=0.0, nbytes=0.0)
+    for name, c_in, f, pool in K6_BLOCKS:
+        block = getattr(model, name)
+        x = torch.from_numpy(rng.standard_normal((4, c_in, f, 938)).astype(np.float32)).to(
+            "cuda", torch.bfloat16)
+        args, err, text = hold_k6(torch, ck, x, block, pool, name)
+        with torch.no_grad():
+            (ms, plain_ms, lib_ms), (dev_ms, dev_plain_ms, dev_lib_ms) = time_kernel_plain_model(
+                torch, lambda: ck.fused_res_block(*args, pool=pool),
+                lambda: ck.fused_res_block_plain(*args, pool=pool),
+                lambda: cnn_rnn._res_block(x, block, torch.bfloat16, pool))
+        flops, nbytes, b_ms, b_by = bounds[f"K6 {name}{'+pool' if pool else ''}"]
+        rows.append(text + f"; ms={ms:.4f} plain_ms={plain_ms:.3f} model_block_ms={lib_ms:.4f} "
+                    f"(device time under torch.profiler: {dev_ms:.4f} / {dev_plain_ms:.3f} / "
+                    f"{dev_lib_ms:.4f}) bound_ms={b_ms:.4f} ({b_by}) ok")
+        for key, v in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", lib_ms),
+                       ("flops", flops), ("nbytes", nbytes)):
+            total[key] += v
+        total["max_abs_err"] = max(total["max_abs_err"], err)
+        del x, args
+    torch.manual_seed(SEED + 12)
+    identity = cnn_rnn.ResidualBlock(64, 64)
+    randomize_bn(identity, SEED + 12)
+    identity.cuda().eval()
+    x = torch.from_numpy(rng.standard_normal((4, 64, 80, 938)).astype(np.float32)).to(
+        "cuda", torch.bfloat16)
+    rows.append(hold_k6(torch, ck, x, identity, False, "ResidualBlock(64, 64)")[2] + " ok")
+    b_ms, b_by = bound(total.pop("flops"), PEAK_BF16, total.pop("nbytes"))
+    return dict(total, bound_ms=b_ms, bound_by=b_by)
+
+
 def conv_phase(torch, ck, model, card):
     """Phase 4b on a copy of ``model`` (the port's CNNRNNLarge) with
-    non-trivial BatchNorm statistics. Returns K5's record and its launches
-    in the front end."""
+    non-trivial BatchNorm statistics. Returns K5's and K6's records and
+    their launches in the front end."""
     held = torch.cuda.memory_allocated()
-    k5_model = copy.deepcopy(model)
-    randomize_bn(k5_model, SEED + 10)
-    k5_model.cuda().eval()
+    conv_model = copy.deepcopy(model)
+    randomize_bn(conv_model, SEED + 10)
+    conv_model.cuda().eval()
     rows = []
     t0 = time.perf_counter()
-    k5 = check_k5(torch, ck, k5_model, rows)
-    launches = k5_front_end(torch, ck, k5_model, rows)
-    del k5_model
+    k5 = check_k5(torch, ck, conv_model, rows)
+    k6 = check_k6(torch, ck, conv_model, rows)
+    launches = conv_front_end(torch, ck, conv_model, rows)
+    del conv_model
     # torch.profiler (device_ms) leaves the frames of the stack it ran in,
     # and their tensors, in a reference cycle once they return: collect it
     # here, or it counts in a later phase's memory
     gc.collect()
-    print(f"[4b] K5 vs its plain version and the model's front end on {card} "
+    print(f"[4b] K5 and K6 vs their plain versions and the model's front end on {card} "
           f"({time.perf_counter() - t0:.1f} s); device memory allocated before / after "
           f"{held} / {torch.cuda.memory_allocated()} bytes")
     for r in rows:
         print("    " + r)
-    return k5, launches
+    return k5, k6, launches
 
 
-def k5_front_end(torch, ck, model, rows) -> int:
+def conv_front_end(torch, ck, model, rows) -> dict:
     """The model's inference CNN front end on the card (B=4, 320 mel bins,
-    T=938) with both ConvBNRelu stages through K5, against the model's own
-    front end: exactly 2 K5 launches. Returns the launch count."""
+    T=938) with both ConvBNRelu stages through K5 and both residual blocks
+    through K6, against the model's own front end: exactly 2 K5 and 2 K6
+    launches. Returns the launch counts."""
     def k5_stage(h, conv, bn, dt):
         return ck.conv_bn_relu_stage(h, conv, bn, pool=True)
 
-    def front_end(k5: bool):
+    def k6_block(h, block, dt, pool):
+        return ck.res_block_stage(h, block, pool=pool)
+
+    def front_end(kernels: bool):
         with torch.no_grad():
-            return model.cnn_features(x, **({"stage": k5_stage} if k5 else {}))
+            return model.cnn_features(x, **({"stage": k5_stage, "block": k6_block}
+                                             if kernels else {}))
 
     x = torch.from_numpy((np.random.default_rng(SEED + 11).standard_normal((4, 1, 320, 938))
                           * 10.0 - 40.0).astype(np.float32)).cuda()
-    ref = front_end(k5=False)
+    ref = front_end(kernels=False)
     ck.fused_conv_bn_relu.launches = 0
-    got = front_end(k5=True)
+    ck.fused_res_block.launches = 0
+    got = front_end(kernels=True)
     torch.cuda.synchronize()
-    launches = ck.fused_conv_bn_relu.launches
+    launches = {"fused_conv_bn_relu": ck.fused_conv_bn_relu.launches,
+                "fused_res_block": ck.fused_res_block.launches}
     got, ref = got.float(), ref.float()
     err = (got - ref).abs()
     max_ratio = float(err.max()) / float(ref.abs().max())
     rms_ratio = float(err.pow(2).mean().sqrt()) / float(ref.pow(2).mean().sqrt())
-    k5_ms, model_ms = (cuda_ms(lambda: front_end(k5), reps=5) for k5 in (True, False))
-    k5_dev, model_dev = (device_ms(torch, lambda: front_end(k5), reps=5) for k5 in (True, False))
+    k_ms, model_ms = (cuda_ms(lambda: front_end(k), reps=5) for k in (True, False))
+    k_dev, model_dev = (device_ms(torch, lambda: front_end(k), reps=5) for k in (True, False))
     tol = ck.FRONT_END_TOL
-    ok = (launches == 2 and got.shape == (4, 256, 40, 938) and bool(torch.isfinite(got).all())
+    ok = (launches == {"fused_conv_bn_relu": 2, "fused_res_block": 2}
+          and got.shape == (4, 256, 40, 938) and bool(torch.isfinite(got).all())
           and max_ratio <= tol["max"] and rms_ratio <= tol["rms"])
     rows.append(f"front end (B=4, 320 x 938 -> {tuple(got.shape)}) with both ConvBNRelu stages "
-                f"through K5 vs the model's own: max|err|/max|ref| {max_ratio:.3e} (tol "
-                f"{tol['max']:g}), rms ratio {rms_ratio:.3e} (tol {tol['rms']:g}), K5 launches "
-                f"{launches}; ms {k5_ms:.3f} through K5, {model_ms:.3f} the model's own (device "
-                f"time under torch.profiler {k5_dev:.3f} / {model_dev:.3f}) {'ok' if ok else 'FAIL'}")
+                f"through K5 and both residual blocks through K6 vs the model's own: "
+                f"max|err|/max|ref| {max_ratio:.3e} (tol {tol['max']:g}), rms ratio "
+                f"{rms_ratio:.3e} (tol {tol['rms']:g}), launches {launches}; ms {k_ms:.3f} "
+                f"through K5 + K6, {model_ms:.3f} the model's own (device time under "
+                f"torch.profiler {k_dev:.3f} / {model_dev:.3f}) {'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(rows[-1])
     return launches
@@ -655,6 +753,19 @@ def device_time_by_kernel(prof, wall_s: float, top: int = 12):
         print(f"      {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<4d} {e.key[:90]}")
 
 
+def warm_request_ms(torch, server, y) -> float:
+    """One request on a warm server (after one untimed), host clock around
+    work that ends in a synchronize. A collection first, so that the reading
+    holds no full collection of garbage earlier work left."""
+    server.transcribe_array(y)
+    torch.cuda.synchronize()
+    gc.collect()
+    t0 = time.perf_counter()
+    server.transcribe_array(y)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
 def profile_request(torch, server, y):
     """Where a warm request's time goes: host stages (clock around work that
     ends in a synchronize) and device time by kernel (torch.profiler)."""
@@ -664,6 +775,7 @@ def profile_request(torch, server, y):
     from music_transcription_tpu_torch.transcribe import transcribe_chunks
 
     acfg = server.loaded.audio_cfg
+    gc.collect()  # as warm_request_ms
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         chunks = server.split(y)
@@ -892,6 +1004,7 @@ def time_train_steps(torch, mcfg, tcfg, acfg, cache_dir):
     batches = [b for _ in range(4) for b in loader]  # 8 batches, staged on the card
     train_step(state, batches[0], SEED + 1, max_grad_norm=1.0)
     torch.cuda.synchronize()
+    gc.collect()  # a peak counts no garbage of earlier phases
     torch.cuda.reset_peak_memory_stats()
     held = torch.cuda.memory_allocated()
     times = []
@@ -1123,6 +1236,7 @@ def main() -> int:
 
     lk.lstm_recurrence.launches = 0
     ak.flash_attention_clamped.launches = 0
+    gc.collect()  # a peak counts no garbage of earlier phases
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     transcribe_audio(wav30, pth, mid30, verbose=False, device="cuda")
@@ -1141,13 +1255,7 @@ def main() -> int:
     # a second request on the warm server measures steady serving
     server = Transcriber(pth, device="cuda")
     y, _ = load_audio(wav30, sr=acfg.sample_rate)
-    server.transcribe_array(y)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    server.transcribe_array(y)
-    torch.cuda.synchronize()
-    warm30 = time.perf_counter() - t0
-    print(f"    warm request (load_audio excluded): {warm30 * 1e3:.1f} ms")
+    print(f"    warm request (load_audio excluded): {warm_request_ms(torch, server, y):.1f} ms")
     profile_request(torch, server, y)
 
     # the model on the card against the same weights on the CPU, short input
@@ -1179,6 +1287,7 @@ def main() -> int:
     write_wav(wav120, 470.0, SEED + 3)
     lk.lstm_recurrence.launches = 0
     ak.flash_attention_clamped.launches = 0
+    gc.collect()  # a peak counts no garbage of earlier phases
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     transcribe_audio(wav120, pth, mid120, verbose=False, window=120.0, device="cuda")
@@ -1194,16 +1303,13 @@ def main() -> int:
         raise AssertionError(f"-w 120 route missed a kernel: {launches120}")
     server120 = Transcriber(pth, window=120.0, device="cuda")
     y120, _ = load_audio(wav120, sr=acfg.sample_rate)
-    server120.transcribe_array(y120)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    server120.transcribe_array(y120)
-    torch.cuda.synchronize()
-    print(f"    warm request (load_audio excluded): {(time.perf_counter() - t0) * 1e3:.1f} ms")
+    print(f"    warm request (load_audio excluded): "
+          f"{warm_request_ms(torch, server120, y120):.1f} ms")
     profile_request(torch, server120, y120)
 
-    # 4b. K5 at the default model's two ConvBNRelu stages, then its CNN front end
-    k5, k5_launches = conv_phase(torch, ck, model.model, card)
+    # 4b. K5 at the default model's two ConvBNRelu stages, K6 at its two
+    # residual blocks, then its CNN front end through both
+    k5, k6, conv_launches = conv_phase(torch, ck, model.model, card)
 
     # 5. the training kernels against their plain versions
     rows = []
@@ -1255,12 +1361,12 @@ def main() -> int:
         dict(name="fused_conv_bn_relu", route="cuda",
              source="music_transcription_tpu_torch/csrc/conv_bn_relu.cu",
              replaces="music_transcription_tpu/ops/conv_pallas.py:141",
-             launches=k5_launches, ok=True, **k5),
+             launches=conv_launches["fused_conv_bn_relu"], ok=True, **k5),
+        dict(name="fused_res_block", route="cuda",
+             source="music_transcription_tpu_torch/csrc/res_block.cu",
+             replaces="music_transcription_tpu/ops/conv_pallas.py:214",
+             launches=conv_launches["fused_res_block"], ok=True, **k6),
     ]
-    for name, (flops, nbytes, b_ms, b_by) in conv_stage_bounds().items():
-        if name.startswith("K6"):
-            print(f"    still to port, {name} at the 30 s route's shape: {flops / 1e9:.2f} GFLOP, "
-                  f"{nbytes / 1e6:.1f} MB, bound_ms={b_ms:.4f} ({b_by})")
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -45,6 +45,43 @@ import torch.nn as nn
 from music_transcription_tpu_torch.config import ModelConfig
 
 
+def _put_conv(out: dict, name: str, tree) -> None:
+    out[f"{name}.weight"] = np.transpose(np.asarray(tree["kernel"]), (3, 2, 0, 1))
+    out[f"{name}.bias"] = np.asarray(tree["bias"])
+
+
+def _put_bn(out: dict, name: str, ptree, stree) -> None:
+    """A flax BatchNorm's params (and, unless ``stree`` is None, its
+    batch_stats) as BatchNorm2d entries."""
+    out[f"{name}.weight"] = np.asarray(ptree["scale"])
+    out[f"{name}.bias"] = np.asarray(ptree["bias"])
+    if stree is None:
+        return
+    out[f"{name}.running_mean"] = np.asarray(stree["mean"])
+    out[f"{name}.running_var"] = np.asarray(stree["var"])
+    out[f"{name}.num_batches_tracked"] = np.asarray(0, np.int64)
+
+
+def _res_block_arrays(p, s) -> dict[str, np.ndarray]:
+    out: dict[str, np.ndarray] = {}
+    names = [("conv1", "bn1", "conv1", "bn1"), ("conv2", "bn2", "conv2", "bn2")]
+    if "skip_conv" in p:  # C_in != C_out; else the skip is x itself
+        names.append(("skip_conv", "skip_bn", "skip.0", "skip.1"))
+    for conv, bn, conv_name, bn_name in names:
+        _put_conv(out, conv_name, p[conv])
+        _put_bn(out, bn_name, p[bn], None if s is None else s[bn])
+    return out
+
+
+def res_block_state_dict_from_jax(block: dict) -> dict[str, torch.Tensor]:
+    """One JAX ``ResidualBlock``'s ``{"params", "batch_stats"}`` (numpy
+    leaves; without ``batch_stats`` the running statistics are left out) ->
+    the port ``ResidualBlock``'s state_dict. A block without ``skip_conv``
+    (C_in == C_out) has no ``skip.*`` entries."""
+    arrays = _res_block_arrays(block["params"], block.get("batch_stats"))
+    return {k: torch.from_numpy(np.array(v)) for k, v in arrays.items()}
+
+
 def state_dict_from_jax(variables: dict, cfg: ModelConfig) -> dict[str, torch.Tensor]:
     """JAX variables tree (numpy leaves) -> the port module's state_dict
     (keys without the ``model.`` prefix). Without ``batch_stats`` the
@@ -53,24 +90,12 @@ def state_dict_from_jax(variables: dict, cfg: ModelConfig) -> dict[str, torch.Te
     s = variables.get("batch_stats")
     out: dict[str, np.ndarray] = {}
 
-    def put_conv(name, tree):
-        out[f"{name}.weight"] = np.transpose(np.asarray(tree["kernel"]), (3, 2, 0, 1))
-        out[f"{name}.bias"] = np.asarray(tree["bias"])
-
     def put_bn(name, *path):
-        ptree = p
+        ptree, stree = p, s
         for key in path:
             ptree = ptree[key]
-        out[f"{name}.weight"] = np.asarray(ptree["scale"])
-        out[f"{name}.bias"] = np.asarray(ptree["bias"])
-        if s is None:
-            return
-        stree = s
-        for key in path:
-            stree = stree[key]
-        out[f"{name}.running_mean"] = np.asarray(stree["mean"])
-        out[f"{name}.running_var"] = np.asarray(stree["var"])
-        out[f"{name}.num_batches_tracked"] = np.asarray(0, np.int64)
+            stree = None if stree is None else stree[key]
+        _put_bn(out, name, ptree, stree)
 
     def put_dense(name, tree):
         out[f"{name}.weight"] = np.asarray(tree["kernel"]).T
@@ -86,23 +111,19 @@ def state_dict_from_jax(variables: dict, cfg: ModelConfig) -> dict[str, torch.Te
                 out[f"{name}.bias_hh_l{li}{sfx}"] = np.zeros_like(b)
 
     if cfg.model_type == "cnn_rnn":
-        put_conv("cnn.0", p["block1"]["conv"])
+        _put_conv(out, "cnn.0", p["block1"]["conv"])
         put_bn("cnn.1", "block1", "bn")
-        put_conv("cnn.4", p["block2"]["conv"])
+        _put_conv(out, "cnn.4", p["block2"]["conv"])
         put_bn("cnn.5", "block2", "bn")
         put_lstm("rnn", p["rnn"], cfg.num_layers)
         put_dense("fc", p["fc"])
     elif cfg.model_type == "cnn_rnn_large":
-        put_conv("conv1.0", p["conv1"]["conv"])
+        _put_conv(out, "conv1.0", p["conv1"]["conv"])
         put_bn("conv1.1", "conv1", "bn")
         for rb in ("res_block1", "res_block2"):
-            put_conv(f"{rb}.conv1", p[rb]["conv1"])
-            put_bn(f"{rb}.bn1", rb, "bn1")
-            put_conv(f"{rb}.conv2", p[rb]["conv2"])
-            put_bn(f"{rb}.bn2", rb, "bn2")
-            put_conv(f"{rb}.skip.0", p[rb]["skip_conv"])
-            put_bn(f"{rb}.skip.1", rb, "skip_bn")
-        put_conv("freq_aware_conv.0", p["freq_aware_conv"]["conv"])
+            block = _res_block_arrays(p[rb], None if s is None else s[rb])
+            out.update((f"{rb}.{k}", v) for k, v in block.items())
+        _put_conv(out, "freq_aware_conv.0", p["freq_aware_conv"]["conv"])
         put_bn("freq_aware_conv.1", "freq_aware_conv", "bn")
         put_lstm("rnn_main", p["rnn_main"], cfg.num_layers)
         put_lstm("rnn_local", p["rnn_local"], 1)

@@ -59,6 +59,8 @@
 
 #include <cstdint>
 
+#include "tile_mma.cuh"
+
 using bf16 = __nv_bfloat16;
 
 namespace {
@@ -67,7 +69,6 @@ constexpr int kThreads = 256, kWarps = kThreads / 32;
 constexpr int kSmemLimit = 232448;  // bytes of shared memory a block may have
 
 // tensor-core kernel tile
-constexpr int CK = 16;            // input channels per K chunk
 constexpr int FR = 2;             // output rows per tile (one pool pair)
 constexpr int TM = 64;            // output columns per tile
 constexpr int kMFrags = FR * TM / 16;
@@ -77,46 +78,6 @@ constexpr int LDC = FR * TM + 4;  // row stride of the fp32 [NT][FR*TM] epilogue
 constexpr int FRC = 4;            // output rows per block: two row pairs
 constexpr int TC = 128;           // output columns per block
 constexpr int NC = 16;            // output channels a thread accumulates at once
-
-// 16 bytes from global to shared memory without a register round trip
-// (cp.async); zeros instead when !valid (src-size 0 reads nothing).
-__device__ __forceinline__ void copy16_async(void* dst, const void* src, bool valid) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
-               "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void wait_async_copies() {
-  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
-}
-
-// Offset (bf16) of the 16-byte half h of row `row` in a tile of 32-byte rows
-// (16 channels), the halves swapped in rows 4-7 of every 8.
-__device__ __forceinline__ int swizzled(int row, int h) {
-  return row * CK + 8 * (h ^ ((row >> 2) & 1));
-}
-
-__device__ __forceinline__ unsigned shared_address(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// Four 8x8 bf16 matrices, one 16-byte row address per lane (lanes 8m..8m+7
-// address matrix m), into r[m].
-__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], unsigned addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-// c += a (16x16, row) * b (16x8, col), bf16 in, fp32 accumulate.
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4], unsigned b0,
-                                         unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 // + conv bias in fp32, one bf16 rounding, the BN affine in fp32, ReLU.
 __device__ __forceinline__ float bn_relu(float acc, float bias, float s, float o) {

@@ -108,6 +108,11 @@ def _pooled_conv_bn_relu(x, conv, bn, dt):
     return _maxpool_freq(_conv_bn_relu(x, conv, bn, dt))
 
 
+def _res_block(x: torch.Tensor, block: ResidualBlock, dt: torch.dtype, pool: bool) -> torch.Tensor:
+    out = block(x, dt)
+    return _maxpool_freq(out) if pool else out
+
+
 def _to_nchw(x: torch.Tensor) -> torch.Tensor:
     """Accept (B, 1, n_mels, T) or (B, n_mels, T)."""
     return x[:, None] if x.dim() == 3 else x
@@ -120,7 +125,9 @@ def _flatten_ct(feat: torch.Tensor) -> torch.Tensor:
 
 
 class ResidualBlock(nn.Module):
-    """conv1+bn1+relu, conv2+bn2, 1x1 skip conv+bn, add, relu."""
+    """conv1+bn1+relu, conv2+bn2, add the skip, relu. The skip is a 1x1
+    conv+bn (``skip``) when the channel count changes, else x itself in
+    fp32 (``skip`` is None), as in the JAX model."""
 
     def __init__(self, in_channels: int, out_channels: int):
         super().__init__()
@@ -128,11 +135,16 @@ class ResidualBlock(nn.Module):
         self.bn1 = nn.BatchNorm2d(out_channels)
         self.conv2 = nn.Conv2d(out_channels, out_channels, 3, padding=1)
         self.bn2 = nn.BatchNorm2d(out_channels)
-        self.skip = nn.Sequential(nn.Conv2d(in_channels, out_channels, 1),
-                                  nn.BatchNorm2d(out_channels))
+        self.skip = None
+        if in_channels != out_channels:
+            self.skip = nn.Sequential(nn.Conv2d(in_channels, out_channels, 1),
+                                      nn.BatchNorm2d(out_channels))
 
     def forward(self, x: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
-        identity = _bn(_conv(x, self.skip[0], dt), self.skip[1])
+        if self.skip is None:
+            identity = x.float()
+        else:
+            identity = _bn(_conv(x, self.skip[0], dt), self.skip[1])
         out = F.relu(_bn(_conv(x, self.conv1, dt), self.bn1))
         out = _bn(_conv(out.to(dt), self.conv2, dt), self.bn2)
         return F.relu(out + identity).to(dt)
@@ -302,16 +314,18 @@ class CNNRNNLarge(nn.Module):
             self.fc = nn.Linear(combined, NUM_KEYS)
 
     def cnn_features(self, x: torch.Tensor, generator: torch.Generator | None = None, *,
-                     stage=_pooled_conv_bn_relu) -> torch.Tensor:
+                     stage=_pooled_conv_bn_relu, block=_res_block) -> torch.Tensor:
         """The CNN front end, (B, 1, n_mels, T) -> (B, 256, n_mels // 8, T),
         before the last channel dropout. ``stage(h, conv, bn, dt)`` computes
-        a ConvBNRelu stage with its (2, 1) max-pool (conv1, freq_aware_conv):
-        the model's own code, or another implementation of it."""
+        a ConvBNRelu stage with its (2, 1) max-pool (conv1, freq_aware_conv),
+        ``block(h, res_block, dt, pool)`` a residual block, with the (2, 1)
+        max-pool when ``pool`` (res_block1): the model's own code, or another
+        implementation of it."""
         dt = self.dtype
         d1, d2 = self.CHANNEL_DROPOUT[:2] if self.training else (0.0, 0.0)
         h = stage(x.to(dt), self.conv1[0], self.conv1[1], dt)
-        h = channel_dropout(_maxpool_freq(self.res_block1(h, dt)), d1, generator)
-        h = channel_dropout(self.res_block2(h, dt), d2, generator)
+        h = channel_dropout(block(h, self.res_block1, dt, True), d1, generator)
+        h = channel_dropout(block(h, self.res_block2, dt, False), d2, generator)
         return stage(h, self.freq_aware_conv[0], self.freq_aware_conv[1], dt)
 
     def forward(self, x: torch.Tensor, return_all_heads: bool = False,

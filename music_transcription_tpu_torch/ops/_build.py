@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
 for ``sm_90a`` into its own shared library under ``build/kernels/`` at the
 root of the checkout (listed in ``.gitignore``), at first use. The library
-name carries a hash of the source and the flags, so an edited source is
-rebuilt and a stale library is never loaded. ``build()`` starts one ``nvcc``
+name carries a hash of the source, the headers in ``csrc/`` (``*.cuh``) and
+the flags, so an edited source or header is rebuilt and a stale library is
+never loaded. ``build()`` starts one ``nvcc``
 per source, all at once, and returns what ``-Xptxas -v`` printed (registers,
 shared memory and spills of every kernel).
 
@@ -23,7 +24,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("lstm_recurrence", "flash_attention_clamped", "conv_bn_relu")
+SOURCES = ("lstm_recurrence", "flash_attention_clamped", "conv_bn_relu", "res_block")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -45,6 +46,8 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> Path:
     digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 

@@ -1,6 +1,7 @@
-"""Fused inference ConvBNRelu [+ (2, 1) max-pool over frequency]: K5.
+"""Fused inference conv kernels: K5 (ConvBNRelu [+ (2, 1) max-pool over
+frequency]) and K6 (a whole ResidualBlock [+ the same pool]).
 
-Port of ``fused_conv_bn_relu`` / ``_conv_bn_kernel`` in the JAX package's
+K5 ports ``fused_conv_bn_relu`` / ``_conv_bn_kernel`` in the JAX package's
 ``ops/conv_pallas.py``: a SAME kh x kw convolution of bf16 inputs and bf16
 weights with fp32 accumulation, the conv bias added in fp32 and the sum
 rounded to bf16 once, the BatchNorm running-statistics affine ``h * s + o``
@@ -10,16 +11,23 @@ Pallas kernel's rounding points, not the flax module's: the module (and the
 port model's ``_conv``) rounds the product to bf16 before adding the bias in
 bf16, and the port model's ``_bn`` applies ``(x - mean) * (rsqrt * g) + b``.
 
-Layouts are the port's: x (B, C_in, F, T) NCHW, the weight in torch's
+K6 ports ``fused_res_block`` / ``_res_block_kernel`` of the same file, at
+the same rounding points: h1 = bf16(relu(bf16(conv3x3(x) + b1) s1 + o1)),
+zero outside the tensor; h2 = bf16(conv3x3(h1) + b2) s2 + o2 in fp32; the
+skip bf16(conv1x1(x) + bs) ss + os, or x itself (C_in == C_out, no skip
+conv); out = bf16(relu(h2 + skip)), then the pool.
+
+Layouts are the port's: x (B, C_in, F, T) NCHW, weights in torch's
 (C_out, C_in, kh, kw); the output is (B, C_out, F[/2], T) bf16. The Pallas
-kernel's NHWC input and (kh, kw, C_in, C_out) kernel, and its TPU-only
+kernels' NHWC input and (kh, kw, C_in, C_out) kernels, and their TPU-only
 ``f_blk`` and ``interpret`` arguments, are not taken.
 
-``fused_conv_bn_relu`` launches the hand-written CUDA kernel
-(``csrc/conv_bn_relu.cu``) for a CUDA tensor and takes its plain version only
-for a CPU tensor. Neither package wires K5 into its model: the model keeps
-its own convolution and BatchNorm, and ``conv_bn_relu_stage`` runs one of the
-model's ConvBNRelu stages through K5 on the model's own modules.
+``fused_conv_bn_relu`` and ``fused_res_block`` launch the hand-written CUDA
+kernels (``csrc/conv_bn_relu.cu``, ``csrc/res_block.cu``) for a CUDA tensor
+and take their plain versions only for a CPU tensor. Neither package wires
+K5 or K6 into its model: the model keeps its own convolutions and
+BatchNorms, and ``conv_bn_relu_stage`` / ``res_block_stage`` run one of the
+model's stages through the kernel on the model's own modules.
 """
 
 from __future__ import annotations
@@ -49,13 +57,15 @@ BN_EPS = 1e-5
 # before it straddle a boundary: 2^-7 |ref|. ReLU and the max of a pair move
 # no two values further apart.
 K5_TOL = 2.0**-7
-# The inference CNN front end with both ConvBNRelu stages through K5 against
-# the model's own (which adds the bias in bf16 after rounding the product,
-# and applies the affine in another order): each stage may put an element a
-# bf16 unit or two (2^-7 relative) apart, and the residual blocks and the 7x3
-# conv carry such differences on as sums over many terms of either sign; at
-# the 89M widths they come out near 2^-8 of the largest feature and 2^-10 of
-# the rms, on the CPU at T=40 and on the card at T=938.
+# The inference CNN front end with both ConvBNRelu stages through K5, and
+# with both residual blocks through K6 too, against the model's own (which
+# adds the bias in bf16 after rounding the product, and applies the affine
+# in another order): each stage may put an element a bf16 unit or two (2^-7
+# relative) apart, and the later stages carry such differences on as sums
+# over many terms of either sign; at the 89M widths they come out near 2^-8
+# of the largest feature and 2^-10 of the rms, through K5 alone and through
+# K5 and K6 (on the CPU at T=40: 4.9e-3 and 1.19e-3), so one tolerance
+# serves both.
 FRONT_END_TOL = {"max": 2.0**-5, "rms": 2.0**-7}
 
 
@@ -233,3 +243,269 @@ def conv_bn_relu_stage(x, conv: torch.nn.Conv2d, bn: torch.nn.BatchNorm2d, *,
     with torch.no_grad():
         return fused_conv_bn_relu(x, conv.weight, conv.bias, bn.weight, bn.bias,
                                   bn.running_mean, bn.running_var, pool=pool)
+
+
+# ---------------------------------------------------------------------------
+# K6: ResidualBlock [+ (2, 1) max-pool]
+# ---------------------------------------------------------------------------
+
+# K6 against its plain version, element by element (``k6_score``). The two
+# differ only where a sum taken in another order lands on the other side of
+# a rounding point, so the bound follows every value through the block as an
+# interval around the plain version's and takes the width of the output's:
+#   * each fp32 conv sum of n exact products of bf16 values is within
+#     n 2^-23 m of the exact one, m the same sum over magnitudes (2^-23, not
+#     2^-24: tensor-core accumulators may truncate), so the two versions'
+#     sums v are within e = 2 n 2^-23 m of each other, and their roundings
+#     bf16(v) within spread(v, e) = bf16(v + e) - bf16(v - e), which is 0
+#     unless [v - e, v + e] holds a rounding boundary;
+#   * the affine h s + o moves that by |s| spread, and by 2^-22 (|h s| + |b|
+#     + |mean s|) for an fp32 product and sum rounded once (a fused
+#     multiply-add) or twice, and o's own rounding;
+#   * ReLU and the rounding to bf16 are monotone, so h1 = bf16(relu(a)) of
+#     an affine value a known to within w is known to within
+#     bf16(relu(a + w)) - bf16(relu(a - w)): d1, 0 for most elements;
+#   * conv2 carries d1 as the sum conv3x3(d1, |w2|), beside its own order
+#     term 2 n2 2^-23 m2 (m2 over |h1| + d1); h2's affine and the skip's
+#     (1x1 conv, n = C_in; the identity skip is exact) as above;
+#   * out = bf16(relu(h2 + skip)), the sum within the two widths and
+#     2^-22 (|h2| + |skip|), so out within bf16(relu(p + d)) - bf16(relu(p - d));
+#     with pool the larger of the pair's (a max moves no further).
+# So the bound is exact where no rounding boundary is near: the two must
+# agree bit for bit there. (Counting every h1 element as possibly one bf16
+# unit off, 2^-7 conv3x3(|h1|, |w2|), would put the bound near a quarter of
+# a typical h2 at the 89M widths, loose enough to let a dropped tap pass.)
+SUM_ULP = 2.0**-23
+AFFINE_ULP = 2.0**-22
+FAULTS_K6 = ("h1_halo_not_zeroed", "skip_column_shifted", "shifted_pool_pair",
+             "one_tap_of_a_chunk_dropped")
+# K6's shared memory (csrc/res_block.cu smem_bytes): the x window of 6 x 66
+# pixels and the h1 tile of 4 x 66 pixels, all channels, bf16, and one chunk
+# of 9 taps x 64 output channels x 16 input channels of weights.
+K6_SMEM_LIMIT = 232448
+
+
+def _k6_smem_bytes(c_in: int, c_mid: int) -> int:
+    return 2 * (6 * 66 * c_in + 4 * 66 * c_mid + 9 * 64 * 16)
+
+
+def _k6_split(args):
+    """(x, conv1, conv2, skip) from K6's flat arguments, each conv a tuple
+    (weight, conv bias, BN scale, bias, mean, variance); skip None without
+    a skip conv."""
+    x, rest = args[0], tuple(args[1:])
+    rest += (None,) * (18 - len(rest))
+    skip = rest[12:18]
+    if any(t is None for t in skip) and not all(t is None for t in skip):
+        raise ValueError("fused_res_block: give all six skip tensors or none")
+    return x, rest[0:6], rest[6:12], None if skip[0] is None else skip
+
+
+def _affine(h, g, b, mean, var):
+    s, o = bn_affine(g, b, mean, var)
+    return h * s.view(1, -1, 1, 1) + o.view(1, -1, 1, 1)
+
+
+def _k6_plain(args, pool: bool, *, zero_h1_halo: bool = True, skip_shift: int = 0):
+    """K6's plain version, with two of ``faulty_plain_k6``'s mistakes as
+    options."""
+    x, (w1, b1, *bn1), (w2, b2, *bn2), skip = _k6_split(args)
+    _check_rows(x.shape[2], pool)
+    if skip is None and x.shape[1] != w2.shape[0]:
+        raise ValueError(f"fused_res_block: no skip conv, but C_in {x.shape[1]} != C_out "
+                         f"{w2.shape[0]}")
+    xb = x.to(torch.bfloat16).float()
+    if zero_h1_halo:  # conv2's SAME padding: zeros outside the tensor
+        h1 = same_pad(_bn_relu_pool(_pre_affine(same_pad(xb, 3, 3), w1, b1), *bn1, False).float(),
+                      3, 3)
+    else:  # h1 computed on the ring outside the tensor too, and kept
+        h1 = _bn_relu_pool(_pre_affine(F.pad(xb, (2, 2, 2, 2)), w1, b1), *bn1, False).float()
+    h2 = _affine(_pre_affine(h1, w2, b2), *bn2)
+    xs = F.pad(xb[..., skip_shift:], (0, skip_shift)) if skip_shift else xb
+    sk = xs if skip is None else _affine(_pre_affine(xs, skip[0], skip[1]), *skip[2:])
+    out = torch.relu(h2 + sk).to(torch.bfloat16)
+    return F.max_pool2d(out.float(), (2, 1)).to(torch.bfloat16) if pool else out
+
+
+def fused_res_block_plain(x, w1, b1, g1, be1, m1, v1, w2, b2, g2, be2, m2, v2, ws=None,
+                          bs=None, gs=None, bes=None, ms=None, vs=None, *,
+                          pool: bool = False) -> torch.Tensor:
+    """K6's plain version: (B, C_in, F, T) x; conv1 (C_mid, C_in, 3, 3)
+    with its conv bias and BN scale, bias, mean, variance; conv2 (C_out,
+    C_mid, 3, 3) and its five vectors; the skip conv (C_out, C_in, 1, 1) and
+    its five, or none when C_in == C_out -> (B, C_out, F[/2], T) bf16,
+    rounded where the Pallas kernel rounds."""
+    return _k6_plain((x, w1, b1, g1, be1, m1, v1, w2, b2, g2, be2, m2, v2,
+                      ws, bs, gs, bes, ms, vs), pool)
+
+
+def _spread(v, e):
+    """How far apart bf16 roundings of two values within e of v can be."""
+    return (v + e).to(torch.bfloat16).float() - (v - e).to(torch.bfloat16).float()
+
+
+def _relu_spread(a, w):
+    return torch.relu(a + w).to(torch.bfloat16).float() - torch.relu(a - w).to(torch.bfloat16).float()
+
+
+def _conv_interval(inp, d_inp, weight, conv_bias, g, b, mean, var):
+    """One conv + bias + bf16 + affine of the plain version, on ``inp``
+    known to within ``d_inp`` (None: exact): (the affine's value, how far
+    the kernel's may be from it)."""
+    wb = weight.to(torch.bfloat16).float()
+    with full_fp32():
+        v = F.conv2d(inp, wb) + conv_bias.float().view(1, -1, 1, 1)
+        mag = inp.abs() if d_inp is None else inp.abs() + d_inp
+        m = F.conv2d(mag, wb.abs()) + conv_bias.float().abs().view(1, -1, 1, 1)
+        e = 2 * weight[0].numel() * SUM_ULP * m
+        if d_inp is not None:
+            e += F.conv2d(d_inp, wb.abs())
+    s, o = (t.view(1, -1, 1, 1) for t in bn_affine(g, b, mean, var))
+    zs = v.to(torch.bfloat16).float() * s
+    slack = AFFINE_ULP * (zs.abs() + b.float().abs().view(1, -1, 1, 1) + (mean.float().view(1, -1, 1, 1) * s).abs())
+    return zs + o, s.abs() * _spread(v, e) + slack
+
+
+@torch.no_grad()
+def k6_score(got, ref, args, *, pool: bool) -> float:
+    """Largest |got - ref| over its bound (derived above) for K6 on
+    ``args`` (``fused_res_block_plain``'s) against
+    ``ref = fused_res_block_plain(*args, pool=pool)``: <= 1 passes; an
+    element that differs where the bound is 0 scores inf."""
+    x, conv1, conv2, skip = _k6_split(args)
+    xb = x.to(torch.bfloat16).float()
+    a1, w1 = _conv_interval(same_pad(xb, 3, 3), None, *conv1)
+    h1, d1 = torch.relu(a1).to(torch.bfloat16).float(), _relu_spread(a1, w1)
+    h2, dh2 = _conv_interval(same_pad(h1, 3, 3), same_pad(d1, 3, 3), *conv2)
+    sk, dsk = (xb, 0.0) if skip is None else _conv_interval(xb, None, *skip)
+    p = h2 + sk
+    bound = _relu_spread(p, dh2 + dsk + AFFINE_ULP * (h2.abs() + sk.abs()))
+    if pool:
+        bound = F.max_pool2d(bound, (2, 1))
+    err = (got.float() - ref.float()).abs()
+    return float(torch.where(err == 0, torch.zeros_like(err), err / bound).max())
+
+
+@torch.no_grad()
+def faulty_plain_k6(args, fault: str, *, pool: bool) -> torch.Tensor:
+    """What K6 on ``args`` would give with one of four mistakes, from its
+    plain version: ``h1_halo_not_zeroed`` keeps h1's values computed on the
+    ring outside the tensor (from the zero-padded x: not zero) for conv2;
+    ``skip_column_shifted`` reads the skip's input one column later (zeros
+    past the last); ``shifted_pool_pair`` pools the rows (2f + 1, 2f + 2)
+    (the last pair (F - 1, F - 1)), or without pool shifts the rows by one;
+    ``one_tap_of_a_chunk_dropped`` leaves out conv2's last tap (2, 2) of the
+    last 16 h1 channels. For showing that ``k6_score``'s bound catches such
+    mistakes (``FAULTS_K6``)."""
+    if fault == "h1_halo_not_zeroed":
+        return _k6_plain(args, pool, zero_h1_halo=False)
+    if fault == "skip_column_shifted":
+        return _k6_plain(args, pool, skip_shift=1)
+    if fault == "shifted_pool_pair":
+        y = _k6_plain(args, False).float()
+        y = torch.cat([y[:, :, 1:], y[:, :, -1:]], dim=2)
+        return F.max_pool2d(y, (2, 1)).to(torch.bfloat16) if pool else y.to(torch.bfloat16)
+    if fault == "one_tap_of_a_chunk_dropped":
+        args = list(args)
+        args[7] = args[7].clone()
+        args[7][:, -16:, 2, 2] = 0
+        return _k6_plain(args, pool)
+    raise ValueError(f"unknown fault {fault!r}")
+
+
+def _launch_k6(args, pool: bool) -> torch.Tensor:
+    """Check the inputs and launch K6 on the current stream of x's device;
+    returns the output."""
+    x, conv1, conv2, skip = _k6_split(args)
+    tensors = (x, *conv1, *conv2, *(skip or ()))
+    if not x.is_cuda or any(t.device != x.device for t in tensors):
+        raise ValueError(f"fused_res_block: inputs on {[str(t.device) for t in tensors]}")
+    if not all(t.is_floating_point() for t in tensors):
+        raise ValueError(f"fused_res_block takes floating inputs, got {[t.dtype for t in tensors]}")
+    if x.dim() != 4:
+        raise ValueError(f"fused_res_block: x {tuple(x.shape)}")
+    b, c_in, f, t = x.shape
+    c_mid, c_out = conv1[0].shape[0], conv2[0].shape[0]
+    shapes = [(conv1[0], (c_mid, c_in, 3, 3)), (conv2[0], (c_out, c_mid, 3, 3))]
+    shapes += [(v, (c_mid,)) for v in conv1[1:]] + [(v, (c_out,)) for v in conv2[1:]]
+    if skip is None:
+        shapes.append((x, (b, c_out, f, t)))  # the identity skip: C_in == C_out
+    else:
+        shapes += [(skip[0], (c_out, c_in, 1, 1))] + [(v, (c_out,)) for v in skip[1:]]
+    bad = [(tuple(a.shape), want) for a, want in shapes if tuple(a.shape) != want]
+    if bad:
+        raise ValueError(f"fused_res_block: shapes (got, want) {bad}")
+    if (c_in % 16 or c_mid % 16 or c_out % 16
+            or _k6_smem_bytes(c_in, c_mid) > K6_SMEM_LIMIT):
+        raise ValueError(f"fused_res_block: the kernel takes channel counts that are multiples "
+                         f"of 16 and fit its shared memory, got {c_in} -> {c_mid} -> {c_out}")
+    _check_rows(f, pool)
+    if f // 2 > 65535 or b > 65535:
+        raise ValueError(f"fused_res_block: grid too large for B={b}, F={f}")
+    xb = x.to(torch.bfloat16).contiguous()
+    convs = [conv1, conv2] + ([skip] if skip is not None else [])
+    ptrs = []
+    for weight, conv_bias, *bn in convs:  # weights as (kh, kw, C_out, C_in)
+        ptrs += [weight.to(torch.bfloat16).permute(2, 3, 0, 1).contiguous(),
+                 conv_bias.float().contiguous(), *(v.contiguous() for v in bn_affine(*bn))]
+    out = torch.empty((b, c_out, f // 2 if pool else f, t), device=x.device, dtype=torch.bfloat16)
+    if out.numel():
+        lib, fn = _entry_k6()
+        addrs = [a.data_ptr() for a in ptrs] + [None] * (12 - len(ptrs))
+        with torch.cuda.device(x.device):
+            err = fn(xb.data_ptr(), *addrs, out.data_ptr(), b, c_in, c_mid, c_out, f, t,
+                     int(pool), torch.cuda.current_stream().cuda_stream)
+        _build.check(lib, err, "res_block_forward kernel")
+    return out
+
+
+@functools.cache
+def _entry_k6():
+    lib = _build.load("res_block")
+    fn = lib.res_block_forward
+    fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return lib, fn
+
+
+def fused_res_block(x, w1, b1, g1, be1, m1, v1, w2, b2, g2, be2, m2, v2, ws=None, bs=None,
+                    gs=None, bes=None, ms=None, vs=None, *, pool: bool = False) -> torch.Tensor:
+    """Fused ResidualBlock (inference) [+ maxpool(2, 1)], on the arguments
+    of ``fused_res_block_plain`` -> (B, C_out, F[/2], T) bf16.
+
+    A CUDA tensor goes through K6 (or raises ``ValueError`` on what it does
+    not take); a CPU tensor through ``fused_res_block_plain``.
+    ``fused_res_block.launches`` counts K6's launches."""
+    args = (x, w1, b1, g1, be1, m1, v1, w2, b2, g2, be2, m2, v2, ws, bs, gs, bes, ms, vs)
+    if x.device.type == "cpu":
+        return _k6_plain(args, pool)
+    out = _launch_k6(args, pool)
+    if out.numel():
+        fused_res_block.launches += 1
+    return out
+
+
+fused_res_block.launches = 0
+
+
+def res_block_args(block) -> tuple:
+    """A port ``ResidualBlock``'s weights and running statistics as K6's
+    arguments after x (without the skip's when ``block.skip`` is None)."""
+    pairs = [(block.conv1, block.bn1), (block.conv2, block.bn2)]
+    if block.skip is not None:
+        pairs.append((block.skip[0], block.skip[1]))
+    for conv, bn in pairs:
+        k = conv.kernel_size[0]
+        if conv.stride != (1, 1) or conv.padding != (k // 2, k // 2) or bn.eps != BN_EPS:
+            raise ValueError(f"not a SAME stride-1 residual block: {conv}, {bn}")
+    return tuple(t for conv, bn in pairs
+                 for t in (conv.weight, conv.bias, bn.weight, bn.bias, bn.running_mean,
+                           bn.running_var))
+
+
+def res_block_stage(x, block, *, pool: bool) -> torch.Tensor:
+    """A port model's ``ResidualBlock`` (with or without ``skip``) through
+    ``fused_res_block``, with its BatchNorms' running statistics (K6 is an
+    inference kernel)."""
+    with torch.no_grad():
+        return fused_res_block(x, *res_block_args(block), pool=pool)

@@ -18,7 +18,7 @@ import torch
 
 from music_transcription_tpu_torch.config import AudioConfig, ModelConfig, TrainConfig, config_to_dict
 from music_transcription_tpu_torch.data.midi import load_midi
-from music_transcription_tpu_torch.models.cnn_rnn import CNNRNNLarge
+from music_transcription_tpu_torch.models.cnn_rnn import CNNRNNLarge, ResidualBlock
 from music_transcription_tpu_torch.models.transcription import TranscriptionModel
 from music_transcription_tpu_torch.ops import attention_kernel as AK
 from music_transcription_tpu_torch.ops import conv_kernel as CK
@@ -280,6 +280,58 @@ def test_k5_matches_plain(cuda, b, c_in, c_out, f, t, kh, kw, pool):
     assert CK.fused_conv_bn_relu.launches == before + 1
     assert got.dtype == torch.bfloat16 and got.shape == ref.shape == (b, c_out, f // 2 if pool else f, t)
     assert CK.k5_score(got, ref, args, pool=pool) <= 1.0
+
+
+def _k6_args(cuda, seed, b, c_in, c_out, f, t):
+    """x (bf16) and a seeded ResidualBlock(c_in, c_out) with BatchNorm
+    statistics made non-trivial (variance |N| + 0.5, the rest 0.3 N), as
+    K6's arguments."""
+    torch.manual_seed(seed)
+    block = ResidualBlock(c_in, c_out)
+    rng = np.random.default_rng(seed)
+    with torch.no_grad():
+        for bn in (m for m in block.modules() if isinstance(m, torch.nn.BatchNorm2d)):
+            bn.running_var.copy_(torch.from_numpy(np.abs(rng.standard_normal(bn.num_features)) + 0.5))
+            for v in (bn.running_mean, bn.weight, bn.bias):
+                v.copy_(torch.from_numpy(0.3 * rng.standard_normal(bn.num_features)))
+    x = torch.from_numpy(rng.standard_normal((b, c_in, f, t)).astype(np.float32))
+    return (x.to(cuda, torch.bfloat16), *CK.res_block_args(block.to(cuda)))
+
+
+# the 89M model's two blocks at a short T and with a partial last T tile (the
+# kernel's tiles are 62 columns), one T tile exactly, the identity skip at
+# 16 -> 16 and 64 -> 64, a C_out that fills part of a 64-channel chunk, and
+# the 30 s route's shape
+@pytest.mark.parametrize("b,c_in,c_out,f,t,pool", [
+    (1, 32, 64, 160, 70, True), (1, 64, 128, 80, 130, False), (2, 32, 64, 16, 62, True),
+    (1, 16, 16, 8, 65, False), (1, 64, 64, 12, 200, False), (1, 16, 48, 8, 33, True),
+    (4, 32, 64, 160, 938, True), (4, 64, 128, 80, 938, False),
+])
+def test_k6_matches_plain(cuda, b, c_in, c_out, f, t, pool):
+    """K6 against its plain version, element by element to ``k6_score``'s
+    bound (exact but where a sum's order can move a bf16 rounding)."""
+    args = _k6_args(cuda, c_in + c_out + f + t, b, c_in, c_out, f, t)
+    before = CK.fused_res_block.launches
+    with torch.no_grad():
+        got = CK.fused_res_block(*args, pool=pool)
+        ref = CK.fused_res_block_plain(*args, pool=pool)
+    torch.cuda.synchronize()
+    assert CK.fused_res_block.launches == before + 1
+    assert got.dtype == torch.bfloat16 and got.shape == ref.shape == (b, c_out, f // 2 if pool else f, t)
+    assert CK.k6_score(got, ref, args, pool=pool) <= 1.0
+
+
+def test_k6_raises_on_inputs_it_does_not_take(cuda):
+    args = _k6_args(cuda, 0, 1, 16, 32, 8, 20)
+    with pytest.raises(ValueError):  # conv1's weight on the CPU
+        CK.fused_res_block(args[0], args[1].cpu(), *args[2:])
+    for f, pool in ((7, False), (10, True)):  # F odd; F % 4 with pool
+        with pytest.raises(ValueError):
+            CK.fused_res_block(torch.zeros(1, 16, f, 20, device=cuda), *args[1:], pool=pool)
+    with pytest.raises(ValueError):  # 8 input channels: not a multiple of 16
+        CK.fused_res_block(*_k6_args(cuda, 1, 1, 8, 16, 8, 20))
+    with pytest.raises(ValueError):  # no skip conv, but C_in != C_out
+        CK.fused_res_block(*args[:13])
 
 
 @pytest.mark.parametrize("dtype,attention,rel_tol", [("float32", "xla", 1e-4),
