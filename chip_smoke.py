@@ -11,7 +11,11 @@ Phases, in order; any failure exits non-zero:
   2. hold every kernel against its plain PyTorch version on the card at the
      serving path's shapes (K1 at both routes' T; K3 in bf16 and, for
      compute_dtype="float32", fp32) and time both (CUDA events), with a
-     library call as a yardstick where PyTorch has one;
+     library call as a yardstick where PyTorch has one. K1 is launched 5
+     times on the same inputs, which must give the same bits, and is timed
+     beside its sequential floor (lstm_recurrence_floor: its grid doing the
+     T per-direction barriers and nothing else); the plain version reading
+     h_{t-2} at one step must fail K1's tolerance;
   3. serve the default 89M cnn_rnn_large (seeded random weights, .pth + .json)
      on a seeded ~2 min WAV through transcribe_audio on cuda: the MIDI must
      decode and the K1 counter must rise by 4 per forward; time a warm
@@ -41,7 +45,11 @@ Phases, in order; any failure exits non-zero:
      the phase is printed;
   5. hold the training kernels against their plain versions at the training
      shapes and time them: K2a and K2b (batch 24: 2B=48, T=938, H=512 and
-     256) beside cuDNN's bidirectional LSTM forward and backward, and the
+     256) beside cuDNN's bidirectional LSTM forward and backward and the
+     sequential floor at T=938 and 3751, each launched 5 times with
+     bit-identical outputs, with the scores of the plain versions with a
+     barrier that races (h_{t-2} read at one step; the dh carry one step
+     stale at one step), which must fail the tolerances, and the
      LSTMRecurrence gradient against autograd through the plain recurrence;
      K3 with lse, K4a and K4b (B=24, T=938, 8 heads of 192) in bf16 and
      fp32, element by element, with the scores of a backward without the
@@ -67,7 +75,8 @@ Phases, in order; any failure exits non-zero:
      model_best at --window 120 on a seeded raw MAESTRO-layout tree written
      here, where "auto" must take K3;
   9. print the kernels line (JSON: launches on the main path, error against
-     the plain version, times, bound; a failed check has already exited),
+     the plain version, times, bound, and for K1, K2a and K2b the sequential
+     floor; a failed check has already exited),
      the card's name and power limit, and as the last line
      {"ok": true, "device": {...}}.
 
@@ -161,13 +170,38 @@ def write_wav(path, seconds: float, seed: int, sr: int = 16000):
         w.writeframes((np.clip(y, -1, 1) * 32767).astype("<i2").tobytes())
 
 
+REPEATS = 5  # launches of a recurrence kernel on the same inputs that must agree bit for bit
+
+
+def repeats_identical(torch, fn, first) -> bool:
+    """``fn()`` REPEATS - 1 more times on the same inputs: every output bit
+    for bit equal to ``first`` (a barrier that races shows as a difference)."""
+    firsts = first if isinstance(first, tuple) else (first,)
+    for _ in range(REPEATS - 1):
+        again = fn()
+        again = again if isinstance(again, tuple) else (again,)
+        if not all(torch.equal(a, b) for a, b in zip(again, firsts)):
+            return False
+    return True
+
+
+def floor_ms(lk, two_b: int, t: int, hidden: int) -> float:
+    """The recurrence kernels' sequential floor at (2B, T, H): their grid
+    doing its T per-direction barriers and nothing else (CUDA events)."""
+    return cuda_ms(lambda: lk.lstm_recurrence_floor(two_b, t, hidden), reps=5)
+
+
 def check_k1(torch, lk, rows):
     """K1 against its plain version at the serving shapes: T=938 (30 s
     chunks; 2B=8 for a 4-chunk request, 32 for 16 chunks) and T=3751 (-w 120,
-    4 windows), H=512 (rnn_main) and 256 (rnn_local). Returns the record for
-    2B=8, T=938, H=512."""
+    4 windows), H=512 (rnn_main) and 256 (rnn_local), each launched REPEATS
+    times with bit-identical outputs, beside its sequential floor; at 2B=8,
+    T=938, H=512 also the score of the plain version reading h_{t-2} at one
+    step, which must fail the tolerance. Returns the record for 2B=8, T=938,
+    H=512."""
     rng = np.random.default_rng(SEED)
     record = None
+    floors = {}
     for two_b, t, hidden in ((8, 938, 512), (8, 938, 256), (32, 938, 512), (32, 938, 256),
                              (8, 3751, 512), (8, 3751, 256)):
         xw = torch.from_numpy(rng.standard_normal((two_b, t, 4 * hidden)).astype(np.float32)).cuda()
@@ -177,9 +211,12 @@ def check_k1(torch, lk, rows):
         ref = lk.lstm_recurrence_plain(xw, wh)
         torch.cuda.synchronize()
         err = float((got - ref).abs().max())
+        same = repeats_identical(torch, lambda: lk.lstm_recurrence(xw, wh), got)
         # fp32, a different summation order over T sequential steps
-        ok = err <= 1e-4 and bool(torch.isfinite(got).all())
+        ok = err <= 1e-4 and bool(torch.isfinite(got).all()) and same
         ms = cuda_ms(lambda: lk.lstm_recurrence(xw, wh), reps=10)
+        if (t, hidden) not in floors:
+            floors[t, hidden] = floor_ms(lk, two_b, t, hidden)
         plain_ms = cuda_ms(lambda: lk.lstm_recurrence_plain(xw, wh), reps=2)
         lstm = torch.nn.LSTM(2 * hidden, hidden, batch_first=True, bidirectional=True).cuda()
         x = torch.randn(two_b // 2, t, 2 * hidden, device="cuda")
@@ -188,20 +225,30 @@ def check_k1(torch, lk, rows):
         flops = 2.0 * two_b * t * hidden * 4 * hidden
         nbytes = 4.0 * (xw.numel() + wh.numel() + got.numel())
         b_ms, b_by = bound(flops, PEAK_FP32, nbytes)
+        fault = ""
+        if (two_b, t, hidden) == (8, 938, 512):
+            score = float((lk.faulty_fwd_plain(xw, wh)[0] - ref).abs().max()) / 1e-4
+            fault = f" h_{{t-2}} fault score={score:.1f} (must exceed 1)"
+            ok = ok and score > 1
         rows.append(f"K1 2B={two_b} T={t} H={hidden}: max_abs_err={err:.3e} ms={ms:.4f} "
-                    f"plain_ms={plain_ms:.3f} cudnn_lstm_ms={library_ms:.4f} "
-                    f"bound_ms={b_ms:.4f} ({b_by}) {'ok' if ok else 'FAIL'}")
+                    f"floor_ms={floors[t, hidden]:.4f} plain_ms={plain_ms:.3f} "
+                    f"cudnn_lstm_ms={library_ms:.4f} bound_ms={b_ms:.4f} ({b_by}) "
+                    f"{REPEATS} launches bit-identical={same}{fault} {'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(rows[-1])
         if (two_b, t, hidden) == (8, 938, 512):
             record = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                          bound_by=b_by, library_ms=library_ms)
+                          bound_by=b_by, library_ms=library_ms, floor_ms=floors[t, hidden])
     return record
 
 
 def check_k2(torch, lk, rows):
     """K2a and K2b against their plain versions at the training shapes (batch
-    24: 2B=48, T=938; H=512 for rnn_main, 256 for rnn_local), and the
+    24: 2B=48, T=938; H=512 for rnn_main, 256 for rnn_local), each launched
+    REPEATS times with bit-identical outputs, beside the sequential floor at
+    T=938 and T=3751; at H=512 also the scores of the plain versions with a
+    barrier that races (the forward reading h_{t-2}, the backward a dh carry
+    one step stale, at one step), which must fail the tolerances; and the
     LSTMRecurrence gradient against autograd through the plain recurrence at
     a small shape. Returns the records of K2a and K2b at H=512."""
     rng = np.random.default_rng(SEED + 4)
@@ -226,8 +273,24 @@ def check_k2(torch, lk, rows):
         dwh_err = float((dwh - ref_dwh).abs().max())
         dxw_tol = 1e-4 * float(ref_dxw.abs().max())
         dwh_tol = 1e-4 * float(ref_dwh.abs().max())
-        ok_fwd = fwd_err <= 1e-4 and bool(torch.isfinite(h).all() and torch.isfinite(c).all())
-        ok_bwd = dxw_err <= dxw_tol and dwh_err <= dwh_tol and bool(torch.isfinite(dxw).all())
+        same_fwd = repeats_identical(torch, lambda: lk.lstm_recurrence_fwd(xw, wh), (h, c))
+        same_bwd = repeats_identical(
+            torch, lambda: lk.lstm_recurrence_bwd(xw, wh, ref_h, ref_c, dh), dxw)
+        ok_fwd = fwd_err <= 1e-4 and bool(torch.isfinite(h).all() and torch.isfinite(c).all()) \
+            and same_fwd
+        ok_bwd = dxw_err <= dxw_tol and dwh_err <= dwh_tol and bool(torch.isfinite(dxw).all()) \
+            and same_bwd
+        floor = {n: floor_ms(lk, two_b, n, hidden) for n in (938, 3751)}
+        faults = {"K2a": "", "K2b": ""}
+        if hidden == 512:
+            fh, fc = lk.faulty_fwd_plain(xw, wh)
+            f_score = max(float((fh - ref_h).abs().max()), float((fc - ref_c).abs().max())) / 1e-4
+            b_score = float((lk.faulty_bwd_plain(xw, wh, ref_h, ref_c, dh) - ref_dxw).abs().max()) \
+                / dxw_tol
+            faults = {"K2a": f" h_{{t-2}} fault score={f_score:.1f} (must exceed 1)",
+                      "K2b": f" stale dh carry fault score={b_score:.1f} (must exceed 1)"}
+            ok_fwd, ok_bwd = ok_fwd and f_score > 1, ok_bwd and b_score > 1
+            del fh, fc
         fwd_ms = cuda_ms(lambda: lk.lstm_recurrence_fwd(xw, wh), reps=5)
         bwd_ms = cuda_ms(lambda: lk.lstm_recurrence_bwd(xw, wh, h, c, dh), reps=5)
         fwd_plain_ms = cuda_ms(lambda: lk.lstm_recurrence_fwd_plain(xw, wh), reps=1)
@@ -246,22 +309,25 @@ def check_k2(torch, lk, rows):
         # the backward: the gate product again and the dh product of the same size
         bwd_bound = bound(2 * flops, PEAK_FP32,
                           4.0 * (2 * xw.numel() + wh.numel() + 3 * h.numel()))
-        for name, err, tol, ok, ms, plain_ms, lib_ms, (b_ms, b_by) in (
-                ("K2a", fwd_err, 1e-4, ok_fwd, fwd_ms, fwd_plain_ms, lib_fwd_ms, fwd_bound),
-                ("K2b", max(dxw_err / dxw_tol, dwh_err / dwh_tol) * 1e-4, 1e-4, ok_bwd, bwd_ms,
-                 bwd_plain_ms, lib_bwd_ms, bwd_bound)):
+        for name, err, tol, ok, same, ms, plain_ms, lib_ms, (b_ms, b_by) in (
+                ("K2a", fwd_err, 1e-4, ok_fwd, same_fwd, fwd_ms, fwd_plain_ms, lib_fwd_ms,
+                 fwd_bound),
+                ("K2b", max(dxw_err / dxw_tol, dwh_err / dwh_tol) * 1e-4, 1e-4, ok_bwd, same_bwd,
+                 bwd_ms, bwd_plain_ms, lib_bwd_ms, bwd_bound)):
             detail = (f"max_abs_err={err:.3e} (tol {tol:g})" if name == "K2a" else
                       f"dxw max_abs_err={dxw_err:.3e} (tol {dxw_tol:.3e}), dW_hh "
                       f"max_abs_err={dwh_err:.3e} (tol {dwh_tol:.3e})")
             rows.append(f"{name} 2B={two_b} T={t} H={hidden}: {detail} ms={ms:.4f} "
+                        f"floor_ms={floor[938]:.4f} (T=3751: {floor[3751]:.4f}) "
                         f"plain_ms={plain_ms:.3f} cudnn_lstm_ms={lib_ms:.4f} "
-                        f"bound_ms={b_ms:.4f} ({b_by}) {'ok' if ok else 'FAIL'}")
+                        f"bound_ms={b_ms:.4f} ({b_by}) {REPEATS} launches bit-identical={same}"
+                        f"{faults[name]} {'ok' if ok else 'FAIL'}")
             if not ok:
                 raise AssertionError(rows[-1])
             if hidden == 512:
                 records[name] = dict(max_abs_err=dxw_err if name == "K2b" else err, ms=ms,
                                      plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                                     library_ms=lib_ms)
+                                     library_ms=lib_ms, floor_ms=floor[938])
         del xw, wh, dh, h, c, ref_h, ref_c, dxw, ref_dxw, lstm, x, y, gy
 
     # the autograd Function against autograd through the plain recurrence

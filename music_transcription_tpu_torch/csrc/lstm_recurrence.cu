@@ -2,9 +2,9 @@
 // cell-state sequence for training (K2a) and backward through time (K2b).
 //
 // Replaces music_transcription_tpu/ops/lstm_pallas.py:
-//   K1  lstm_recurrence_pallas -> _recurrence_kernel
-//   K2a _lstm_recurrence_fwd_impl -> _recurrence_fwd_kernel
-//   K2b _lstm_recurrence_bwd -> _recurrence_bwd_kernel
+//   K1  lstm_recurrence_pallas -> _recurrence_kernel        (lstm_pallas.py:71)
+//   K2a _lstm_recurrence_fwd_impl -> _recurrence_fwd_kernel (lstm_pallas.py:128)
+//   K2b _lstm_recurrence_bwd -> _recurrence_bwd_kernel      (lstm_pallas.py:147)
 //
 //   xw  (2B, T, 4H)  input projections; rows [0,B) forward direction,
 //                    rows [B,2B) backward direction already time-reversed
@@ -20,269 +20,585 @@
 //   (dW_hh = sum_t h_{t-1}^T dgates_t has no sequential dependence and is one
 //   matrix product outside the kernel, as in the JAX package.)
 //
-// What bounds it on the H100. Forward: 2 * 2B * T * H * 4H fp32 operations
-// (15.7 GFLOP at 2B=8, T=938, H=512: 0.23 ms at the 67 TFLOP/s fp32 rate)
-// against ~61 MB of xw (18 us at 3.35 TB/s), so the roofline says
-// operations; the backward does twice the operations (the gate product is
-// recomputed, and dh_carry is a second product of the same size). But the T
-// steps are strictly sequential and each needs all of h_{t-1} (forward) or
-// all of dgates_t (backward): the real floor is T times the cost of one
-// device-wide exchange, which the roofline does not count.
+// What bounds it on the H100. The roofline: the forward does 2 * 2B * T * H
+// * 4H fp32 operations (94.4 GFLOP at 2B=48, T=938, H=512: 1.41 ms at the
+// 67 TFLOP/s fp32 rate; 0.235 ms at 2B=8) against some 370 MB of xw, h and c
+// (0.11 ms at 3.35 TB/s); the backward twice the operations (the gate
+// product is recomputed, and dh_carry is a second product of the same
+// size). But the T steps are strictly sequential and each needs all of
+// h_{t-1} (forward) or dgates_{t+1} (backward) of its direction: the second
+// floor is T exchanges between the blocks of a direction.
+// `lstm_recurrence_floor` measures it: the same grid doing nothing but its T
+// barriers (chip_smoke.py prints it as floor_ms beside each kernel).
 //
-// Design. The Pallas kernels keep both directions' W_hh (8 MB at H=512) in
-// one TPU core's VMEM and walk a sequential grid. No SM holds 8 MB, so here
-// one persistent cooperative launch spreads W_hh over the SMs instead:
-//   * block = (direction, U consecutive hidden units); it owns the 4U gate
-//     columns {i,f,g,o} x units of its slice, so the cell update (forward)
-//     and dgates (backward) need no data from other blocks. At H=512, U=8:
-//     128 blocks, one per SM.
-//   * its W_hh column slice (H x 4U fp32, 64 KB at U=8) is loaded into
-//     shared memory once and stays there for all T steps; the backward also
-//     keeps its W_hh row slice (U x 4H, 64 KB) for dh_carry of its units;
-//   * the cell state (forward) or the dh, dc carries (backward) of its units
-//     live in shared memory for all steps;
-//   * what the other blocks need goes to device memory through L2 (__stcg)
-//     and is read back after a grid-wide barrier (__ldcg, bypassing L1):
-//     h_t in the forward, dgates_t (= dxw[:, t]) in the backward. Every step
-//     writes a new time slot, so one barrier per step suffices and no double
-//     buffer is needed;
+// Design. One persistent cooperative launch; the launch checks with the
+// occupancy API that every block is resident, which the hand-made barrier
+// needs.
+//   * block = (direction, U consecutive hidden units): it owns the 4U gate
+//     columns {i,f,g,o} x units, so the cell update (forward) and dgates
+//     (backward) need no data from other blocks. At H=512, U=8: 128 blocks
+//     of 256 threads, one per SM; at H=256, U=4.
+//   * A barrier per direction instead of a grid-wide one: a monotone arrive
+//     counter per direction in device memory (zeroed by the wrapper), one
+//     red.release.gpu per block and step after a __syncthreads, spun on by
+//     one thread with ld.acquire.gpu. The directions never exchange data, so
+//     each 64 blocks wait only for each other.
+//   * The gate product over all rows of the direction in one pass per step
+//     (rows are walked in passes only where the shared memory cannot hold
+//     them all: at H=512, 2B above some 140 in the forward, above 48 in
+//     K2b), register-blocked: the block's
+//     W_hh column slice (H x 4U, 64 KB at U=8) lives in registers, 64 floats
+//     a thread (the persistent-RNN layout). A thread owns 4 columns and
+//     H / (256 / U) rows of k, interleaved by 4; h_{t-1} is staged by
+//     cp.async into shared memory and read as 16-byte loads, which the 8
+//     threads of a k group share as one broadcast: 16 FMAs per shared load,
+//     4 rows at a time. The k groups of a warp are summed by a
+//     reduce-scatter of shuffles (3 for 4 columns), the 8 warps once per row
+//     through shared memory. Sums therefore run in another order than the
+//     old one-warp-per-slice kernel and than the plain version (fp32, within
+//     the unchanged 1e-4 tolerances).
+//   * The cell update is spread over all threads: one thread per (row, gate
+//     column) sums its 8 warp partials, adds xw and applies its activation;
+//     the four gates of a unit sit in four neighbouring lanes and meet by
+//     shuffles.
+//   * Loads that do not depend on the previous step go out before the
+//     barrier wait: xw_t (and in K2b c_t, c_{t-1}, dh_t and the h_{t-1} rows
+//     of the gate recompute) by cp.async into shared memory, double-buffered
+//     where the previous step still reads them. Only the exchanged tensor
+//     stays on the critical path: h_{t-1} (forward), dgates_{t+1} (backward).
+//   * K2b: the gate recompute (phase 1) needs only inputs, so it runs before
+//     the barrier wait; after it, the dh product (phase 2) streams the
+//     direction's dgates_{t+1} rows from L2 through a double-buffered
+//     cp.async ring of 8 rows, while the block's W_hh rows (U x 4H, 64 KB at
+//     U=8) sit in registers beside the column slice: 8 k a thread, 64 FMAs
+//     per two 16-byte shared loads, 2 rows at a time, a reduce-scatter over
+//     the warp and one sum over the 8 warps. dgates_t go to dxw, as before;
+//     no atomics, so every launch gives the same bits.
+//   * fp32 on the CUDA cores, no TF32 anywhere. Both products were also
+//     written as mma.sync m16n8k8 with the error-compensated 3xTF32 split
+//     (within the tolerances); with the A operand split per element and both
+//     weight slices held in registers they spilled and ran slower than
+//     these CUDA-core loops on the H100, so they were not kept.
 //   * K2a is K1 with one more store per unit and step: c_t, for the backward.
-// Inside a block, the H-long dot products of the gate columns are split
-// over the 8 warps (one slice of H each); a lane owns one gate column and up
-// to 8 batch rows, so a W_hh element read from shared memory feeds 8 FMAs.
-// In the backward's dh_carry product each warp owns 8 of the tile's 64
-// (row, unit) outputs and its lanes walk the 4H columns, then reduce with
-// shuffles. Batch rows are walked in tiles, so any 2B and any T are taken.
-// The host side checks with the occupancy API that every block can be
-// resident before launching.
+// Shapes: any even 2B (while a pass of the rows fits in shared memory), any
+// T; H up to 512 where the grid takes 8 units a block (H / 8 blocks per
+// direction), up to 1024 with 4 units, and for K2b up to 256 with 1 or 2
+// units (every H the port runs is at most 512). Other shapes return
+// kNotTaken, which the wrapper raises as ValueError.
 
-#include <cooperative_groups.h>
 #include <cuda_runtime.h>
-
-namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kRowsPerLane = 8;
+constexpr int kRows = 4;        // rows of the gate product's register tile
+constexpr int kRing = 8;        // rows of dgates per stage of K2b's cp.async ring
+constexpr int kStages = 2;      // stages of the ring
+constexpr int kDhRows = 2;      // rows of the dh product's register tile
+constexpr int kCounterStride = 32;  // the two directions' counters, 128 bytes apart
+constexpr int kNotTaken = -1;   // a shape the kernels do not take
 
 __device__ __forceinline__ float sigmoidf(float x) { return 1.0f / (1.0f + expf(-x)); }
 
 template <int U>
 struct Shape {
-  static constexpr int C = 4 * U;             // gate columns owned by a block
-  static constexpr int LG = 32 / C;           // row groups per warp
-  static constexpr int R = LG * kRowsPerLane; // batch rows per tile
-  static_assert(R * U == kWarps * 8, "the backward's dh product: 8 outputs per warp");
+  static_assert(U == 1 || U == 2 || U == 4 || U == 8, "U is 1, 2, 4 or 8");
+  static constexpr int C = 4 * U;            // gate columns of a block
+  static constexpr int KQ = 32 / U;          // k groups in a warp (lane = kq * U + cg)
+  static constexpr int NKG = kWarps * KQ;    // k groups in the block
+  static constexpr int KSTEP = 4 * NKG;      // k covered by one 4-chunk of every thread
+  static constexpr int KCH = U >= 4 ? 4 : U; // most 4-chunks of k a thread holds: H <= KCH * KSTEP
+  // most 4-chunks of 4H (stride 1024) a thread holds: H <= 256 KCC; one where
+  // U <= 2, whose grids may need two blocks an SM (128 registers a thread)
+  static constexpr int KCC = U == 8 ? 2 : U == 4 ? 4 : 1;
+  static constexpr int LOG_U = U == 8 ? 3 : U == 4 ? 2 : U == 2 ? 1 : 0;
 };
 
 template <int U>
-size_t fwd_smem_bytes(int B, int H) {
-  using S = Shape<U>;
-  return sizeof(float) * ((size_t)H * S::C + (size_t)S::R * (H + 1) +
-                          (size_t)kWarps * S::R * S::C + (size_t)B * U);
+__host__ __device__ constexpr int gate_chunks(int H) { return (H + Shape<U>::KSTEP - 1) / Shape<U>::KSTEP; }
+__host__ __device__ constexpr int row_chunks(int H) { return (4 * H + 1023) / 1024; }
+
+// ---- asynchronous copies and the per-direction barrier --------------------
+
+__device__ __forceinline__ unsigned shared_address(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+// 16 bytes, through L2 only (never a stale L1 line of another SM's writes)
+__device__ __forceinline__ void copy16(float* dst, const float* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(shared_address(dst)), "l"(src)
+               : "memory");
+}
+// 4 bytes of a read-only input
+__device__ __forceinline__ void copy4(float* dst, const float* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(shared_address(dst)), "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void commit_copies() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void wait_copies() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+// After a __syncthreads that follows the block's stores of this step.
+__device__ __forceinline__ void arrive(unsigned* counter) {
+  if (threadIdx.x == 0) asm volatile("red.release.gpu.global.add.u32 [%0], 1;\n" ::"l"(counter) : "memory");
 }
 
-template <int U>
-size_t bwd_smem_bytes(int B, int H) {
-  using S = Shape<U>;
-  const size_t h_tile = (size_t)S::R * (H + 1), dg_tile = (size_t)S::R * 4 * H;
-  return sizeof(float) * ((size_t)H * S::C + (size_t)U * 4 * H +
-                          (h_tile > dg_tile ? h_tile : dg_tile) +
-                          (size_t)kWarps * S::R * S::C + 2 * (size_t)B * U);
-}
-
-// Load the block's W_hh column slice: ws[i][cc] = wh_d[i][(cc / U) * H + j0 + cc % U].
-template <int U>
-__device__ void load_columns(float* ws, const float* whd, int H, int j0) {
-  constexpr int C = Shape<U>::C;
-  for (int e = threadIdx.x; e < H * C; e += kThreads) {
-    const int i = e / C, cc = e % C;
-    ws[e] = whd[(size_t)i * 4 * H + (cc / U) * H + j0 + (cc % U)];
+// Until `target` arrivals are counted; ends with a __syncthreads. A wait of
+// some seconds means a broken grid: trap rather than hang the card.
+__device__ __forceinline__ void wait_for(const unsigned* counter, unsigned target) {
+  if (threadIdx.x == 0) {
+    unsigned seen, spins = 0;
+    do {
+      asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n" : "=r"(seen) : "l"(counter) : "memory");
+      if (++spins == (1u << 26)) __trap();
+    } while (seen < target);
   }
-}
-
-// part[w][r][cc] = sum over warp w's slice of i of hprev[r][i] * ws[i][cc],
-// for the nr rows of the tile starting at row `row0` of hseq (time t - 1);
-// zeros at t = 0. `hs` is the [R][H+1] staging tile. Ends with a barrier.
-template <int U, bool kCoherent>
-__device__ void gate_partials(const float* hseq, const float* ws, float* hs, float* part,
-                              int row0, int nr, int t, int T, int H) {
-  using S = Shape<U>;
-  constexpr int C = S::C, LG = S::LG, R = S::R;
-  const int HP = H + 1;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int col = lane % C, lg = lane / C;
-  float acc[kRowsPerLane];
-#pragma unroll
-  for (int m = 0; m < kRowsPerLane; ++m) acc[m] = 0.0f;
-  if (t > 0) {
-    for (int e = tid; e < nr * H; e += kThreads) {
-      const int r = e / H, i = e % H;
-      const float* src = hseq + ((size_t)(row0 + r) * T + (t - 1)) * H + i;
-      hs[r * HP + i] = kCoherent ? __ldcg(src) : __ldg(src);
-    }
-    for (int e = nr * H + tid; e < R * H; e += kThreads) hs[(e / H) * HP + e % H] = 0.0f;
-    __syncthreads();
-    const int kchunk = (H + kWarps - 1) / kWarps;
-    const int i_lo = min(H, warp * kchunk), i_hi = min(H, i_lo + kchunk);
-    for (int i = i_lo; i < i_hi; ++i) {
-      const float w = ws[i * C + col];
-#pragma unroll
-      for (int m = 0; m < kRowsPerLane; ++m) acc[m] = fmaf(hs[(lg + LG * m) * HP + i], w, acc[m]);
-    }
-  }
-#pragma unroll
-  for (int m = 0; m < kRowsPerLane; ++m) part[(warp * R + lg + LG * m) * C + col] = acc[m];
   __syncthreads();
 }
 
-// gates of tile row r, unit jj: xw + the warps' partial dot products.
-template <int U>
-__device__ __forceinline__ void tile_gates(float g[4], const float* xw_t, const float* part, int r,
-                                           int jj, int H) {
-  using S = Shape<U>;
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    float hw = 0.0f;
-    for (int w = 0; w < kWarps; ++w) hw += part[(w * S::R + r) * S::C + k * U + jj];
-    g[k] = __ldg(xw_t + k * H) + hw;
+// Rows [0, nr) of H floats, row r at src + r * stride, into dst (row stride
+// ds): cp.async when 16-byte aligned, else plain L2 loads.
+__device__ __forceinline__ void stage_rows(float* dst, int ds, const float* src, size_t stride,
+                                           int nr, int H) {
+  if ((H & 3) == 0) {
+    const int q = H >> 2;
+    for (int e = threadIdx.x; e < nr * q; e += kThreads) {
+      const int r = e / q, k = (e - r * q) * 4;
+      copy16(dst + r * ds + k, src + r * stride + k);
+    }
+  } else {
+    for (int e = threadIdx.x; e < nr * H; e += kThreads) {
+      const int r = e / H, k = e - r * H;
+      dst[r * ds + k] = __ldcg(src + r * stride + k);
+    }
   }
 }
+
+// xw of step t for the block's columns, all B rows: xs[r][u * 4 + g].
+template <int U>
+__device__ __forceinline__ void prefetch_xw(float* xs, const float* xwd, int B, int T, int H, int j0,
+                                            int t) {
+  constexpr int C = Shape<U>::C;
+  for (int e = threadIdx.x; e < B * C; e += kThreads) {
+    const int r = e / C, q = e - r * C, g = q / U, u = q - g * U;
+    copy4(xs + r * C + u * 4 + g, xwd + ((size_t)r * T + t) * 4 * H + g * H + j0 + u);
+  }
+}
+
+// ---- the register-blocked products -------------------------------------------
+
+// Sum N values a lane holds over the warp's lanes that differ in bits
+// [STOP, 16] of the lane index; returns one sum a lane: the value of index
+// (lane >> (5 - log2 N)) & (N - 1), summed over those lanes. The first
+// log2 N rounds halve the values each (a reduce-scatter), the rest add.
+template <int N, int STOP>
+__device__ __forceinline__ float reduce_scatter(float (&a)[N], int lane) {
+  int mask = 16;
+#pragma unroll
+  for (int half = N / 2; half >= 1; half /= 2, mask /= 2) {
+    const bool up = lane & mask;
+#pragma unroll
+    for (int i = 0; i < half; ++i) {
+      const float send = up ? a[i] : a[i + half];
+      a[i] = (up ? a[i + half] : a[i]) + __shfl_xor_sync(0xffffffffu, send, mask);
+    }
+  }
+  float v = a[0];
+#pragma unroll
+  for (int m = 16 / N; m >= STOP; m /= 2) v += __shfl_xor_sync(0xffffffffu, v, m);
+  return v;
+}
+
+// The block's W_hh column slice: w[i][j][c] = wh_d[k][gate * H + j0 + unit]
+// for k = i * KSTEP + kg * 4 + j, gate column cc = cg * 4 + c (gate cc / U,
+// unit cc % U); zero past H.
+template <int U>
+__device__ __forceinline__ void load_gate_columns(float (&w)[Shape<U>::KCH][4][4], const float* whd,
+                                                  int H, int j0) {
+  using S = Shape<U>;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int cg = lane % U, kg = warp * S::KQ + lane / U;
+#pragma unroll
+  for (int i = 0; i < S::KCH; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int k = i * S::KSTEP + kg * 4 + j, cc = cg * 4 + c;
+        w[i][j][c] = k < H ? __ldg(whd + (size_t)k * 4 * H + (cc / U) * H + j0 + cc % U) : 0.0f;
+      }
+}
+
+// part[warp][r][unit * 4 + gate] = the warp's share of h[r] . W[:, column],
+// for rows [0, nr) of hs (row stride HS, zero past H). Rows are taken kRows
+// at a time; rows past nr up to the next multiple compute and are dropped.
+template <int U>
+__device__ __forceinline__ void gate_product(const float (&w)[Shape<U>::KCH][4][4], const float* hs,
+                                             int HS, int nr, int kc, float* part, int PR) {
+  using S = Shape<U>;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int cg = lane % U, kg = warp * S::KQ + lane / U;
+  const int cc = cg * 4 + (lane >> 3);            // the column this lane ends with
+  const int slot = (cc % U) * 4 + cc / U;
+  const bool writer = (lane & 7 & ~(U - 1)) == 0;  // one lane of each set holding the same sum
+  for (int r0 = 0; r0 < nr; r0 += kRows) {
+    float acc[kRows][4];
+#pragma unroll
+    for (int m = 0; m < kRows; ++m)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[m][c] = 0.0f;
+#pragma unroll
+    for (int i = 0; i < S::KCH; ++i) {
+      if (i < kc) {
+#pragma unroll
+        for (int m = 0; m < kRows; ++m) {
+          const float4 h = *reinterpret_cast<const float4*>(hs + (r0 + m) * HS + i * S::KSTEP + kg * 4);
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            acc[m][c] = fmaf(h.x, w[i][0][c], acc[m][c]);
+            acc[m][c] = fmaf(h.y, w[i][1][c], acc[m][c]);
+            acc[m][c] = fmaf(h.z, w[i][2][c], acc[m][c]);
+            acc[m][c] = fmaf(h.w, w[i][3][c], acc[m][c]);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int m = 0; m < kRows; ++m) {
+      const float v = reduce_scatter<4, U>(acc[m], lane);
+      if (writer && r0 + m < nr) part[(warp * PR + r0 + m) * S::C + slot] = v;
+    }
+  }
+}
+
+// The block's W_hh rows for the dh product: wr[i][j][u] = wh_d[j0 + u][k]
+// for k = i * 1024 + tid * 4 + j; zero past 4H.
+template <int U>
+__device__ __forceinline__ void load_gate_rows(float (&wr)[Shape<U>::KCC][4][U], const float* whd,
+                                               int H, int j0) {
+#pragma unroll
+  for (int i = 0; i < Shape<U>::KCC; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int k = i * 1024 + threadIdx.x * 4 + j;
+        wr[i][j][u] = k < 4 * H ? __ldg(whd + (size_t)(j0 + u) * 4 * H + k) : 0.0f;
+      }
+}
+
+// part2[warp][r][u] = the warp's share of dgates[r] . W_hh[j0 + u, :] for the
+// B rows of the direction, dgates row r at dg + r * stride (4H floats),
+// streamed through the kStages stages of `ring` (row stride H4S, zero past
+// 4H) by cp.async, the next stages loading while the current one is
+// multiplied.
+// Ends with a __syncthreads.
+template <int U>
+__device__ __forceinline__ void dh_product(const float (&wr)[Shape<U>::KCC][4][U], const float* dg,
+                                           size_t stride, float* ring, int H4S, int B, int H,
+                                           int kcc, float* part2) {
+  using S = Shape<U>;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const bool writer = (lane & ((32 >> S::LOG_U) - 1)) == 0;
+  const int unit = lane >> (5 - S::LOG_U);
+  const int chunks = (B + kRing - 1) / kRing;
+  auto load_chunk = [&](int ch) {
+    if (ch < chunks)
+      stage_rows(ring + (ch % kStages) * kRing * H4S, H4S, dg + (size_t)ch * kRing * stride, stride,
+                 min(kRing, B - ch * kRing), 4 * H);
+    commit_copies();
+  };
+  for (int ch = 0; ch < kStages; ++ch) load_chunk(ch);
+  for (int ch = 0; ch < chunks; ++ch) {
+    wait_copies<kStages - 1>();
+    __syncthreads();
+    const float* st = ring + (ch % kStages) * kRing * H4S;
+    const int rows = min(kRing, B - ch * kRing);
+#pragma unroll
+    for (int m0 = 0; m0 < kRing; m0 += kDhRows) {
+      if (m0 < rows) {  // kDhRows rows at a time, those past `rows` computed and dropped
+        float acc[kDhRows][U];
+#pragma unroll
+        for (int m = 0; m < kDhRows; ++m)
+#pragma unroll
+          for (int u = 0; u < U; ++u) acc[m][u] = 0.0f;
+#pragma unroll
+        for (int i = 0; i < S::KCC; ++i) {
+          if (i < kcc) {
+#pragma unroll
+            for (int m = 0; m < kDhRows; ++m) {
+              const float4 g =
+                  *reinterpret_cast<const float4*>(st + (m0 + m) * H4S + i * 1024 + threadIdx.x * 4);
+#pragma unroll
+              for (int u = 0; u < U; ++u) {
+                acc[m][u] = fmaf(g.x, wr[i][0][u], acc[m][u]);
+                acc[m][u] = fmaf(g.y, wr[i][1][u], acc[m][u]);
+                acc[m][u] = fmaf(g.z, wr[i][2][u], acc[m][u]);
+                acc[m][u] = fmaf(g.w, wr[i][3][u], acc[m][u]);
+              }
+            }
+          }
+        }
+#pragma unroll
+        for (int m = 0; m < kDhRows; ++m) {
+          const float v = reduce_scatter<U, 1>(acc[m], lane);
+          if (writer && m0 + m < rows) part2[(warp * B + ch * kRing + m0 + m) * U + unit] = v;
+        }
+      }
+    }
+    __syncthreads();  // the stage is loaded again kStages chunks on
+    load_chunk(ch + kStages);
+  }
+}
+
+// Sum of the 8 warps' partials of one (row, gate column) of a pass.
+__device__ __forceinline__ float warp_sum(const float* part, int PR, int C, int r, int q) {
+  float s = 0.0f;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) s += part[(w * PR + r) * C + q];
+  return s;
+}
+
+__device__ __forceinline__ void zero_shared(float* smem, int n) {
+  for (int e = threadIdx.x; e < n; e += kThreads) smem[e] = 0.0f;
+}
+
+// ---- shared-memory plans (floats), the same on both sides ---------------------
+
+template <int U>
+__host__ __device__ constexpr int fwd_floats(int B, int PR, int H) {
+  return PR * gate_chunks<U>(H) * Shape<U>::KSTEP + kWarps * PR * Shape<U>::C + B * Shape<U>::C + B * U;
+}
+
+template <int U>
+__host__ __device__ constexpr int bwd_floats(int B, int PR, int H) {
+  return PR * gate_chunks<U>(H) * Shape<U>::KSTEP + kWarps * PR * Shape<U>::C +
+         2 * B * Shape<U>::C + 6 * B * U + B * U + kWarps * B * U +
+         kStages * kRing * row_chunks(H) * 1024;
+}
+
+// ---- the kernels -----------------------------------------------------------------
 
 template <int U, bool kWriteC>
 __global__ void __launch_bounds__(kThreads, 1)
 lstm_recurrence_kernel(const float* __restrict__ xw, const float* __restrict__ wh, float* out,
-                       float* cout, int B, int T, int H) {
+                       float* cout, unsigned* sync, int B, int T, int H, int PR) {
   using S = Shape<U>;
-  constexpr int C = S::C, R = S::R;
-  extern __shared__ float smem[];
-  float* ws = smem;                     // [H][C]   W_hh column slice
-  float* hs = ws + (size_t)H * C;       // [R][H+1] h_{t-1} tile
-  float* part = hs + (size_t)R * (H + 1);  // [kWarps][R][C] per-warp partial dots
-  float* cs = part + kWarps * R * C;    // [B][U]   cell state
-
+  constexpr int C = S::C;
+  const int tid = threadIdx.x, lane = tid & 31;
   const int blocks_per_dir = H / U;
   const int dir = blockIdx.x / blocks_per_dir;
   const int j0 = (blockIdx.x % blocks_per_dir) * U;
-  load_columns<U>(ws, wh + (size_t)dir * H * 4 * H, H, j0);
-  for (int e = threadIdx.x; e < B * U; e += kThreads) cs[e] = 0.0f;
-  __syncthreads();
+  const int kc = gate_chunks<U>(H), HS = kc * S::KSTEP;
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  float* hs = smem;                        // [PR][HS]     h_{t-1} rows of a pass
+  float* part = hs + PR * HS;              // [kWarps][PR][C] warp partials
+  float* xs = part + kWarps * PR * C;      // [B][C]       xw_t, (unit, gate) order
+  float* cs = xs + B * C;                  // [B][U]       cell state
+  zero_shared(smem, fwd_floats<U>(B, PR, H));
 
-  const size_t xw_row = (size_t)T * 4 * H;
-  cg::grid_group grid = cg::this_grid();
+  float w[S::KCH][4][4];
+  load_gate_columns<U>(w, wh + (size_t)dir * H * 4 * H, H, j0);
+  unsigned* counter = sync + dir * kCounterStride;
+  const float* xwd = xw + (size_t)dir * B * T * 4 * H;
+  float* outd = out + (size_t)dir * B * T * H;
+  float* coutd = kWriteC ? cout + (size_t)dir * B * T * H : nullptr;
+  __syncthreads();
+  prefetch_xw<U>(xs, xwd, B, T, H, j0, 0);
+  commit_copies();
+
   for (int t = 0; t < T; ++t) {
-    for (int r0 = 0; r0 < B; r0 += R) {
-      const int nr = min(R, B - r0);
-      gate_partials<U, true>(out, ws, hs, part, dir * B + r0, nr, t, T, H);
-      for (int e = threadIdx.x; e < nr * U; e += kThreads) {
-        const int r = e / U, jj = e % U;
-        const int row = dir * B + r0 + r;
-        float g[4];
-        tile_gates<U>(g, xw + (size_t)row * xw_row + (size_t)t * 4 * H + j0 + jj, part, r, jj, H);
-        float& c = cs[(r0 + r) * U + jj];
-        c = sigmoidf(g[1]) * c + sigmoidf(g[0]) * tanhf(g[2]);
-        const size_t o = ((size_t)row * T + t) * H + j0 + jj;
-        __stcg(out + o, sigmoidf(g[3]) * tanhf(c));
-        if (kWriteC) __stcg(cout + o, c);
-      }
-      __syncthreads();  // hs and part are reused by the next tile
-    }
-    grid.sync();  // h_t visible to every block before step t+1
-  }
-}
-
-template <int U>
-__global__ void __launch_bounds__(kThreads, 1)
-lstm_recurrence_bwd_kernel(const float* __restrict__ xw, const float* __restrict__ wh,
-                           const float* __restrict__ hseq, const float* __restrict__ cseq,
-                           const float* __restrict__ dh, float* dxw, int B, int T, int H) {
-  using S = Shape<U>;
-  constexpr int C = S::C, R = S::R;
-  const int H4 = 4 * H;
-  extern __shared__ float smem[];
-  const size_t h_tile = (size_t)R * (H + 1), dg_tile = (size_t)R * H4;
-  float* ws = smem;                       // [H][C]   W_hh column slice (gate recompute)
-  float* wr = ws + (size_t)H * C;         // [U][4H]  W_hh rows of the block's units (dh carry)
-  float* stage = wr + (size_t)U * H4;     // [R][H+1] h_{t-1} tile, or [R][4H] dgates tile
-  float* part = stage + (h_tile > dg_tile ? h_tile : dg_tile);  // [kWarps][R][C]
-  float* dhc = part + kWarps * R * C;     // [B][U]   dh carry
-  float* dcc = dhc + B * U;               // [B][U]   dc carry
-
-  const int blocks_per_dir = H / U;
-  const int dir = blockIdx.x / blocks_per_dir;
-  const int j0 = (blockIdx.x % blocks_per_dir) * U;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const float* whd = wh + (size_t)dir * H * H4;
-  load_columns<U>(ws, whd, H, j0);
-  for (int e = tid; e < U * H4; e += kThreads) wr[e] = whd[(size_t)(j0 + e / H4) * H4 + e % H4];
-  for (int e = tid; e < 2 * B * U; e += kThreads) dhc[e] = 0.0f;  // dhc and dcc
-  __syncthreads();
-
-  const size_t xw_row = (size_t)T * H4;
-  cg::grid_group grid = cg::this_grid();
-  for (int t = T - 1; t >= 0; --t) {
-    // dgates of the block's gate columns at time t, from recomputed gates
-    for (int r0 = 0; r0 < B; r0 += R) {
-      const int nr = min(R, B - r0);
-      gate_partials<U, false>(hseq, ws, stage, part, dir * B + r0, nr, t, T, H);
-      for (int e = tid; e < nr * U; e += kThreads) {
-        const int r = e / U, jj = e % U;
-        const int row = dir * B + r0 + r;
-        const size_t xo = (size_t)row * xw_row + (size_t)t * H4 + j0 + jj;
-        float g[4];
-        tile_gates<U>(g, xw + xo, part, r, jj, H);
-        const float ig = sigmoidf(g[0]), fg = sigmoidf(g[1]), gg = tanhf(g[2]), og = sigmoidf(g[3]);
-        const size_t so = ((size_t)row * T + t) * H + j0 + jj;
-        const float tc = tanhf(__ldg(cseq + so));
-        const float cp = t > 0 ? __ldg(cseq + so - H) : 0.0f;
-        const int q = (r0 + r) * U + jj;
-        const float dht = __ldg(dh + so) + dhc[q];
-        const float dct = dht * og * (1.0f - tc * tc) + dcc[q];
-        __stcg(dxw + xo, dct * gg * ig * (1.0f - ig));
-        __stcg(dxw + xo + H, dct * cp * fg * (1.0f - fg));
-        __stcg(dxw + xo + 2 * H, dct * ig * (1.0f - gg * gg));
-        __stcg(dxw + xo + 3 * H, dht * tc * og * (1.0f - og));
-        dcc[q] = dct * fg;
-      }
-      __syncthreads();  // stage and part are reused by the next tile
-    }
-    if (t == 0) break;  // uniform over the grid: no carry is needed past t = 0
-    grid.sync();        // dgates_t of every block visible before the dh product
-    // dh carry of the block's units: dgates_t[row, :] . W_hh[j0 + u, :]
-    for (int r0 = 0; r0 < B; r0 += R) {
-      const int nr = min(R, B - r0);
-      for (int e = tid; e < nr * H4; e += kThreads) {
-        const int r = e / H4, k = e % H4;
-        stage[e] = __ldcg(dxw + (size_t)(dir * B + r0 + r) * xw_row + (size_t)t * H4 + k);
-      }
+    if (t > 0) wait_for(counter, (unsigned)(blocks_per_dir * t));  // h_{t-1} of the direction
+    for (int r0 = 0; r0 < B; r0 += PR) {
+      const int nr = min(PR, B - r0);
+      if (t > 0) stage_rows(hs, HS, outd + ((size_t)r0 * T + t - 1) * H, (size_t)T * H, nr, H);
+      commit_copies();
+      wait_copies<0>();
       __syncthreads();
-      float acc[8];
-#pragma unroll
-      for (int q = 0; q < 8; ++q) acc[q] = 0.0f;
-      for (int k = lane; k < H4; k += 32) {
-#pragma unroll
-        for (int q = 0; q < 8; ++q) {
-          const int o = warp * 8 + q, r = o / U, u = o % U;
-          acc[q] = fmaf(stage[(size_t)r * H4 + k], wr[(size_t)u * H4 + k], acc[q]);
+      if (t > 0) {
+        gate_product<U>(w, hs, HS, nr, kc, part, PR);
+        __syncthreads();
+      }
+      // cell update: a thread per (row, gate column); a unit's four gates in
+      // four neighbouring lanes
+      const int n = nr * C;
+      for (int base = 0; base < n; base += kThreads) {
+        const int e = base + tid;
+        const bool on = e < n;
+        const int r = on ? e / C : 0, q = e - (e / C) * C, u = q >> 2, g = q & 3;
+        float pre = 0.0f, c_old = 0.0f;
+        if (on) {
+          pre = xs[(r0 + r) * C + q] + (t > 0 ? warp_sum(part, PR, C, r, q) : 0.0f);
+          c_old = cs[(r0 + r) * U + u];
+        }
+        const float a = g == 2 ? tanhf(pre) : sigmoidf(pre);
+        const int l0 = lane & ~3;
+        const float ig = __shfl_sync(0xffffffffu, a, l0), fg = __shfl_sync(0xffffffffu, a, l0 + 1);
+        const float gg = __shfl_sync(0xffffffffu, a, l0 + 2), og = __shfl_sync(0xffffffffu, a, l0 + 3);
+        const float c = fg * c_old + ig * gg;
+        __syncwarp();
+        if (on) {
+          const size_t o = ((size_t)(r0 + r) * T + t) * H + j0 + u;
+          if (g == 0) {
+            cs[(r0 + r) * U + u] = c;
+            __stcg(outd + o, og * tanhf(c));
+          } else if (kWriteC && g == 1) {
+            __stcg(coutd + o, c);
+          }
         }
       }
-#pragma unroll
-      for (int q = 0; q < 8; ++q) {
-        float v = acc[q];
-#pragma unroll
-        for (int s = 16; s > 0; s >>= 1) v += __shfl_xor_sync(0xffffffffu, v, s);
-        const int o = warp * 8 + q, r = o / U, u = o % U;
-        if (lane == 0 && r < nr) dhc[(r0 + r) * U + u] = v;
-      }
-      __syncthreads();  // stage is reused by the next tile
+      __syncthreads();  // hs, part reused by the next pass; xs by the next prefetch
+    }
+    arrive(counter);
+    if (t + 1 < T) {
+      prefetch_xw<U>(xs, xwd, B, T, H, j0, t + 1);
+      commit_copies();
     }
   }
 }
 
+// Two blocks an SM where U <= 2 (the grid of an odd H such as 99 needs them).
+template <int U>
+__global__ void __launch_bounds__(kThreads, U <= 2 ? 2 : 1)
+lstm_recurrence_bwd_kernel(const float* __restrict__ xw, const float* __restrict__ wh,
+                           const float* __restrict__ hseq, const float* __restrict__ cseq,
+                           const float* __restrict__ dh, float* dxw, unsigned* sync, int B, int T,
+                           int H, int PR) {
+  using S = Shape<U>;
+  constexpr int C = S::C;
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int H4 = 4 * H;
+  const int blocks_per_dir = H / U;
+  const int dir = blockIdx.x / blocks_per_dir;
+  const int j0 = (blockIdx.x % blocks_per_dir) * U;
+  const int kc = gate_chunks<U>(H), HS = kc * S::KSTEP;
+  const int kcc = row_chunks(H), H4S = kcc * 1024;
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  float* hs = smem;                        // [PR][HS]     h_{t-1} rows of a pass
+  float* part = hs + PR * HS;              // [kWarps][PR][C] warp partials of the gates
+  float* ring = part + kWarps * PR * C;    // [kStages][kRing][H4S] dgates_{t+1} rows (16-byte aligned)
+  float* xs = ring + kStages * kRing * H4S;  // [B][C]     xw_t, (unit, gate) order
+  float* act = xs + B * C;                 // [B][C]       gate activations of step t
+  float* cells = act + B * C;              // [2][3][B][U] c_t, c_{t-1}, dh_t, by step parity
+  float* dcc = cells + 6 * B * U;          // [B][U]       dc carry
+  float* part2 = dcc + B * U;              // [kWarps][B][U] warp partials of the dh carry
+  zero_shared(smem, bwd_floats<U>(B, PR, H));
+
+  const float* whd = wh + (size_t)dir * H * H4;
+  float w[S::KCH][4][4];
+  load_gate_columns<U>(w, whd, H, j0);
+  float wr[S::KCC][4][U];
+  load_gate_rows<U>(wr, whd, H, j0);
+  unsigned* counter = sync + dir * kCounterStride;
+  const size_t off = (size_t)dir * B * T;
+  const float* xwd = xw + off * H4;
+  const float* hd = hseq + off * H;
+  const float* cd = cseq + off * H;
+  const float* dhd = dh + off * H;
+  float* dxwd = dxw + off * H4;
+  const bool one_pass = B <= PR;
+
+  // the loads of step t that depend on no other block: xw_t, c_t, c_{t-1},
+  // dh_t, and the first pass's h_{t-1} rows
+  auto prefetch = [&](int t) {
+    prefetch_xw<U>(xs, xwd, B, T, H, j0, t);
+    float* cb = cells + (t & 1) * 3 * B * U;
+    for (int e = tid; e < B * U; e += kThreads) {
+      const int r = e / U, u = e - r * U;
+      const size_t o = ((size_t)r * T + t) * H + j0 + u;
+      copy4(cb + e, cd + o);
+      if (t > 0) copy4(cb + B * U + e, cd + o - H);
+      else cb[B * U + e] = 0.0f;
+      copy4(cb + 2 * B * U + e, dhd + o);
+    }
+    if (one_pass && t > 0) stage_rows(hs, HS, hd + (size_t)(t - 1) * H, (size_t)T * H, B, H);
+    commit_copies();
+  };
+  __syncthreads();
+  prefetch(T - 1);
+
+  for (int t = T - 1; t >= 0; --t) {
+    // phase 1: the gates of step t, recomputed (no dependence on other blocks)
+    for (int r0 = 0; r0 < B; r0 += PR) {
+      const int nr = min(PR, B - r0);
+      if (!one_pass && t > 0)
+        stage_rows(hs, HS, hd + ((size_t)r0 * T + t - 1) * H, (size_t)T * H, nr, H);
+      commit_copies();
+      wait_copies<0>();
+      __syncthreads();
+      if (t > 0) {
+        gate_product<U>(w, hs, HS, nr, kc, part, PR);
+        __syncthreads();
+      }
+      for (int e = tid; e < nr * C; e += kThreads) {
+        const int r = e / C, q = e - r * C;
+        const float pre = xs[(r0 + r) * C + q] + (t > 0 ? warp_sum(part, PR, C, r, q) : 0.0f);
+        act[(r0 + r) * C + q] = (q & 3) == 2 ? tanhf(pre) : sigmoidf(pre);
+      }
+      __syncthreads();  // hs, part reused by the next pass; xs by the next prefetch
+    }
+    if (t > 0) prefetch(t - 1);
+
+    // phase 2: the dh carry from every block's dgates_{t+1}
+    if (t < T - 1) {
+      wait_for(counter, (unsigned)(blocks_per_dir * (T - 1 - t)));
+      dh_product<U>(wr, dxwd + (size_t)(t + 1) * H4, (size_t)T * H4, ring, H4S, B, H, kcc, part2);
+    }
+
+    // dgates of step t: a thread per (row, gate column)
+    const float* cb = cells + (t & 1) * 3 * B * U;
+    const int n = B * C;
+    for (int base = 0; base < n; base += kThreads) {
+      const int e = base + tid;
+      const bool on = e < n;
+      const int r = on ? e / C : 0, q = e - (e / C) * C, u = q >> 2, g = q & 3;
+      const float a = on ? act[r * C + q] : 0.0f;
+      const int l0 = lane & ~3;
+      const float ig = __shfl_sync(0xffffffffu, a, l0), fg = __shfl_sync(0xffffffffu, a, l0 + 1);
+      const float gg = __shfl_sync(0xffffffffu, a, l0 + 2), og = __shfl_sync(0xffffffffu, a, l0 + 3);
+      if (on) {
+        const int p = r * U + u;
+        float carry = 0.0f;
+        if (t < T - 1) {
+#pragma unroll
+          for (int w8 = 0; w8 < kWarps; ++w8) carry += part2[w8 * B * U + p];
+        }
+        const float tc = tanhf(cb[p]), cp = cb[B * U + p];
+        const float dht = cb[2 * B * U + p] + carry;
+        const float dct = dht * og * (1.0f - tc * tc) + dcc[p];
+        const float d = g == 0 ? dct * gg * ig * (1.0f - ig)
+                      : g == 1 ? dct * cp * fg * (1.0f - fg)
+                      : g == 2 ? dct * ig * (1.0f - gg * gg)
+                               : dht * tc * og * (1.0f - og);
+        __stcg(dxwd + ((size_t)r * T + t) * H4 + g * H + j0 + u, d);
+        __syncwarp(0xfu << (lane & ~3));  // the unit's four lanes have read dcc
+        if (g == 0) dcc[p] = dct * fg;
+      }
+    }
+    __syncthreads();  // dgates_t stored, part2 and act read
+    arrive(counter);
+  }
+}
+
+// The sequential floor: the grid of the kernels above doing its T
+// per-direction barriers and nothing else.
+__global__ void __launch_bounds__(kThreads, 1)
+lstm_barrier_floor_kernel(unsigned* sync, int blocks_per_dir, int T) {
+  unsigned* counter = sync + (blockIdx.x / blocks_per_dir) * kCounterStride;
+  for (int t = 0; t < T; ++t) {
+    __syncthreads();
+    arrive(counter);
+    wait_for(counter, (unsigned)(blocks_per_dir * (t + 1)));
+  }
+}
+
+// ---- host side -------------------------------------------------------------------
+
 // Cooperative launch of `kernel` with 2 * (H / U) blocks after checking
-// that all of them can be resident at once.
+// that all of them can be resident at once (the barriers need it).
 cudaError_t launch_cooperative(const void* kernel, int H, int U, size_t smem, void** args,
                                cudaStream_t stream) {
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -302,24 +618,6 @@ cudaError_t launch_cooperative(const void* kernel, int H, int U, size_t smem, vo
   return cudaGetLastError();
 }
 
-template <int U>
-int launch_fwd(const float* xw, const float* wh, float* out, float* cout, int B, int T, int H,
-               cudaStream_t stream) {
-  void* args[] = {(void*)&xw, (void*)&wh, (void*)&out, (void*)&cout, (void*)&B, (void*)&T, (void*)&H};
-  const void* kernel = cout ? (const void*)lstm_recurrence_kernel<U, true>
-                            : (const void*)lstm_recurrence_kernel<U, false>;
-  return launch_cooperative(kernel, H, U, fwd_smem_bytes<U>(B, H), args, stream);
-}
-
-template <int U>
-int launch_bwd(const float* xw, const float* wh, const float* h, const float* c, const float* dh,
-               float* dxw, int B, int T, int H, cudaStream_t stream) {
-  void* args[] = {(void*)&xw, (void*)&wh, (void*)&h, (void*)&c, (void*)&dh, (void*)&dxw,
-                  (void*)&B, (void*)&T, (void*)&H};
-  return launch_cooperative((const void*)lstm_recurrence_bwd_kernel<U>, H, U,
-                            bwd_smem_bytes<U>(B, H), args, stream);
-}
-
 // U (hidden units per block) is the smallest of 1, 2, 4, 8 that divides H
 // and gives at most one block per SM; if none does, the largest that
 // divides H, and the occupancy check decides whether all blocks fit.
@@ -328,7 +626,7 @@ cudaError_t units_per_block(int H, int* u) {
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e != cudaSuccess) return e;
-  *u = 0;
+  *u = 1;
   for (int cand = 1; cand <= 8; cand *= 2)
     if (H % cand == 0 && 2 * (H / cand) <= sms) { *u = cand; return cudaSuccess; }
   for (int cand = 8; cand >= 1; cand /= 2)
@@ -336,9 +634,54 @@ cudaError_t units_per_block(int H, int* u) {
   return cudaSuccess;
 }
 
-int forward(const void* xw, const void* wh, void* out, void* cout, int two_b, int T, int H,
-            void* stream) {
-  if (two_b <= 0 || two_b % 2 || T <= 0 || H <= 0) return cudaErrorInvalidValue;
+// Rows a pass of the gate product takes: all B (rounded up to the register
+// tile) where the shared memory holds them, else the most it holds.
+// Returns 0, kNotTaken, or a CUDA error; sets *pr and *smem (bytes).
+template <int U>
+int plan(int B, int H, bool backward, int* pr, size_t* smem) {
+  if (gate_chunks<U>(H) > Shape<U>::KCH || row_chunks(H) > Shape<U>::KCC) return kNotTaken;
+  int dev = 0, limit = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (e != cudaSuccess) return e;
+  for (int p = (B + kRows - 1) / kRows * kRows; p >= kRows; p -= kRows) {
+    const size_t bytes = sizeof(float) * (size_t)(backward ? bwd_floats<U>(B, p, H) : fwd_floats<U>(B, p, H));
+    if (bytes <= (size_t)limit) {
+      *pr = p;
+      *smem = bytes;
+      return 0;
+    }
+  }
+  return kNotTaken;
+}
+
+template <int U>
+int launch_fwd(const float* xw, const float* wh, float* out, float* cout, unsigned* sync, int B,
+               int T, int H, cudaStream_t stream) {
+  int pr = 0;
+  size_t smem = 0;
+  if (int e = plan<U>(B, H, false, &pr, &smem)) return e;
+  void* args[] = {(void*)&xw, (void*)&wh, (void*)&out, (void*)&cout, (void*)&sync,
+                  (void*)&B,  (void*)&T,  (void*)&H,   (void*)&pr};
+  const void* kernel = cout ? (const void*)lstm_recurrence_kernel<U, true>
+                            : (const void*)lstm_recurrence_kernel<U, false>;
+  return launch_cooperative(kernel, H, U, smem, args, stream);
+}
+
+template <int U>
+int launch_bwd(const float* xw, const float* wh, const float* h, const float* c, const float* dh,
+               float* dxw, unsigned* sync, int B, int T, int H, cudaStream_t stream) {
+  int pr = 0;
+  size_t smem = 0;
+  if (int e = plan<U>(B, H, true, &pr, &smem)) return e;
+  void* args[] = {(void*)&xw, (void*)&wh, (void*)&h, (void*)&c, (void*)&dh, (void*)&dxw,
+                  (void*)&sync, (void*)&B, (void*)&T, (void*)&H, (void*)&pr};
+  return launch_cooperative((const void*)lstm_recurrence_bwd_kernel<U>, H, U, smem, args, stream);
+}
+
+int forward(const void* xw, const void* wh, void* out, void* cout, void* sync, int two_b, int T,
+            int H, void* stream) {
+  if (two_b <= 0 || two_b % 2 || T <= 0 || H <= 0 || sync == nullptr) return cudaErrorInvalidValue;
   int u = 1;
   cudaError_t e = units_per_block(H, &u);
   if (e != cudaSuccess) return e;
@@ -346,13 +689,14 @@ int forward(const void* xw, const void* wh, void* out, void* cout, int two_b, in
   const float* w = static_cast<const float*>(wh);
   float* o = static_cast<float*>(out);
   float* c = static_cast<float*>(cout);
+  unsigned* sy = static_cast<unsigned*>(sync);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int B = two_b / 2;
   switch (u) {
-    case 8: return launch_fwd<8>(x, w, o, c, B, T, H, s);
-    case 4: return launch_fwd<4>(x, w, o, c, B, T, H, s);
-    case 2: return launch_fwd<2>(x, w, o, c, B, T, H, s);
-    default: return launch_fwd<1>(x, w, o, c, B, T, H, s);
+    case 8: return launch_fwd<8>(x, w, o, c, sy, B, T, H, s);
+    case 4: return launch_fwd<4>(x, w, o, c, sy, B, T, H, s);
+    case 2: return launch_fwd<2>(x, w, o, c, sy, B, T, H, s);
+    default: return launch_fwd<1>(x, w, o, c, sy, B, T, H, s);
   }
 }
 
@@ -360,24 +704,29 @@ int forward(const void* xw, const void* wh, void* out, void* cout, int two_b, in
 
 extern "C" {
 
-// K1. Launch on `stream`. Returns 0 or a cudaError_t code.
-int lstm_recurrence_forward(const void* xw, const void* wh, void* out, int two_b, int T, int H,
-                            void* stream) {
-  return forward(xw, wh, out, nullptr, two_b, T, H, stream);
+// Every entry launches on `stream` and returns 0, kNotTaken (-1) for a
+// shape the kernels do not take, or a cudaError_t code. `sync` is 64 zeroed
+// 32-bit words of device memory: the two directions' barrier counters.
+
+// K1.
+int lstm_recurrence_forward(const void* xw, const void* wh, void* out, void* sync, int two_b,
+                            int T, int H, void* stream) {
+  return forward(xw, wh, out, nullptr, sync, two_b, T, H, stream);
 }
 
 // K2a: K1 that also writes the cell states to `cout` (2B, T, H).
 int lstm_recurrence_forward_train(const void* xw, const void* wh, void* out, void* cout,
-                                  int two_b, int T, int H, void* stream) {
+                                  void* sync, int two_b, int T, int H, void* stream) {
   if (cout == nullptr) return cudaErrorInvalidValue;
-  return forward(xw, wh, out, cout, two_b, T, H, stream);
+  return forward(xw, wh, out, cout, sync, two_b, T, H, stream);
 }
 
 // K2b: dxw (2B, T, 4H) from xw, wh, the forward's h and c (2B, T, H) and the
 // incoming gradient dh (2B, T, H).
 int lstm_recurrence_backward(const void* xw, const void* wh, const void* h, const void* c,
-                             const void* dh, void* dxw, int two_b, int T, int H, void* stream) {
-  if (two_b <= 0 || two_b % 2 || T <= 0 || H <= 0) return cudaErrorInvalidValue;
+                             const void* dh, void* dxw, void* sync, int two_b, int T, int H,
+                             void* stream) {
+  if (two_b <= 0 || two_b % 2 || T <= 0 || H <= 0 || sync == nullptr) return cudaErrorInvalidValue;
   int u = 1;
   cudaError_t e = units_per_block(H, &u);
   if (e != cudaSuccess) return e;
@@ -387,16 +736,34 @@ int lstm_recurrence_backward(const void* xw, const void* wh, const void* h, cons
   const float* cs = static_cast<const float*>(c);
   const float* g = static_cast<const float*>(dh);
   float* d = static_cast<float*>(dxw);
+  unsigned* sy = static_cast<unsigned*>(sync);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int B = two_b / 2;
   switch (u) {
-    case 8: return launch_bwd<8>(x, w, hs, cs, g, d, B, T, H, s);
-    case 4: return launch_bwd<4>(x, w, hs, cs, g, d, B, T, H, s);
-    case 2: return launch_bwd<2>(x, w, hs, cs, g, d, B, T, H, s);
-    default: return launch_bwd<1>(x, w, hs, cs, g, d, B, T, H, s);
+    case 8: return launch_bwd<8>(x, w, hs, cs, g, d, sy, B, T, H, s);
+    case 4: return launch_bwd<4>(x, w, hs, cs, g, d, sy, B, T, H, s);
+    case 2: return launch_bwd<2>(x, w, hs, cs, g, d, sy, B, T, H, s);
+    default: return launch_bwd<1>(x, w, hs, cs, g, d, sy, B, T, H, s);
   }
 }
 
-const char* kernel_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
+// The sequential floor of the kernels at (2B, T, H): their grid doing T
+// per-direction barriers and no work. For measurement only.
+int lstm_recurrence_floor(void* sync, int two_b, int T, int H, void* stream) {
+  if (two_b <= 0 || two_b % 2 || T <= 0 || H <= 0 || sync == nullptr) return cudaErrorInvalidValue;
+  int u = 1;
+  cudaError_t e = units_per_block(H, &u);
+  if (e != cudaSuccess) return e;
+  unsigned* sy = static_cast<unsigned*>(sync);
+  int blocks_per_dir = H / u;
+  void* args[] = {(void*)&sy, (void*)&blocks_per_dir, (void*)&T};
+  return launch_cooperative((const void*)lstm_barrier_floor_kernel, H, u, 0, args,
+                            static_cast<cudaStream_t>(stream));
+}
+
+const char* kernel_error_string(int err) {
+  return err == kNotTaken ? "shape not taken by the recurrence kernels"
+                          : cudaGetErrorString((cudaError_t)err);
+}
 
 }  // extern "C"

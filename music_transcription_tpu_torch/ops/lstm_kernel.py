@@ -21,6 +21,9 @@ it when a gradient is wanted and K1 otherwise.
 
 Each wrapper launches its hand-written CUDA kernel (``csrc/lstm_recurrence.cu``)
 for a CUDA tensor and takes its plain version only for a CPU tensor.
+``faulty_fwd_plain`` and ``faulty_bwd_plain`` are the outputs a barrier that
+races would give, built from the plain versions for the checks;
+``lstm_recurrence_floor`` times the kernels' T barriers alone.
 """
 
 from __future__ import annotations
@@ -40,24 +43,30 @@ def _gates(xw_t, h_prev, wh):
     return xw_t + hw
 
 
-def lstm_recurrence_fwd_plain(xw: torch.Tensor, wh: torch.Tensor):
-    """The recurrence as a Python loop over time of fp32 tensor ops:
-    (h, c), each (2B, T, H)."""
+def _fwd_loop(xw, wh, stale_step=None):
+    """(h, c) of the recurrence; at step ``stale_step`` (if any) the gates read
+    h_{t-2} in place of h_{t-1}."""
     two_b, t, four_h = xw.shape
     hidden = four_h // 4
     xw, wh = xw.float(), wh.float()
-    h = xw.new_zeros(two_b, hidden)
+    h = h_before = xw.new_zeros(two_b, hidden)
     c = xw.new_zeros(two_b, hidden)
     h_out = xw.new_empty(two_b, t, hidden)
     c_out = xw.new_empty(two_b, t, hidden)
     with full_fp32():
         for s in range(t):
-            i, f, g, o = _gates(xw[:, s], h, wh).chunk(4, dim=-1)
+            i, f, g, o = _gates(xw[:, s], h_before if s == stale_step else h, wh).chunk(4, dim=-1)
             c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
-            h = torch.sigmoid(o) * torch.tanh(c)
+            h_before, h = h, torch.sigmoid(o) * torch.tanh(c)
             h_out[:, s] = h
             c_out[:, s] = c
     return h_out, c_out
+
+
+def lstm_recurrence_fwd_plain(xw: torch.Tensor, wh: torch.Tensor):
+    """The recurrence as a Python loop over time of fp32 tensor ops:
+    (h, c), each (2B, T, H)."""
+    return _fwd_loop(xw, wh)
 
 
 def lstm_recurrence_plain(xw: torch.Tensor, wh: torch.Tensor) -> torch.Tensor:
@@ -65,17 +74,15 @@ def lstm_recurrence_plain(xw: torch.Tensor, wh: torch.Tensor) -> torch.Tensor:
     return lstm_recurrence_fwd_plain(xw, wh)[0]
 
 
-def lstm_recurrence_bwd_plain(xw, wh, h, c, dh) -> torch.Tensor:
-    """K2b's plain version: an explicit reverse-time loop, as
-    ``_recurrence_bwd_kernel`` walks it. The gates are recomputed from xw and
-    h_{t-1}; the dh and dc carries start at zero. Returns dxw (2B, T, 4H),
-    the gradient of the gates (= of xw)."""
+def _bwd_loop(xw, wh, h, c, dh, stale_step=None):
+    """dxw of the reverse-time loop; at step ``stale_step`` (if any) the dh
+    carry is the one a step older (the carry step + 1 received)."""
     two_b, t, four_h = xw.shape
     hidden = four_h // 4
     b = two_b // 2
     xw, wh = xw.float(), wh.float()
     dxw = xw.new_empty(two_b, t, four_h)
-    dh_carry = xw.new_zeros(two_b, hidden)
+    dh_carry = dh_older = xw.new_zeros(two_b, hidden)
     dc_carry = xw.new_zeros(two_b, hidden)
     zero = xw.new_zeros(two_b, hidden)
     wh_t = wh.transpose(1, 2)
@@ -85,16 +92,39 @@ def lstm_recurrence_bwd_plain(xw, wh, h, c, dh) -> torch.Tensor:
             i, f, g, o = _gates(xw[:, s], h_prev, wh).chunk(4, dim=-1)
             i, f, g, o = torch.sigmoid(i), torch.sigmoid(f), torch.tanh(g), torch.sigmoid(o)
             tanh_c = torch.tanh(c[:, s])
-            dh_total = dh[:, s] + dh_carry
+            dh_total = dh[:, s] + (dh_older if s == stale_step else dh_carry)
             dc_total = dh_total * o * (1.0 - tanh_c * tanh_c) + dc_carry
             dgates = torch.cat([dc_total * g * i * (1.0 - i),
                                 dc_total * c_prev * f * (1.0 - f),
                                 dc_total * i * (1.0 - g * g),
                                 dh_total * tanh_c * o * (1.0 - o)], dim=-1)
             dxw[:, s] = dgates
+            dh_older = dh_carry
             dh_carry = torch.bmm(dgates.view(2, b, four_h), wh_t).view(two_b, hidden)
             dc_carry = dc_total * f
     return dxw
+
+
+def lstm_recurrence_bwd_plain(xw, wh, h, c, dh) -> torch.Tensor:
+    """K2b's plain version: an explicit reverse-time loop, as
+    ``_recurrence_bwd_kernel`` walks it. The gates are recomputed from xw and
+    h_{t-1}; the dh and dc carries start at zero. Returns dxw (2B, T, 4H),
+    the gradient of the gates (= of xw)."""
+    return _bwd_loop(xw, wh, h, c, dh)
+
+
+def faulty_fwd_plain(xw: torch.Tensor, wh: torch.Tensor):
+    """What K2a would give if its barrier let one step run early: (h, c) of
+    the plain version with step T // 2 reading h_{t-2} in place of h_{t-1}.
+    For showing that the forward's 1e-4 tolerance catches such a race."""
+    return _fwd_loop(xw, wh, stale_step=xw.shape[1] // 2)
+
+
+def faulty_bwd_plain(xw, wh, h, c, dh) -> torch.Tensor:
+    """What K2b would give if its barrier let one step run early: dxw of the
+    plain version with step T // 2 using the dh carry one step stale. For
+    showing that K2b's tolerance (1e-4 of the largest |dxw|) catches it."""
+    return _bwd_loop(xw, wh, h, c, dh, stale_step=xw.shape[1] // 2)
 
 
 def recurrent_weight_grad(h: torch.Tensor, dxw: torch.Tensor) -> torch.Tensor:
@@ -130,12 +160,37 @@ def _entry(name: str, n_ptrs: int):
     return lib, fn
 
 
+_NOT_TAKEN = -1  # the C side's code for a shape the kernels do not take
+
+
 def _launch(name: str, tensors, shape) -> None:
-    lib, fn = _entry(name, len(tensors))
+    """Launch ``name`` on the current stream of the tensors' device, with 64
+    zeroed words of device memory for the two directions' barrier counters.
+    A shape the kernels do not take raises ValueError."""
+    sync = torch.zeros(64, dtype=torch.int32, device=tensors[0].device)
+    lib, fn = _entry(name, len(tensors) + 1)
     with torch.cuda.device(tensors[0].device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(*(x.data_ptr() for x in tensors), *shape, stream)
+        err = fn(*(x.data_ptr() for x in tensors), sync.data_ptr(), *shape, stream)
+    if err == _NOT_TAKEN:
+        raise ValueError(f"{name}: the kernels do not take (2B, T, H) = {shape} "
+                         "(H above 512 with 8 units a block, above 1024 with 4, above 256 for "
+                         "K2b with 1 or 2; or a batch whose rows outgrow shared memory)")
     _build.check(lib, err, f"{name} kernel")
+
+
+def lstm_recurrence_floor(two_b: int, t: int, hidden: int, device="cuda") -> None:
+    """The sequential floor of K1/K2a/K2b at (2B, T, H): their grid doing the T
+    per-direction barriers and nothing else. For timing only; no path calls
+    it, and it has no plain version (there is nothing to compute)."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError(f"lstm_recurrence_floor runs on a CUDA device, not {device}")
+    sync = torch.zeros(64, dtype=torch.int32, device=device)
+    lib, fn = _entry("lstm_recurrence_floor", 1)
+    with torch.cuda.device(device):
+        err = fn(sync.data_ptr(), two_b, t, hidden, torch.cuda.current_stream().cuda_stream)
+    _build.check(lib, err, "lstm_recurrence_floor kernel")
 
 
 def lstm_recurrence(xw: torch.Tensor, wh: torch.Tensor) -> torch.Tensor:

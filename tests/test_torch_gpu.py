@@ -45,8 +45,12 @@ def test_log_mel_on_card_matches_cpu(cuda):
     assert float((card - cpu).abs().max()) < 6e-2  # dB, the frontend's parity bound
 
 
+# the shapes the port runs, and the design's edges: 2B=16; 2B=50 (one row
+# past a pass of 24); 2B=160 (rows in more than one pass); T=1; H=99 (no
+# 16-byte rows, two blocks an SM)
 @pytest.mark.parametrize("two_b,t,h", [(2, 5, 16), (6, 37, 48), (8, 938, 512), (32, 938, 256),
-                                       (8, 17, 99)])
+                                       (8, 17, 99), (16, 40, 512), (50, 20, 512), (160, 7, 512),
+                                       (8, 1, 512)])
 def test_lstm_kernel_matches_plain(cuda, two_b, t, h):
     rng = np.random.default_rng(two_b + t + h)
     xw = torch.from_numpy(rng.standard_normal((two_b, t, 4 * h)).astype(np.float32)).to(cuda)
@@ -59,10 +63,13 @@ def test_lstm_kernel_matches_plain(cuda, two_b, t, h):
     assert LK.lstm_recurrence.launches == before + 1
     # fp32; the summation order differs over up to 938 sequential steps
     assert float((got - ref).abs().max()) < 1e-4
+    # a barrier that races shows as launches that disagree
+    assert all(torch.equal(LK.lstm_recurrence(xw, wh), got) for _ in range(4))
 
 
 @pytest.mark.parametrize("two_b,t,h", [(2, 5, 16), (6, 37, 48), (48, 938, 512), (48, 938, 256),
-                                       (8, 17, 99)])
+                                       (8, 17, 99), (16, 40, 512), (50, 20, 512), (160, 7, 512),
+                                       (48, 1, 512)])
 def test_lstm_training_kernels_match_plain(cuda, two_b, t, h):
     """K2a: h and c within 1e-4; K2b: dxw and dW_hh within 1e-4 of their
     largest magnitude (they grow with the sums over T)."""
@@ -83,6 +90,25 @@ def test_lstm_training_kernels_match_plain(cuda, two_b, t, h):
     assert float((dxw - ref_dxw).abs().max()) <= 1e-4 * float(ref_dxw.abs().max())
     dwh, ref_dwh = (LK.recurrent_weight_grad(ref_h, g) for g in (dxw, ref_dxw))
     assert float((dwh - ref_dwh).abs().max()) <= 1e-4 * float(ref_dwh.abs().max())
+    # a barrier that races shows as launches that disagree
+    for _ in range(4):
+        h2, c2 = LK.lstm_recurrence_fwd(xw, wh)
+        assert torch.equal(h2, h_seq) and torch.equal(c2, c_seq)
+        assert torch.equal(LK.lstm_recurrence_bwd(xw, wh, ref_h, ref_c, dh), dxw)
+
+
+def test_lstm_kernels_raise_on_shapes_they_do_not_take(cuda):
+    """H=520 takes 8 units a block (65 blocks a direction), past the 512 the
+    register-held weight slice covers: ValueError, and no launch counted."""
+    xw = torch.zeros(2, 2, 4 * 520, device=cuda)
+    wh = torch.zeros(2, 520, 4 * 520, device=cuda)
+    before = LK.lstm_recurrence.launches
+    with pytest.raises(ValueError, match="do not take"):
+        LK.lstm_recurrence(xw, wh)
+    assert LK.lstm_recurrence.launches == before
+    h = torch.zeros(2, 2, 520, device=cuda)
+    with pytest.raises(ValueError, match="do not take"):
+        LK.lstm_recurrence_bwd(xw, wh, h, h, h)
 
 
 def test_lstm_recurrence_function_matches_autograd_through_plain(cuda):

@@ -8,8 +8,9 @@ torch.nn.LSTM. K2a's plain version (h and c) is held against
 ``_lstm_recurrence_fwd_impl``, K2b's and ``LSTMRecurrence``'s gradients
 against the JAX custom VJP (``jax.grad`` through ``lstm_recurrence``), within
 1e-5 of the gradient's largest magnitude, and against autograd through the
-plain forward. The hand-written kernels are held against the plain versions
-on the card in tests/test_torch_gpu.py.
+plain forward. The faulty plain versions (a barrier that races) must miss
+JAX by more than the card checks' tolerances. The hand-written kernels are
+held against the plain versions on the card in tests/test_torch_gpu.py.
 """
 
 import functools
@@ -204,3 +205,38 @@ def test_recurrence_routes_on_grad_mode():
         assert torch.equal(LK.recurrence(a, w), LK.lstm_recurrence_plain(xw, wh))
     assert LK.recurrence(xw, wh).grad_fn is None
 
+
+
+@pytest.mark.parametrize("b,t,h", [(3, 40, 16), (2, 24, 8)])
+def test_faulty_plain_versions_fail_the_kernel_tolerances(interpret_pallas, b, t, h):
+    """What K1/K2a and K2b would give with a barrier that lets one step run
+    early (h_{t-2} read at step T // 2; the dh carry one step stale there):
+    the plain versions agree with JAX's kernels, the faulty ones agree up to
+    that step and then miss by more than the card's tolerances (1e-4 for h
+    and c, 1e-4 of the largest |dxw|)."""
+    xw, wh, dh = _recurrence_inputs(b, t, h, seed=50 + t)
+    ref_h, (_, _, c_tm, _) = JLP._lstm_recurrence_fwd_impl(jnp.asarray(xw), jnp.asarray(wh))
+    ref_h, ref_c = np.asarray(ref_h), np.swapaxes(np.asarray(c_tm)[:t], 0, 1)
+    _, residuals = JLP._lstm_recurrence_fwd(jnp.asarray(xw), jnp.asarray(wh))
+    ref_dxw = np.asarray(JLP._lstm_recurrence_bwd(residuals, jnp.asarray(dh))[0])
+
+    txw, twh, tdh = (torch.from_numpy(a) for a in (xw, wh, dh))
+    h_seq, c_seq = LK.lstm_recurrence_fwd_plain(txw, twh)
+    _close(h_seq.numpy(), ref_h)
+    _close(c_seq.numpy(), ref_c)
+    fh, fc = LK.faulty_fwd_plain(txw, twh)
+    assert torch.equal(fh[:, :t // 2], h_seq[:, :t // 2])
+    assert max(np.abs(fh.numpy() - ref_h).max(), np.abs(fc.numpy() - ref_c).max()) > 1e-4
+
+    dxw = LK.lstm_recurrence_bwd_plain(txw, twh, h_seq, c_seq, tdh)
+    _close(dxw.numpy(), ref_dxw)
+    faulty = LK.faulty_bwd_plain(txw, twh, h_seq, c_seq, tdh)
+    assert torch.equal(faulty[:, t // 2 + 1:], dxw[:, t // 2 + 1:])
+    assert np.abs(faulty.numpy() - ref_dxw).max() > 1e-4 * np.abs(ref_dxw).max()
+
+
+def test_floor_runs_only_on_a_card():
+    """The sequential floor has nothing to compute, so no plain version: on
+    the CPU it raises instead of launching."""
+    with pytest.raises(ValueError, match="CUDA device"):
+        LK.lstm_recurrence_floor(8, 938, 512, device="cpu")
