@@ -11,11 +11,13 @@ Phases, in order; any failure exits non-zero:
   2. hold every kernel against its plain PyTorch version on the card at the
      serving path's shapes (K1 at both routes' T; K3 in bf16 and, for
      compute_dtype="float32", fp32) and time both (CUDA events), with a
-     library call as a yardstick where PyTorch has one. K1 is launched 5
-     times on the same inputs, which must give the same bits, and is timed
-     beside its sequential floor (lstm_recurrence_floor: its grid doing the
-     T per-direction barriers and nothing else); the plain version reading
-     h_{t-2} at one step must fail K1's tolerance;
+     library call as a yardstick where PyTorch has one. K1 and K3 are
+     launched 5 times on the same inputs, which must give the same bits; K1
+     is timed beside its sequential floor (lstm_recurrence_floor: its grid
+     doing the T per-direction barriers and nothing else); the plain version
+     reading h_{t-2} at one step must fail K1's tolerance, and K3's plain
+     version skipping the last partial key tile or reading one key tile's v
+     from the tile before (a stale stage of its ring) must fail K3's;
   3. serve the default 89M cnn_rnn_large (seeded random weights, .pth + .json)
      on a seeded ~2 min WAV through transcribe_audio on cuda: the MIDI must
      decode and the K1 counter must rise by 4 per forward; time a warm
@@ -52,9 +54,11 @@ Phases, in order; any failure exits non-zero:
      stale at one step), which must fail the tolerances, and the
      LSTMRecurrence gradient against autograd through the plain recurrence;
      K3 with lse, K4a and K4b (B=24, T=938, 8 heads of 192) in bf16 and
-     fp32, element by element, with the scores of a backward without the
-     clamp gate and of one skipping the last partial key tile, both of
-     which must fail the bound;
+     fp32, element by element, K3 with lse and K4b launched 5 times with
+     bit-identical outputs, with the scores of a backward without the
+     clamp gate, of one skipping the last partial key tile, and of K4b's
+     plain version skipping the last partial query tile or reading a stale
+     q / dO stage, all of which must fail the bound;
   6. train the default 89M cnn_rnn_large (TrainConfig defaults, batch 24)
      through the training CLI on a seeded synthetic cache written here (48
      train and 24 validation chunks of 30 s): 2 epochs of 2 steps with the
@@ -356,7 +360,7 @@ def check_k2(torch, lk, rows):
 # version after. So |got - ref| <= 2^-7 |ref| + 2^-8 (P|V|); the bounds below
 # are twice that. fp32: only the summation order differs.
 K3_TOL = {"bfloat16": (2.0**-6, 2.0**-7), "float32": (1e-5, 1e-5)}
-K3_KEY_TILE = {"bfloat16": 64, "float32": 32}
+K3_KEY_TILE = {"bfloat16": 64, "float32": 32}  # the bf16 kernel's ring stage: ak.K3_KEY_TILE
 
 
 def k3_score(got, ref, ref_abs_v, dtype: str) -> float:
@@ -368,7 +372,13 @@ def k3_score(got, ref, ref_abs_v, dtype: str) -> float:
 
 def check_k3(torch, ak, rows):
     """K3 against its plain version at the -w 120 shape (4 windows), bf16 (the
-    serving path) and fp32 (compute_dtype="float32"). Returns the bf16 record."""
+    serving path) and fp32 (compute_dtype="float32"), launched REPEATS times
+    with bit-identical outputs, with the scores of a kernel skipping the last
+    partial key tile and (bf16) of one reading a stale stage of its ring (one
+    key tile's v from the tile before: ``ak.faulty_fwd_plain``), which must
+    fail the bound; beside it, for scale only, PyTorch's
+    scaled_dot_product_attention at the same shape, which does not clamp and
+    so computes another function. Returns the bf16 record."""
     from music_transcription_tpu_torch.ops.precision import full_fp32
 
     rng = np.random.default_rng(SEED + 1)
@@ -392,26 +402,43 @@ def check_k3(torch, ak, rows):
             torch.cuda.synchronize()
             score = k3_score(got, ref, ref_abs_v, dtype)
             fault = k3_score(skipped, ref, ref_abs_v, dtype)
+            faults = {"skip_last_key_tile": fault}
+            if dtype == "bfloat16":
+                faults["stale_stage"] = k3_score(ak.faulty_fwd_plain(q, k, v, scale, 10.0), ref,
+                                                 ref_abs_v, dtype)
+            same = repeats_identical(torch, lambda: ak.flash_attention_clamped(q, k, v, scale, 10.0),
+                                     got)
             err = float((got.float() - ref.float()).abs().max())
             rms = float(ref.float().pow(2).mean().sqrt())
             ms = cuda_ms(lambda: ak.flash_attention_clamped(q, k, v, scale, 10.0), reps=5)
             plain_ms = cuda_ms(lambda: ak.attention_clamped_plain(q, k, v, scale, 10.0), reps=2)
+            sdpa = ""
+            if dtype == "bfloat16":
+                qh, kh, vh = (x.transpose(1, 2) for x in (q, k, v))
+                sdpa_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+                    qh, kh, vh, scale=scale), reps=5)
+                sdpa = f" (scaled_dot_product_attention, no clamp: {sdpa_ms:.4f} ms)"
         flops = 4.0 * b * nh * t * t * d
         nbytes = elt * 4 * q.numel()
         b_ms, b_by = bound(flops, PEAK_BF16 if dtype == "bfloat16" else PEAK_FP32, nbytes)
         rtol, ptol = K3_TOL[dtype]
-        ok = score <= 1.0 and fault > 1.0 and bool(torch.isfinite(got.float()).all())
+        ok = (score <= 1.0 and min(faults.values()) > 1.0 and same
+              and bool(torch.isfinite(got.float()).all()))
+        stale = (f"; one reading key tile {-(-t // ak.K3_KEY_TILE) // 2}'s v from the tile "
+                 f"before: {faults['stale_stage']:.1f}" if "stale_stage" in faults else "")
         rows.append(f"K3 {dtype} B={b} T={t} heads={nh} D={d}: max_abs_err={err:.3e}, rms(ref) "
                     f"{rms:.3e}, rms(P|V|) {float(ref_abs_v.float().pow(2).mean().sqrt()):.3e}, "
                     f"worst |err|/({rtol:g}|ref| + {ptol:g}P|V|) {score:.3f} (a kernel "
-                    f"skipping the last {t - kept} keys: {fault:.1f}), clamped share "
-                    f"{clamped:.4f}; ms={ms:.4f} plain_ms={plain_ms:.3f} bound_ms={b_ms:.4f} "
-                    f"({b_by}) {'ok' if ok else 'FAIL'}")
+                    f"skipping the last {t - kept} keys: {fault:.1f}{stale}), clamped share "
+                    f"{clamped:.4f}; {REPEATS} launches bit-identical={same}; ms={ms:.4f} "
+                    f"plain_ms={plain_ms:.3f}{sdpa} bound_ms={b_ms:.4f} ({b_by}) "
+                    f"{'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(rows[-1])
         if dtype == "bfloat16":
             record = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                          bound_by=b_by, library_ms=None)
+                          bound_by=b_by, library_ms=None, repeats_identical=same,
+                          fault_scores=faults)
     return record
 
 
@@ -468,7 +495,12 @@ def check_k4(torch, ak, rows):
     """K3 with lse, K4a and K4b against their plain versions at the training
     shape (batch 24: B=24, T=938, 8 heads of 192), bf16 (the training path)
     and fp32 (compute_dtype="float32"), q scaled so that the clamp binds on
-    a share of the logits. Returns the bf16 records of the three."""
+    a share of the logits. K3 with lse and K4b are launched REPEATS times with
+    bit-identical outputs; the scores of a backward without the clamp gate,
+    of one skipping the last partial key tile, and (bf16, K4b's ring:
+    ``ak.faulty_dkv_plain``) of one skipping the last partial query tile and
+    of one reading a stale q / dO stage must fail the bound. Returns the bf16
+    records of the three."""
     from music_transcription_tpu_torch.ops.precision import full_fp32
 
     rng = np.random.default_rng(SEED + 8)
@@ -508,7 +540,18 @@ def check_k4(torch, ak, rows):
             skipped, _ = attention_grad_terms(torch, q, k, v, ref_o, do, ref_lse, scale, clip,
                                               keys=kept)
             fault_tile = k4_score(skipped, ref, mag, dtype)
-            del skipped, mag
+            del skipped
+            dkv_faults = {}
+            if dtype == "bfloat16":
+                for name in ak.DKV_FAULTS:
+                    dkv_faults[name] = k4_score(ak.faulty_dkv_plain(
+                        q, k, v, ref_o, do, ref_lse, scale, clip, fault=name), ref[1:], mag[1:],
+                        dtype)
+            del mag
+            same_fwd = repeats_identical(
+                torch, lambda: ak.flash_attention_clamped_fwd(q, k, v, scale, clip), (o, lse))
+            same_dkv = repeats_identical(torch, lambda: ak.flash_attention_clamped_dkv(
+                q, k, v, ref_o, do, ref_lse, scale, clip), (dk, dv))
             errs = [float((g.float() - r.float()).abs().max()) for g, r in zip(got, ref)]
             fwd_ms = cuda_ms(lambda: ak.flash_attention_clamped_fwd(q, k, v, scale, clip), reps=5)
             dq_ms = cuda_ms(lambda: ak.flash_attention_clamped_dq(q, k, v, ref_o, do, ref_lse,
@@ -528,14 +571,18 @@ def check_k4(torch, ak, rows):
                   "K4a": bound(3 * prod, peak, 6 * x_bytes + lse_bytes),
                   "K4b": bound(4 * prod, peak, 7 * x_bytes + lse_bytes)}
         ok = (fwd_score <= 1.0 and lse_ok and score <= 1.0 and fault_gate > 1.0
-              and fault_tile > 1.0 and all(bool(torch.isfinite(g.float()).all()) for g in got))
+              and fault_tile > 1.0 and all(v > 1.0 for v in dkv_faults.values())
+              and same_fwd and same_dkv
+              and all(bool(torch.isfinite(g.float()).all()) for g in got))
         rtol, ptol = K4_TOL[dtype]
+        ring = "".join(f"; K4b {n.replace('_', ' ')}: {v:.1f}" for n, v in dkv_faults.items())
         rows.append(
             f"K3+lse/K4a/K4b {dtype} B={b} T={t} heads={nh} D={d}: o worst |err|/K3_TOL "
             f"{fwd_score:.3f}, lse max_abs_err {lse_err:.3e}; dq/dk/dv max_abs_err "
             f"{errs[0]:.3e}/{errs[1]:.3e}/{errs[2]:.3e}, worst |err|/({rtol:g}|ref| + {ptol:g}m) "
             f"{score:.3f} (a backward without the clamp gate: {fault_gate:.1f}; one skipping "
-            f"the last {t - kept} keys: {fault_tile:.1f}), clamped share {clamped:.4f}; "
+            f"the last {t - kept} keys: {fault_tile:.1f}{ring}), clamped share {clamped:.4f}; "
+            f"{REPEATS} launches bit-identical: K3+lse {same_fwd}, K4b {same_dkv}; "
             f"ms K3+lse {fwd_ms:.4f} K4a {dq_ms:.4f} K4b {dkv_ms:.4f}; plain ms fwd "
             f"{fwd_plain_ms:.3f} bwd {bwd_plain_ms:.3f}; bound ms "
             + ", ".join(f"{n} {v[0]:.4f} ({v[1]})" for n, v in bounds.items())
@@ -550,6 +597,8 @@ def check_k4(torch, ak, rows):
                 records[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                                      bound_ms=bounds[name][0], bound_by=bounds[name][1],
                                      library_ms=None)
+            records["K3+lse"]["repeats_identical"] = same_fwd
+            records["K4b"].update(repeats_identical=same_dkv, fault_scores=dkv_faults)
         del q, k, v, do, o, lse, ref_o, ref_lse, dq, dk, dv, ref, got
     return records
 

@@ -8,7 +8,7 @@
 //   K4b  _flash_bwd -> _bwd_dkv_kernel
 //
 //   q, k, v, o, dO, dQ, dK, dV  (B, T, NH, D), contiguous
-//   lse                         (B, NH, T) fp32, one value per row
+//   lse, delta                  (B, NH, T) fp32, one value per row
 //   o[b, t, h] = softmax_s( clip(q[b,t,h] . k[b,s,h] * scale, -clip, +clip) ) @ v[b,:,h]
 //   lse[b, h, t] = m + log(l), the logsumexp of that row's clamped scores
 //
@@ -31,23 +31,55 @@
 // for K4a). So the products run on the tensor cores and no (T x T) tile
 // ever reaches device memory.
 //
-// Design of the bf16 kernels: one block of 8 warps per (batch*head, tile of 64
+// Design of the bf16 K3 and K4b (Hopper): warp-specialised blocks of two
+// consumer warpgroups and one producer warpgroup (384 threads).
+//   * The producer warpgroup streams tiles into a ring of shared-memory stages
+//     with cp.async 16-byte copies, written in the 128-byte-swizzled layout
+//     (rows of 64 bf16, the 16-byte group g of row r at g ^ (r % 8); head_dim
+//     in chunks of 64 columns) that wgmma's shared-memory descriptors read.
+//     Each stage has a "full" mbarrier (the producer threads arrive once their
+//     copies have landed: cp.async.mbarrier.arrive) and an "empty" one (each
+//     consumer warp arrives once its products have read the stage). Rows
+//     past T and columns past D are zero-filled. Rows that are not 16-byte
+//     aligned (D % 8 != 0) take plain loads and stores into the same layout.
+//     (TMA would need 16-byte row strides, which D = 18 does not have.)
+//   * Every product is wgmma m64n64k16 (bf16 in, fp32 accumulate): the score
+//     products with both operands in shared memory (K-major), the
+//     accumulating products with the bf16 probabilities (or dS) in registers
+//     as the A operand -- the score accumulator's fragment layout is the A
+//     operand's, so no shuffle -- and the second operand in shared memory,
+//     MN-major (its rows are the product's K dimension).
+//   * K3: block = (batch*head, 128 query rows), 64 rows a warpgroup; key
+//     tiles of 64. The clamp, the key mask, the running max and sum and the
+//     rescale of O stay in registers (row statistics by quad shuffles); O
+//     (64 x D fp32 a warpgroup, 96 registers a thread at D=192) never leaves
+//     them. No block-wide barrier in the key loop.
+//   * K4b: block = (batch*head, 64 key rows); the producer loads k and v once
+//     and streams q, dO, lse and delta tiles of 64 query rows. Warpgroup 0
+//     computes S^T = K Q^T, p and dV += P^T dO; warpgroup 1 dP^T = V dO^T,
+//     dS and dK += dS^T Q. Key rows fall on the M dimension, so both
+//     accumulators stay in registers; the gated fp32 p goes from warpgroup 0
+//     to warpgroup 1 through a 16 KB shared tile (two named barriers).
+//     delta comes from a pre-pass kernel (one warp per row) launched by the
+//     same entry, instead of re-reading o for every query tile.
+//   head_dim is padded to 64, 128, 192 or 256 (a template parameter), and
+//   the ring holds as many stages (up to 4) as the 227 KB of shared memory
+//   a block may have allow. At D=192 K3 takes 197,688 bytes (q 48 KB, 3
+//   stages of k and v, 48 KB each), K4b 215,608 (k and v 48 KB, 3 stages of
+//   q and dO, the p tile). At D=192 ptxas gives both 168 registers a thread,
+//   the most 384 threads allow, with no spills (fewer at smaller D); at
+//   D=256 (128 accumulator registers) they spill some 0.5 KB a thread.
+//
+// Design of the bf16 K4a: one block of 8 warps per (batch*head, tile of 64
 // rows); tiles of the other operand stream through shared memory; every
 // product runs on the tensor cores through WMMA (bf16 16x16x16 fragments,
 // fp32 accumulation), with the fp32 accumulators in shared memory; the
-// elementwise softmax / dS work uses 4 consecutive threads per row. head_dim
-// is padded to a multiple of 16 inside shared memory (192 needs none); padded
-// columns are zero and add nothing. Rows past T are zero-filled and never
-// stored; keys past T are masked AFTER the clamp (clamping afterwards would
-// bring them back at -clip).
-//   K3:  148 KB of shared memory at D=192 (q tile, k and v tiles, scores,
-//        probabilities, output accumulator).
-//   K4a: 189 KB (q, dO, k, v tiles, S and dP, dS, dQ accumulator); above
-//        D=192 the key tiles hold 32 rows.
-//   K4b: 225 KB with 64 key rows per block (k, v, q, dO tiles, S and dP, the
-//        dK and dV accumulators), of the 227 KB a block may have: p and dS in
-//        bf16 overwrite the fp32 scores once these are in registers. Above
-//        D=192 the block takes 32 key rows.
+// elementwise dS work uses 4 consecutive threads per row. head_dim is padded
+// to a multiple of 16 inside shared memory (192 needs none); padded columns
+// are zero and add nothing. Rows past T are zero-filled and never stored;
+// keys past T are masked AFTER the clamp (clamping afterwards would bring
+// them back at -clip). 189 KB of shared memory (q, dO, k, v tiles, S and dP,
+// dS, dQ accumulator); above D=192 the key tiles hold 32 rows.
 //
 // fp32 inputs: the tensor cores take no full-fp32 operands, so every product
 // is an fp32 FMA on the CUDA cores (67 TFLOP/s at most, and the loops read one
@@ -66,6 +98,7 @@
 #include <mma.h>
 
 #include <cstdint>
+#include <initializer_list>
 
 using namespace nvcuda;
 using bf16 = __nv_bfloat16;
@@ -79,7 +112,6 @@ constexpr int kSmemLimit = 232448;  // bytes of shared memory a block may have
 constexpr float kNegInf = -1e9f;
 
 using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>;
-using FragAT = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major>;
 using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>;
 using FragBT = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major>;
 using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
@@ -138,6 +170,18 @@ __device__ void product_abt(float* out, int ldo, const bf16* a, const bf16* bt, 
   }
 }
 
+// sum_d dO[d] * o[d] in fp32 over one row of D, by the 32 lanes of a warp
+// (lane-strided, then a butterfly): K4a's row_delta and K4b's pre-pass sum in
+// the same order.
+__device__ __forceinline__ float warp_row_dot(const bf16* dos, const bf16* __restrict__ orow, int D,
+                                              int lane) {
+  float acc = 0.0f;
+  for (int d = lane; d < D; d += 32) acc += __bfloat162float(dos[d]) * __bfloat162float(orow[d]);
+#pragma unroll
+  for (int off = 16; off; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  return acc;
+}
+
 // delta[r] = sum_d dO[r, d] * o[r, d] in fp32 for the rows [t0, t0+rows) of
 // head h of batch b: dO from its shared tile, o from device memory; one warp
 // per row. Rows >= T get 0.
@@ -146,132 +190,395 @@ __device__ void row_delta(float* delta_s, const bf16* dos, const bf16* __restric
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   for (int r = warp; r < rows; r += kWarps) {
     float acc = 0.0f;
-    if (t0 + r < T) {
-      const bf16* orow = o + (((size_t)b * T + t0 + r) * NH + h) * D;
-      for (int d = lane; d < D; d += 32)
-        acc += __bfloat162float(dos[r * DP + d]) * __bfloat162float(orow[d]);
-    }
-#pragma unroll
-    for (int off = 16; off; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+    if (t0 + r < T)
+      acc = warp_row_dot(dos + r * DP, o + (((size_t)b * T + t0 + r) * NH + h) * D, D, lane);
     if (lane == 0) delta_s[r] = acc;
   }
+}
+
+// ---------------------------------------------------------------------------
+// Hopper building blocks of the bf16 K3 and K4b: 128-byte-swizzled tiles,
+// wgmma, mbarriers
+// ---------------------------------------------------------------------------
+
+constexpr int kConsumers = 256;                   // two consumer warpgroups
+constexpr int kProducers = 128;                   // the producer warpgroup
+constexpr int kWsThreads = kConsumers + kProducers;
+constexpr int kChunk = 64;            // bf16 columns of a swizzled row (128 bytes)
+constexpr int kRowBytes = 128;
+
+__device__ __forceinline__ uint32_t shared_address(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// wgmma's shared-memory matrix descriptor of a 128-byte-swizzled tile: rows
+// of 128 bytes, 8-row groups 1024 bytes apart (the stride byte offset).
+// `lbo`: the leading byte offset (K-major: unused; MN-major: the distance
+// between 64-column chunks).
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | (uint64_t)(lbo >> 4) << 16 |
+         (uint64_t)(1024 >> 4) << 32 | 1ull << 62;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Keeps the compiler from moving an accumulator's reads or writes across the
+// asynchronous products (after wgmma_wait_all).
+__device__ __forceinline__ void fence_acc(float (&d)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+#define WGMMA_ACC32(d)                                                                          \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),          \
+      "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),  \
+      "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),            \
+      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),            \
+      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+#define WGMMA_D32                                                                            \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, " \
+  "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
+
+// d (64 x 64 fp32, accumulator layout) += a (64 x 16) . b (64 x 16)^T, both
+// K-major tiles in shared memory.
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WGMMA_D32
+      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : WGMMA_ACC32(d)
+      : "l"(a), "l"(b), "r"(1));
+}
+
+// d += a (64 x 16 bf16, in registers in the accumulator's fragment layout)
+// . b (16 x 64), b an MN-major tile in shared memory.
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WGMMA_D32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : WGMMA_ACC32(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// The A fragments of four k16 steps from a 64 x 64 accumulator: wgmma's A
+// layout in registers is its accumulator layout (two bf16 a register).
+__device__ __forceinline__ void to_a_fragments(uint32_t (&a)[4][4], const float (&d)[32]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const __nv_bfloat162 x = __floats2bfloat162_rn(d[8 * kk + 2 * j], d[8 * kk + 2 * j + 1]);
+      a[kk][j] = *reinterpret_cast<const uint32_t*>(&x);
+    }
+}
+
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("{\n.reg .b64 state;\nmbarrier.arrive.shared::cta.b64 state, [%0];\n}\n" ::"r"(bar)
+               : "memory");
+}
+
+// Until the barrier's phase with this parity has completed. A wait of two
+// seconds means a broken pipeline: trap rather than hang the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  uint64_t start = 0;
+  for (unsigned spins = 1;; ++spins) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if ((spins & 1023) == 0) {
+      uint64_t now;
+      asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(now));
+      if (start == 0) start = now;
+      else if (now - start > 2000000000ull) __trap();
+    }
+  }
+}
+
+// Rows [t0, t0 + ROWS) of one head (row t at src + t * stride elements) into
+// the 128-byte-swizzled tile at shared address dst: DP / 64 chunks, each of
+// ROWS rows of 64 bf16, the 16-byte group g of row r stored at group
+// g ^ (r % 8) (the layout of a TMA load with a 128-byte swizzle). Zeros at
+// rows >= T and columns >= D. By the producer warpgroup's threads (pt =
+// 0..127): cp.async when `vec` (D % 8 == 0, 16-byte aligned rows), else
+// plain loads and stores. In the cp.async loop a thread copies group pt % 8
+// of rows pt / 8 + 16 p of every chunk, whose swizzled place is the same in
+// every pass p: one add a copy for each address.
+template <int DP, int ROWS>
+__device__ __forceinline__ void load_sw128(uint32_t dst, const bf16* __restrict__ src,
+                                           size_t stride, int t0, int T, int D, bool vec,
+                                           int pt) {
+  if (vec) {
+    constexpr int kPass = kProducers / 8;  // rows a pass
+    const int r0 = pt / 8, g8 = pt % 8;
+    const uint32_t to = dst + r0 * kRowBytes + ((g8 ^ (r0 & 7)) << 4);
+    const bf16* from = src + (size_t)(t0 + r0) * stride + g8 * 8;
+#pragma unroll
+    for (int c = 0; c < DP / kChunk; ++c) {
+      const bool col_ok = c * kChunk + g8 * 8 < D;
+#pragma unroll
+      for (int p = 0; p < ROWS / kPass; ++p) {
+        const bool ok = col_ok && t0 + r0 + p * kPass < T;
+        asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                         to + (c * ROWS + p * kPass) * kRowBytes),
+                     "l"(ok ? from + (size_t)p * kPass * stride + c * kChunk : src),
+                     "r"(ok ? 16 : 0)
+                     : "memory");
+      }
+    }
+  } else {
+    for (int e = pt; e < ROWS * DP; e += kProducers) {
+      const int r = e / DP, c = e % DP;
+      unsigned short val = 0;
+      if (t0 + r < T && c < D) val = __bfloat16_as_ushort(src[(size_t)(t0 + r) * stride + c]);
+      const uint32_t to = dst + (c >> 6) * ROWS * kRowBytes + r * kRowBytes +
+                          ((((c >> 3) & 7) ^ (r & 7)) << 4) + (c & 7) * 2;
+      asm volatile("st.shared.u16 [%0], %1;\n" ::"r"(to), "h"(val) : "memory");
+    }
+  }
+}
+
+// n fp32 values src[t0 + r] (0 at t0 + r >= T) into shared memory at dst, by
+// the producer warpgroup's threads, as load_sw128 does.
+__device__ __forceinline__ void load_row_values(uint32_t dst, const float* __restrict__ src,
+                                                int t0, int n, int T, bool vec, int pt) {
+  for (int r = pt; r < n; r += kProducers) {
+    const bool ok = t0 + r < T;
+    if (vec) {
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst + 4 * r),
+                   "l"(ok ? src + t0 + r : src), "r"(ok ? 4 : 0)
+                   : "memory");
+    } else {
+      asm volatile("st.shared.f32 [%0], %1;\n" ::"r"(dst + 4 * r), "f"(ok ? src[t0 + r] : 0.0f)
+                   : "memory");
+    }
+  }
+}
+
+// The producer thread's share of a stage is issued: one arrival on `bar` once
+// its copies have landed (cp.async), or now (plain stores, made visible to
+// wgmma's reads first).
+__device__ __forceinline__ void stage_issued(uint32_t bar, bool vec) {
+  if (vec) {
+    asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(bar) : "memory");
+  } else {
+    fence_proxy_async();
+    mbar_arrive(bar);
+  }
+}
+
+// The barriers of a producer / consumer ring: one for the tiles loaded once
+// (q in K3, k and v in K4b), then full[S] and empty[S]. The producer threads
+// arrive on the first two, the 8 consumer warps on empty.
+__device__ __forceinline__ void init_ring(uint32_t bars, int stages) {
+  if (threadIdx.x == 0) {
+    mbar_init(bars, kProducers);
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(bars + 8 * (1 + s), kProducers);
+      mbar_init(bars + 8 * (1 + stages + s), 8);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+}
+
+__device__ __forceinline__ void named_sync(int id) {
+  asm volatile("bar.sync %0, 256;\n" ::"r"(id) : "memory");
+}
+__device__ __forceinline__ void named_arrive(int id) {
+  asm volatile("bar.arrive %0, 256;\n" ::"r"(id) : "memory");
+}
+
+// o's or a gradient's values of one row, cols c * 64 + 8 j + 2 quad (+1), from
+// a warpgroup accumulator (row half `half` of the thread's two rows), as bf16.
+template <int NC>
+__device__ __forceinline__ void store_row(bf16* __restrict__ out, const float (&acc)[NC][32],
+                                          int half, float div, int quad, int D, bool vec) {
+#pragma unroll
+  for (int c = 0; c < NC; ++c)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int col = c * kChunk + 8 * j + 2 * quad;
+      const float x0 = acc[c][4 * j + 2 * half] / div, x1 = acc[c][4 * j + 2 * half + 1] / div;
+      if (vec) {
+        if (col < D) *reinterpret_cast<__nv_bfloat162*>(out + col) = __floats2bfloat162_rn(x0, x1);
+      } else {
+        if (col < D) out[col] = __float2bfloat16(x0);
+        if (col + 1 < D) out[col + 1] = __float2bfloat16(x1);
+      }
+    }
 }
 
 // ---------------------------------------------------------------------------
 // K3, bf16
 // ---------------------------------------------------------------------------
 
-size_t smem_bytes(int DP) {
-  return sizeof(bf16) * ((size_t)BQ * DP + 2 * (size_t)BK * DP + (size_t)BQ * BK) +
-         sizeof(float) * ((size_t)BQ * BK + (size_t)BQ * DP + 3 * BQ);
-}
+constexpr int kFwdRows = 128;  // query rows a block, 64 a consumer warpgroup
 
-template <bool kLse>
-__global__ void __launch_bounds__(kThreads)
+template <int DP>
+struct FwdTiles {
+  static constexpr int kQ = kFwdRows * DP * 2;  // bytes of the q tile
+  static constexpr int kKV = BK * DP * 2;       // bytes of one k or v tile
+  // stages that fit beside q, the 1024 bytes of alignment slack and the barriers
+  static constexpr int kFit = (kSmemLimit - 1024 - kQ - 128) / (2 * kKV);
+  static constexpr int kStages = kFit < 4 ? kFit : 4;
+  static constexpr size_t kSmem = 1024 + kQ + 2 * (size_t)kKV * kStages + 8 * (1 + 2 * kStages);
+};
+
+template <int DP, bool kLse>
+__global__ void __launch_bounds__(kWsThreads, 1)
 flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, bf16* __restrict__ o, float* __restrict__ lse,
-                 int T, int NH, int D, int DP, float scale, float clip) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* qs = reinterpret_cast<bf16*>(smem_raw);  // [BQ][DP]
-  bf16* ks = qs + BQ * DP;                        // [BK][DP]
-  bf16* vs = ks + BK * DP;                        // [BK][DP]
-  bf16* ps = vs + BK * DP;                        // [BQ][BK] probabilities
-  float* ss = reinterpret_cast<float*>(ps + BQ * BK);  // [BQ][BK] scores
-  float* os = ss + BQ * BK;                       // [BQ][DP] output accumulator
-  float* m_s = os + BQ * DP;                      // [BQ] running max
-  float* l_s = m_s + BQ;                          // [BQ] running sum
-  float* a_s = l_s + BQ;                          // [BQ] rescale factor
-
+                 int T, int NH, int D, float scale, float clip, int vec) {
+  using L = FwdTiles<DP>;
+  constexpr int S = L::kStages, NC = DP / kChunk;
+  extern __shared__ __align__(1024) unsigned char smem_ws[];
+  const uint32_t sq = (shared_address(smem_ws) + 1023) & ~1023u;  // [NC][128 rows][64]
+  const uint32_t skv = sq + L::kQ;  // stage s: k tile at skv + 2 s kKV, v tile after it
+  const uint32_t bars = skv + 2 * L::kKV * S;
   const int bh = blockIdx.y, b = bh / NH, h = bh % NH;
-  const int q0 = blockIdx.x * BQ;
-  const int tid = threadIdx.x, warp = tid / 32;
-  const int nt = DP / 16;  // 16-wide column tiles of the output
+  const int q0 = blockIdx.x * kFwdRows;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int nk = (T + BK - 1) / BK;
+  const size_t head = ((size_t)b * T * NH + h) * D, stride = (size_t)NH * D;
+  init_ring(bars, S);
 
-  load_tile(qs, q, b, h, q0, BQ, T, NH, D, DP);
-  for (int e = tid; e < BQ * DP; e += kThreads) os[e] = 0.0f;
-  for (int e = tid; e < BQ; e += kThreads) { m_s[e] = kNegInf; l_s[e] = 0.0f; }
-
-  // softmax lanes: 4 consecutive threads per query row, 16 key columns each
-  const int srow = tid / 4, spart = tid % 4;
-
-  for (int k0 = 0; k0 < T; k0 += BK) {
-    load_tile(ks, k, b, h, k0, BK, T, NH, D, DP);
-    load_tile(vs, v, b, h, k0, BK, T, NH, D, DP);
-    __syncthreads();
-
-    // S = q k^T: 16 tiles of 16x16, two per warp
-    product_abt(ss, BK, qs, ks, BQ, BK, DP, warp, kWarps);
-    __syncthreads();
-
-    // online softmax over this key tile
-    {
-      float sv[16];
-      float mx = kNegInf;
-#pragma unroll
-      for (int c = 0; c < 16; ++c) {
-        const int col = spart * 16 + c;
-        float s = ss[srow * BK + col] * scale;
-        s = fminf(fmaxf(s, -clip), clip);
-        if (k0 + col >= T) s = kNegInf;
-        sv[c] = s;
-        mx = fmaxf(mx, s);
-      }
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      const float m_prev = m_s[srow];
-      const float m_next = fmaxf(m_prev, mx);
-      float sum = 0.0f;
-#pragma unroll
-      for (int c = 0; c < 16; ++c) {
-        const float p = expf(sv[c] - m_next);
-        sum += p;
-        ps[srow * BK + spart * 16 + c] = __float2bfloat16(p);
-      }
-      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-      __syncwarp();
-      if (spart == 0) {
-        const float alpha = expf(m_prev - m_next);
-        a_s[srow] = alpha;
-        l_s[srow] = alpha * l_s[srow] + sum;
-        m_s[srow] = m_next;
-      }
+  if (threadIdx.x >= kConsumers) {  // the producer warpgroup
+    const int pt = threadIdx.x - kConsumers;
+    load_sw128<DP, kFwdRows>(sq, q + head, stride, q0, T, D, vec, pt);
+    stage_issued(bars, vec);
+    for (int i = 0; i < nk; ++i) {
+      const int s = i % S;
+      if (i >= S) mbar_wait(bars + 8 * (1 + S + s), (i / S - 1) & 1);
+      const uint32_t ks = skv + 2 * L::kKV * s;
+      load_sw128<DP, BK>(ks, k + head, stride, i * BK, T, D, vec, pt);
+      load_sw128<DP, BK>(ks + L::kKV, v + head, stride, i * BK, T, D, vec, pt);
+      stage_issued(bars + 8 * (1 + s), vec);
     }
-    __syncthreads();
-
-    for (int e = tid; e < BQ * DP; e += kThreads) os[e] *= a_s[e / DP];
-    __syncthreads();
-
-    // O += P v: (BQ/16) x nt output tiles over the warps
-    for (int tile = warp; tile < (BQ / 16) * nt; tile += kWarps) {
-      const int tr = tile / nt, tc = tile % nt;
-      FragC acc;
-      wmma::load_matrix_sync(acc, os + tr * 16 * DP + tc * 16, DP, wmma::mem_row_major);
-      for (int kk = 0; kk < BK / 16; ++kk) {
-        FragA fa;
-        FragB fb;
-        wmma::load_matrix_sync(fa, ps + tr * 16 * BK + kk * 16, BK);
-        wmma::load_matrix_sync(fb, vs + kk * 16 * DP + tc * 16, DP);
-        wmma::mma_sync(acc, fa, fb, acc);
-      }
-      wmma::store_matrix_sync(os + tr * 16 * DP + tc * 16, acc, DP, wmma::mem_row_major);
-    }
-    __syncthreads();  // ks, vs, ps, os settled before the next key tile
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    return;
   }
 
-  for (int e = tid; e < BQ * D; e += kThreads) {
-    const int r = e / D, d = e % D;
-    if (q0 + r >= T) continue;
-    const float l = l_s[r];
-    o[(((size_t)b * T + q0 + r) * NH + h) * D + d] =
-        __float2bfloat16(os[r * DP + d] / (l == 0.0f ? 1.0f : l));
-  }
-  if (kLse) {
-    for (int r = tid; r < BQ; r += kThreads) {
-      if (q0 + r >= T) continue;
-      const float l = l_s[r];
-      lse[(size_t)bh * T + q0 + r] = m_s[r] + logf(l == 0.0f ? 1.0f : l);
+  // consumer warpgroup wg: query rows q0 + 64 wg + [0, 64); this thread's
+  // rows `row` and `row` + 8 of them, columns 8 j + 2 quad (+1) of each
+  // 64-column accumulator
+  const int wg = warp / 4, row = 16 * (warp % 4) + lane / 4, quad = lane % 4;
+  const uint32_t qa = sq + wg * 64 * kRowBytes;
+  float oacc[NC][32];
+#pragma unroll
+  for (int c = 0; c < NC; ++c)
+#pragma unroll
+    for (int e = 0; e < 32; ++e) oacc[c][e] = 0.0f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.0f, 0.0f};
+  mbar_wait(bars, 0);
+
+  for (int i = 0; i < nk; ++i) {
+    const int s = i % S;
+    mbar_wait(bars + 8 * (1 + s), (i / S) & 1);
+    fence_proxy_async();
+    const uint32_t ks = skv + 2 * L::kKV * s, vs = ks + L::kKV;
+
+    // S = q k^T for this warpgroup's 64 rows and the 64 keys of the tile
+    float sacc[32];
+#pragma unroll
+    for (int e = 0; e < 32; ++e) sacc[e] = 0.0f;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk) {
+      const uint32_t off = (kk & 3) * 32;  // 16 columns of the chunk: 32 bytes
+      wgmma_ss(sacc, sw128_desc(qa + (kk >> 2) * kFwdRows * kRowBytes + off, 16),
+               sw128_desc(ks + (kk >> 2) * BK * kRowBytes + off, 16));
     }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_acc(sacc);
+
+    // online softmax of the two rows over this key tile: clamp, then mask
+    // keys >= T (only the last tile has any)
+#pragma unroll
+    for (int e = 0; e < 32; ++e) sacc[e] = fminf(fmaxf(sacc[e] * scale, -clip), clip);
+    if ((i + 1) * BK > T) {
+#pragma unroll
+      for (int e = 0; e < 32; ++e)
+        if (i * BK + 8 * (e / 4) + 2 * quad + (e & 1) >= T) sacc[e] = kNegInf;
+    }
+    float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+    for (int e = 0; e < 32; ++e) mx[(e >> 1) & 1] = fmaxf(mx[(e >> 1) & 1], sacc[e]);
+    float alpha[2], sum[2] = {0.0f, 0.0f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_next = fmaxf(m[r], mx[r]);
+      alpha[r] = expf(m[r] - m_next);
+      m[r] = m_next;
+    }
+#pragma unroll
+    for (int e = 0; e < 32; ++e) {
+      const float p = expf(sacc[e] - m[(e >> 1) & 1]);
+      sum[(e >> 1) & 1] += p;
+      sacc[e] = p;
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 1);
+      sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 2);
+      l[r] = alpha[r] * l[r] + sum[r];
+    }
+    uint32_t pa[4][4];  // p rounded to bf16, as the A operand of P v
+    to_a_fragments(pa, sacc);
+
+    // O = alpha O + P v; alpha is 1 (O * 1 == O) once a row's max stops moving
+    if (__any_sync(0xffffffffu, alpha[0] != 1.0f || alpha[1] != 1.0f)) {
+#pragma unroll
+      for (int c = 0; c < NC; ++c)
+#pragma unroll
+        for (int e = 0; e < 32; ++e) oacc[c][e] *= alpha[(e >> 1) & 1];
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int c = 0; c < NC; ++c)
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+        wgmma_rs(oacc[c], pa[kk],
+                 sw128_desc(vs + c * BK * kRowBytes + kk * 16 * kRowBytes, BK * kRowBytes));
+    wgmma_commit();
+    wgmma_wait_all();
+#pragma unroll
+    for (int c = 0; c < NC; ++c) fence_acc(oacc[c]);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(bars + 8 * (1 + S + s));  // this warp is done with the stage
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int t = q0 + wg * 64 + row + 8 * r;
+    if (t >= T) continue;
+    const float div = l[r] == 0.0f ? 1.0f : l[r];
+    store_row<NC>(o + head + (size_t)t * stride, oacc, r, div, quad, D, vec);
+    if (kLse && quad == 0) lse[(size_t)bh * T + t] = m[r] + logf(div);
   }
 }
 
@@ -460,118 +767,167 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     if (q0 + r < T) dq[(((size_t)b * T + q0 + r) * NH + h) * D + d] = __float2bfloat16(acc_s[r * DP + d]);
   }
 }
-
 // ---------------------------------------------------------------------------
-// K4b (dK, dV), bf16; BKV key rows per block (64, or 32 above D=192)
+// K4b (dK, dV), bf16, and its delta pre-pass
 // ---------------------------------------------------------------------------
 
-size_t smem_bytes_dkv(int BKV, int DP) {
-  return sizeof(bf16) * (2 * (size_t)BKV * DP + 2 * (size_t)BQ * DP) +
-         sizeof(float) * (2 * (size_t)BQ * BKV + 2 * (size_t)BKV * DP + 2 * BQ);
+// delta[b, h, t] = sum_d dO[b, t, h, d] o[b, t, h, d] in fp32, one warp a row
+// (in K4a's order); rows are (b, t, h) in memory order, R = B * T * NH.
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_delta_kernel(const bf16* __restrict__ o, const bf16* __restrict__ dout,
+                       float* __restrict__ delta, int R, int T, int NH, int D) {
+  const int r = blockIdx.x * kWarps + threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (r >= R) return;
+  const float acc = warp_row_dot(dout + (size_t)r * D, o + (size_t)r * D, D, lane);
+  const int h = r % NH, t = (r / NH) % T, b = r / NH / T;
+  if (lane == 0) delta[((size_t)b * NH + h) * T + t] = acc;
 }
 
-template <int BKV>
-__global__ void __launch_bounds__(kThreads)
+constexpr int kDkvRows = 64;  // key rows a block; query tiles of 64 rows
+
+template <int DP>
+struct DkvTiles {
+  static constexpr int kTile = kDkvRows * DP * 2;  // bytes of one k, v, q or dO tile
+  static constexpr int kX = 32 * 128 * 4;         // the gated p, warpgroup 0 -> 1
+  static constexpr int kRowVals = 2 * BQ * 4;     // a stage's lse and delta
+  static constexpr int kFit =  // as in FwdTiles, beside k, v and the p tile
+      (kSmemLimit - 1024 - 2 * kTile - kX - 128) / (2 * kTile + kRowVals);
+  static constexpr int kStages = kFit < 4 ? kFit : 4;
+  static constexpr size_t kSmem = 1024 + (2 + 2 * (size_t)kStages) * kTile + kX +
+                                  (size_t)kRowVals * kStages + 8 * (1 + 2 * kStages);
+};
+
+template <int DP>
+__global__ void __launch_bounds__(kWsThreads, 1)
 flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, const bf16* __restrict__ o,
-                     const bf16* __restrict__ dout, const float* __restrict__ lse,
-                     bf16* __restrict__ dk, bf16* __restrict__ dv, int T, int NH, int D, int DP,
-                     float scale, float clip) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* ks = reinterpret_cast<bf16*>(smem_raw);  // [BKV][DP]
-  bf16* vs = ks + BKV * DP;                       // [BKV][DP]
-  bf16* qs = vs + BKV * DP;                       // [BQ][DP]
-  bf16* dos = qs + BQ * DP;                       // [BQ][DP] dO
-  float* ss = reinterpret_cast<float*>(dos + BQ * DP);  // [BQ][BKV] S
-  bf16* ps = reinterpret_cast<bf16*>(ss);         // [BQ][BKV] p, over S once S is read
-  bf16* dss = ps + BQ * BKV;                      // [BQ][BKV] dS, over S too
-  float* dps = ss + BQ * BKV;                     // [BQ][BKV] dP
-  float* dk_s = dps + BQ * BKV;                   // [BKV][DP] dK accumulator
-  float* dv_s = dk_s + BKV * DP;                  // [BKV][DP] dV accumulator
-  float* lse_s = dv_s + BKV * DP;                 // [BQ]
-  float* delta_s = lse_s + BQ;                    // [BQ]
-
-  constexpr int CPL = BKV / 4;  // score columns of each of a row's 4 lanes
+                     const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                     const float* __restrict__ lse, const float* __restrict__ delta,
+                     bf16* __restrict__ dk, bf16* __restrict__ dv, int T, int NH, int D,
+                     float scale, float clip, int vec) {
+  using L = DkvTiles<DP>;
+  constexpr int S = L::kStages, NC = DP / kChunk;
+  extern __shared__ __align__(1024) unsigned char smem_ws[];
+  const uint32_t raw = shared_address(smem_ws);
+  const uint32_t sk = (raw + 1023) & ~1023u, sv = sk + L::kTile;  // [NC][64 rows][64]
+  const uint32_t sstage = sv + L::kTile;  // stage s: q tile at sstage + 2 s kTile, dO after it
+  const uint32_t sx = sstage + 2 * L::kTile * S;
+  const uint32_t srow = sx + L::kX;       // stage s: lse[64] at srow + s kRowVals, delta after
+  const uint32_t bars = srow + L::kRowVals * S;
+  float* xbuf = reinterpret_cast<float*>(smem_ws + (sx - raw));  // [32][128]
+  const float* rowvals = reinterpret_cast<const float*>(smem_ws + (srow - raw));
   const int bh = blockIdx.y, b = bh / NH, h = bh % NH;
-  const int kv0 = blockIdx.x * BKV;
-  const int tid = threadIdx.x, warp = tid / 32;
-  const int nt = DP / 16;
-  const int srow = tid / 4, spart = tid % 4;
+  const int kv0 = blockIdx.x * kDkvRows;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int nq = (T + BQ - 1) / BQ;
+  const size_t head = ((size_t)b * T * NH + h) * D, stride = (size_t)NH * D;
+  init_ring(bars, S);
 
-  load_tile(ks, k, b, h, kv0, BKV, T, NH, D, DP);
-  load_tile(vs, v, b, h, kv0, BKV, T, NH, D, DP);
-  for (int e = tid; e < BKV * DP; e += kThreads) { dk_s[e] = 0.0f; dv_s[e] = 0.0f; }
+  if (threadIdx.x >= kConsumers) {  // the producer warpgroup
+    const int pt = threadIdx.x - kConsumers;
+    load_sw128<DP, kDkvRows>(sk, k + head, stride, kv0, T, D, vec, pt);
+    load_sw128<DP, kDkvRows>(sv, v + head, stride, kv0, T, D, vec, pt);
+    stage_issued(bars, vec);
+    for (int i = 0; i < nq; ++i) {
+      const int s = i % S;
+      if (i >= S) mbar_wait(bars + 8 * (1 + S + s), (i / S - 1) & 1);
+      const uint32_t st = sstage + 2 * L::kTile * s, sr = srow + L::kRowVals * s;
+      load_sw128<DP, BQ>(st, q + head, stride, i * BQ, T, D, vec, pt);
+      load_sw128<DP, BQ>(st + L::kTile, dout + head, stride, i * BQ, T, D, vec, pt);
+      load_row_values(sr, lse + (size_t)bh * T, i * BQ, BQ, T, vec, pt);
+      load_row_values(sr + 4 * BQ, delta + (size_t)bh * T, i * BQ, BQ, T, vec, pt);
+      stage_issued(bars + 8 * (1 + s), vec);
+    }
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    return;
+  }
 
-  for (int q0 = 0; q0 < T; q0 += BQ) {
-    load_tile(qs, q, b, h, q0, BQ, T, NH, D, DP);
-    load_tile(dos, dout, b, h, q0, BQ, T, NH, D, DP);
-    for (int r = tid; r < BQ; r += kThreads) lse_s[r] = q0 + r < T ? lse[(size_t)bh * T + q0 + r] : 0.0f;
-    __syncthreads();
-
-    row_delta(delta_s, dos, o, b, h, q0, BQ, T, NH, D, DP);
-    // S = q k^T and dP = dO v^T over this query tile
-    product_abt(ss, BKV, qs, ks, BQ, BKV, DP, warp, kWarps);
-    product_abt(dps, BKV, dos, vs, BQ, BKV, DP, warp, kWarps);
-    __syncthreads();
-
-    // p (0 at rows and keys >= T) and dS, gated on the pre-clip z; into
-    // registers first, since their bf16 copies overwrite S
-    float pv[CPL], dsv[CPL];
-    {
-      const float lse_r = lse_s[srow], delta_r = delta_s[srow];
-      const bool row_ok = q0 + srow < T;
+  // Warpgroup 0: S^T = K Q^T, p, dV += P^T dO; warpgroup 1: dP^T = V dO^T,
+  // dS, dK += dS^T Q. This thread's key rows kv0 + row and kv0 + row + 8,
+  // query columns 8 j + 2 quad (+1) of the tile.
+  const int wg = warp / 4, tid = threadIdx.x % 128;
+  const int row = 16 * (warp % 4) + lane / 4, quad = lane % 4;
+  const bool key_ok[2] = {kv0 + row < T, kv0 + row + 8 < T};
+  const uint32_t a_tile = wg == 0 ? sk : sv;
+  float acc[NC][32];
 #pragma unroll
-      for (int c = 0; c < CPL; ++c) {
-        const int col = spart * CPL + c, idx = srow * BKV + col;
-        const float z = ss[idx] * scale;
-        float p = 0.0f, ds = 0.0f;
-        if (row_ok && kv0 + col < T) {
-          p = expf(fminf(fmaxf(z, -clip), clip) - lse_r);
-          if (z >= -clip && z <= clip) ds = p * (dps[idx] - delta_r) * scale;
+  for (int c = 0; c < NC; ++c)
+#pragma unroll
+    for (int e = 0; e < 32; ++e) acc[c][e] = 0.0f;
+  mbar_wait(bars, 0);
+
+  for (int i = 0; i < nq; ++i) {
+    const int s = i % S;
+    mbar_wait(bars + 8 * (1 + s), (i / S) & 1);
+    fence_proxy_async();
+    const uint32_t sq = sstage + 2 * L::kTile * s, sdo = sq + L::kTile;
+    const float* lse_s = rowvals + 2 * BQ * s;
+    const float* delta_s = lse_s + BQ;
+
+    // S^T (warpgroup 0) or dP^T (warpgroup 1): 64 keys x 64 queries
+    float sacc[32];
+#pragma unroll
+    for (int e = 0; e < 32; ++e) sacc[e] = 0.0f;
+    const uint32_t b_tile = wg == 0 ? sq : sdo;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk) {
+      const uint32_t off = (kk >> 2) * kDkvRows * kRowBytes + (kk & 3) * 32;
+      wgmma_ss(sacc, sw128_desc(a_tile + off, 16), sw128_desc(b_tile + off, 16));
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_acc(sacc);
+
+    if (wg == 0) {
+      // p (0 at keys and queries >= T), and p gated on the pre-clip z for dS
+      if (i > 0) named_sync(2);  // warpgroup 1 has read the previous tile's
+#pragma unroll
+      for (int e = 0; e < 32; ++e) {
+        const int col = 8 * (e / 4) + 2 * quad + (e & 1);
+        const float z = sacc[e] * scale;
+        float p = 0.0f, pg = 0.0f;
+        if (key_ok[(e >> 1) & 1] && i * BQ + col < T) {
+          p = expf(fminf(fmaxf(z, -clip), clip) - lse_s[col]);
+          if (z >= -clip && z <= clip) pg = p;
         }
-        pv[c] = p;
-        dsv[c] = ds;
+        xbuf[e * 128 + tid] = pg;
+        sacc[e] = p;
       }
-    }
-    __syncthreads();
+      named_arrive(1);
+    } else {
+      named_sync(1);  // warpgroup 0's gated p of this tile is in xbuf
 #pragma unroll
-    for (int c = 0; c < CPL; ++c) {
-      const int idx = srow * BKV + spart * CPL + c;
-      ps[idx] = __float2bfloat16(pv[c]);
-      dss[idx] = __float2bfloat16(dsv[c]);
-    }
-    __syncthreads();
-
-    // dV += p^T dO and dK += dS^T q: 2 x (BKV/16) x nt tiles over the warps;
-    // p^T and dS^T are read as column-major views of the [BQ][BKV] tiles
-    for (int tile = warp; tile < 2 * (BKV / 16) * nt; tile += kWarps) {
-      const bool is_k = tile >= (BKV / 16) * nt;
-      const int t = is_k ? tile - (BKV / 16) * nt : tile;
-      const int tr = t / nt, tc = t % nt;
-      const bf16* a = is_k ? dss : ps;
-      const bf16* bm = is_k ? qs : dos;
-      float* out = (is_k ? dk_s : dv_s) + tr * 16 * DP + tc * 16;
-      FragC acc;
-      wmma::load_matrix_sync(acc, out, DP, wmma::mem_row_major);
-      for (int kk = 0; kk < BQ / 16; ++kk) {
-        FragAT fa;
-        FragB fb;
-        wmma::load_matrix_sync(fa, a + kk * 16 * BKV + tr * 16, BKV);
-        wmma::load_matrix_sync(fb, bm + kk * 16 * DP + tc * 16, DP);
-        wmma::mma_sync(acc, fa, fb, acc);
+      for (int e = 0; e < 32; ++e) {
+        const int col = 8 * (e / 4) + 2 * quad + (e & 1);
+        sacc[e] = xbuf[e * 128 + tid] * (sacc[e] - delta_s[col]) * scale;
       }
-      wmma::store_matrix_sync(out, acc, DP, wmma::mem_row_major);
+      if (i + 1 < nq) named_arrive(2);
     }
-    __syncthreads();  // qs, dos, ps, dss consumed before the next query tile
+    uint32_t fa[4][4];  // p^T or dS^T rounded to bf16, as the A operand
+    to_a_fragments(fa, sacc);
+
+    // dV += P^T dO (warpgroup 0) or dK += dS^T Q (warpgroup 1)
+    const uint32_t c_tile = wg == 0 ? sdo : sq;
+    wgmma_fence();
+#pragma unroll
+    for (int c = 0; c < NC; ++c)
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk)
+        wgmma_rs(acc[c], fa[kk],
+                 sw128_desc(c_tile + c * BQ * kRowBytes + kk * 16 * kRowBytes, BQ * kRowBytes));
+    wgmma_commit();
+    wgmma_wait_all();
+#pragma unroll
+    for (int c = 0; c < NC; ++c) fence_acc(acc[c]);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(bars + 8 * (1 + S + s));  // this warp is done with the stage
   }
 
-  for (int e = tid; e < BKV * D; e += kThreads) {
-    const int r = e / D, d = e % D;
-    if (kv0 + r >= T) continue;
-    const size_t at = (((size_t)b * T + kv0 + r) * NH + h) * D + d;
-    dk[at] = __float2bfloat16(dk_s[r * DP + d]);
-    dv[at] = __float2bfloat16(dv_s[r * DP + d]);
-  }
+  bf16* out = wg == 0 ? dv : dk;
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+    if (key_ok[r]) store_row<NC>(out + head + (size_t)(kv0 + row + 8 * r) * stride, acc, r, 1.0f,
+                                 quad, D, vec);
 }
 
 // ---------------------------------------------------------------------------
@@ -759,18 +1115,50 @@ flash_bwd_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ 
     }
   }
 }
-
 bool bad_shape(int B, int T, int NH, int D) {
   return B <= 0 || T <= 0 || NH <= 0 || D <= 0 || D > kMaxD || B * NH > 65535;
 }
 
 // Set the kernel's dynamic shared memory and launch it on `stream`.
 template <typename Kernel, typename... Args>
-int launch(Kernel kernel, dim3 grid, size_t smem, void* stream, Args... args) {
+int launch(Kernel kernel, dim3 grid, int threads, size_t smem, void* stream, Args... args) {
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
-  kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(args...);
+  kernel<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(args...);
   return cudaGetLastError();
+}
+
+// The Hopper kernels' head_dim, padded to whole 64-column chunks.
+int padded_dim(int D) { return D <= 64 ? 64 : D <= 128 ? 128 : D <= 192 ? 192 : 256; }
+
+// Rows of D bf16 that cp.async can copy in 16-byte pieces: D % 8 == 0 and
+// every base address 16-byte aligned.
+bool rows16(int D, std::initializer_list<const void*> ptrs) {
+  if (D % 8 != 0) return false;
+  for (const void* p : ptrs)
+    if (reinterpret_cast<uintptr_t>(p) % 16 != 0) return false;
+  return true;
+}
+
+template <int DP>
+int forward_bf16(const bf16* q, const bf16* k, const bf16* v, bf16* o, float* lse, int B, int T,
+                 int NH, int D, float scale, float clip, int vec, void* stream) {
+  const dim3 grid((T + kFwdRows - 1) / kFwdRows, B * NH);
+  const size_t smem = FwdTiles<DP>::kSmem;
+  if (lse)
+    return launch(flash_fwd_kernel<DP, true>, grid, kWsThreads, smem, stream, q, k, v, o, lse, T,
+                  NH, D, scale, clip, vec);
+  return launch(flash_fwd_kernel<DP, false>, grid, kWsThreads, smem, stream, q, k, v, o, lse, T,
+                NH, D, scale, clip, vec);
+}
+
+template <int DP>
+int dkv_bf16(const bf16* q, const bf16* k, const bf16* v, const bf16* dout, const float* lse,
+             const float* delta, bf16* dk, bf16* dv, int B, int T, int NH, int D, float scale,
+             float clip, int vec, void* stream) {
+  return launch(flash_bwd_dkv_kernel<DP>, dim3((T + kDkvRows - 1) / kDkvRows, B * NH), kWsThreads,
+                DkvTiles<DP>::kSmem, stream, q, k, v, dout, lse, delta, dk, dv, T, NH, D, scale,
+                clip, vec);
 }
 
 }  // namespace
@@ -783,18 +1171,18 @@ int flash_attention_clamped_forward(const void* q, const void* k, const void* v,
                                     void* lse, int B, int T, int NH, int D, float scale,
                                     float clip, void* stream) {
   if (bad_shape(B, T, NH, D)) return cudaErrorInvalidValue;
-  const int DP = (D + 15) / 16 * 16;
-  const dim3 grid((T + BQ - 1) / BQ, B * NH);
   const auto* qp = static_cast<const bf16*>(q);
   const auto* kp = static_cast<const bf16*>(k);
   const auto* vp = static_cast<const bf16*>(v);
   auto* op = static_cast<bf16*>(o);
   auto* lp = static_cast<float*>(lse);
-  if (lse)
-    return launch(flash_fwd_kernel<true>, grid, smem_bytes(DP), stream, qp, kp, vp, op, lp, T, NH,
-                  D, DP, scale, clip);
-  return launch(flash_fwd_kernel<false>, grid, smem_bytes(DP), stream, qp, kp, vp, op, lp, T, NH,
-                D, DP, scale, clip);
+  const int vec = rows16(D, {q, k, v, o});
+  switch (padded_dim(D)) {
+    case 64: return forward_bf16<64>(qp, kp, vp, op, lp, B, T, NH, D, scale, clip, vec, stream);
+    case 128: return forward_bf16<128>(qp, kp, vp, op, lp, B, T, NH, D, scale, clip, vec, stream);
+    case 192: return forward_bf16<192>(qp, kp, vp, op, lp, B, T, NH, D, scale, clip, vec, stream);
+    default: return forward_bf16<256>(qp, kp, vp, op, lp, B, T, NH, D, scale, clip, vec, stream);
+  }
 }
 
 // K3, fp32 q, k, v, o; lse as above.
@@ -809,10 +1197,10 @@ int flash_attention_clamped_forward_f32(const void* q, const void* k, const void
   auto* op = static_cast<float*>(o);
   auto* lp = static_cast<float*>(lse);
   if (lse)
-    return launch(flash_fwd_f32_kernel<true>, grid, smem_bytes_f32(D), stream, qp, kp, vp, op, lp,
-                  T, NH, D, scale, clip);
-  return launch(flash_fwd_f32_kernel<false>, grid, smem_bytes_f32(D), stream, qp, kp, vp, op, lp,
-                T, NH, D, scale, clip);
+    return launch(flash_fwd_f32_kernel<true>, grid, kThreads, smem_bytes_f32(D), stream, qp, kp,
+                  vp, op, lp, T, NH, D, scale, clip);
+  return launch(flash_fwd_f32_kernel<false>, grid, kThreads, smem_bytes_f32(D), stream, qp, kp, vp,
+                op, lp, T, NH, D, scale, clip);
 }
 
 // K4a: dq from q, k, v, o, dout (bf16) and lse (fp32).
@@ -831,32 +1219,39 @@ int flash_attention_clamped_backward_dq(const void* q, const void* k, const void
   const auto* lp = static_cast<const float*>(lse);
   auto* dqp = static_cast<bf16*>(dq);
   if (smem_bytes_dq(64, DP) <= (size_t)kSmemLimit)
-    return launch(flash_bwd_dq_kernel<64>, grid, smem_bytes_dq(64, DP), stream, qp, kp, vp, op,
-                  gp, lp, dqp, T, NH, D, DP, scale, clip);
-  return launch(flash_bwd_dq_kernel<32>, grid, smem_bytes_dq(32, DP), stream, qp, kp, vp, op, gp,
-                lp, dqp, T, NH, D, DP, scale, clip);
+    return launch(flash_bwd_dq_kernel<64>, grid, kThreads, smem_bytes_dq(64, DP), stream, qp, kp,
+                  vp, op, gp, lp, dqp, T, NH, D, DP, scale, clip);
+  return launch(flash_bwd_dq_kernel<32>, grid, kThreads, smem_bytes_dq(32, DP), stream, qp, kp, vp,
+                op, gp, lp, dqp, T, NH, D, DP, scale, clip);
 }
 
-// K4b: dk, dv from q, k, v, o, dout (bf16) and lse (fp32).
+// K4b: dk, dv from q, k, v, o, dout (bf16) and lse (fp32). `delta` is
+// scratch for (B, NH, T) fp32, which the pre-pass fills with rowsum(dout * o)
+// before the kernel reads it; both run on `stream`.
 int flash_attention_clamped_backward_dkv(const void* q, const void* k, const void* v,
                                          const void* o, const void* dout, const void* lse,
-                                         void* dk, void* dv, int B, int T, int NH, int D,
-                                         float scale, float clip, void* stream) {
+                                         void* delta, void* dk, void* dv, int B, int T, int NH,
+                                         int D, float scale, float clip, void* stream) {
   if (bad_shape(B, T, NH, D)) return cudaErrorInvalidValue;
-  const int DP = (D + 15) / 16 * 16;
   const auto* qp = static_cast<const bf16*>(q);
   const auto* kp = static_cast<const bf16*>(k);
   const auto* vp = static_cast<const bf16*>(v);
-  const auto* op = static_cast<const bf16*>(o);
   const auto* gp = static_cast<const bf16*>(dout);
   const auto* lp = static_cast<const float*>(lse);
+  auto* dl = static_cast<float*>(delta);
   auto* dkp = static_cast<bf16*>(dk);
   auto* dvp = static_cast<bf16*>(dv);
-  if (smem_bytes_dkv(64, DP) <= (size_t)kSmemLimit)
-    return launch(flash_bwd_dkv_kernel<64>, dim3((T + 63) / 64, B * NH), smem_bytes_dkv(64, DP),
-                  stream, qp, kp, vp, op, gp, lp, dkp, dvp, T, NH, D, DP, scale, clip);
-  return launch(flash_bwd_dkv_kernel<32>, dim3((T + 31) / 32, B * NH), smem_bytes_dkv(32, DP),
-                stream, qp, kp, vp, op, gp, lp, dkp, dvp, T, NH, D, DP, scale, clip);
+  const int rows = B * T * NH;
+  int err = launch(flash_bwd_delta_kernel, dim3((rows + kWarps - 1) / kWarps), kThreads, 0, stream,
+                   static_cast<const bf16*>(o), gp, dl, rows, T, NH, D);
+  if (err != cudaSuccess) return err;
+  const int vec = rows16(D, {q, k, v, dout, dk, dv});
+  switch (padded_dim(D)) {
+    case 64: return dkv_bf16<64>(qp, kp, vp, gp, lp, dl, dkp, dvp, B, T, NH, D, scale, clip, vec, stream);
+    case 128: return dkv_bf16<128>(qp, kp, vp, gp, lp, dl, dkp, dvp, B, T, NH, D, scale, clip, vec, stream);
+    case 192: return dkv_bf16<192>(qp, kp, vp, gp, lp, dl, dkp, dvp, B, T, NH, D, scale, clip, vec, stream);
+    default: return dkv_bf16<256>(qp, kp, vp, gp, lp, dl, dkp, dvp, B, T, NH, D, scale, clip, vec, stream);
+  }
 }
 
 // K4a, fp32.
@@ -865,11 +1260,11 @@ int flash_attention_clamped_backward_dq_f32(const void* q, const void* k, const 
                                             void* dq, int B, int T, int NH, int D, float scale,
                                             float clip, void* stream) {
   if (bad_shape(B, T, NH, D)) return cudaErrorInvalidValue;
-  return launch(flash_bwd_dq_f32_kernel, dim3((T + BQ - 1) / BQ, B * NH), smem_bytes_dq_f32(D),
-                stream, static_cast<const float*>(q), static_cast<const float*>(k),
-                static_cast<const float*>(v), static_cast<const float*>(o),
-                static_cast<const float*>(dout), static_cast<const float*>(lse),
-                static_cast<float*>(dq), T, NH, D, scale, clip);
+  return launch(flash_bwd_dq_f32_kernel, dim3((T + BQ - 1) / BQ, B * NH), kThreads,
+                smem_bytes_dq_f32(D), stream, static_cast<const float*>(q),
+                static_cast<const float*>(k), static_cast<const float*>(v),
+                static_cast<const float*>(o), static_cast<const float*>(dout),
+                static_cast<const float*>(lse), static_cast<float*>(dq), T, NH, D, scale, clip);
 }
 
 // K4b, fp32.
@@ -878,7 +1273,7 @@ int flash_attention_clamped_backward_dkv_f32(const void* q, const void* k, const
                                              void* dk, void* dv, int B, int T, int NH, int D,
                                              float scale, float clip, void* stream) {
   if (bad_shape(B, T, NH, D)) return cudaErrorInvalidValue;
-  return launch(flash_bwd_dkv_f32_kernel, dim3((T + BK32 - 1) / BK32, B * NH),
+  return launch(flash_bwd_dkv_f32_kernel, dim3((T + BK32 - 1) / BK32, B * NH), kThreads,
                 smem_bytes_dkv_f32(D), stream, static_cast<const float*>(q),
                 static_cast<const float*>(k), static_cast<const float*>(v),
                 static_cast<const float*>(o), static_cast<const float*>(dout),

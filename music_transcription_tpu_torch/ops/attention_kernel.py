@@ -33,6 +33,9 @@ from music_transcription_tpu_torch.ops import _build
 from music_transcription_tpu_torch.ops.precision import full_fp32, matmul_f32
 
 MAX_HEAD_DIM = 256  # the kernels' shared-memory tiles hold head_dim <= 256
+MAX_BATCH_HEADS = 65535  # B * H: the kernels' grids take one (batch, head) a row of blocks
+K3_KEY_TILE = 64  # keys a bf16 K3 stage holds
+K4B_QUERY_TILE = 64  # query rows a bf16 K4b stage holds
 _SUFFIX = {torch.bfloat16: "", torch.float32: "_f32"}  # of each launch function's name
 
 
@@ -95,6 +98,55 @@ def attention_clamped_bwd_plain(q, k, v, o, do, lse, scale: float, clip_val: flo
     return tuple(_unheads(g, b, h).to(dt) for g in (dq, dk, dv))
 
 
+def attention_delta_plain(o, do) -> torch.Tensor:
+    """The K4b pre-pass's plain version: delta = rowsum(do * o) in fp32,
+    (B, H, T) from (B, T, H, D) o and do, as ``_recompute_p_ds`` sums it."""
+    return (do.float() * o.float()).sum(-1).permute(0, 2, 1).contiguous()
+
+
+def faulty_fwd_plain(q, k, v, scale: float, clip_val: float = 10.0):
+    """What K3 would give if one stage of its ring were read before it was
+    refilled: the plain version with key tile ``nk // 2``'s v rows taken
+    from the tile before it (``K3_KEY_TILE`` keys a tile). For showing that
+    K3's tolerance catches a stale stage."""
+    t, tile = k.shape[1], K3_KEY_TILE
+    j = -(-t // tile) // 2
+    if j < 1:
+        raise ValueError(f"a stale stage needs two key tiles of {tile}, T={t}")
+    stale = v.clone()
+    stale[:, j * tile:(j + 1) * tile] = v[:, (j - 1) * tile:j * tile][:, :t - j * tile]
+    return attention_clamped_plain(q, k, stale, scale, clip_val)
+
+
+DKV_FAULTS = ("skip_last_query_tile", "stale_query_stage")
+
+
+def faulty_dkv_plain(q, k, v, o, do, lse, scale: float, clip_val: float = 10.0, *,
+                     fault: str):
+    """What K4b would give with a broken query ring, (dk, dv) of the plain
+    backward: "skip_last_query_tile" leaves out the query rows past the last
+    whole tile of ``K4B_QUERY_TILE`` (the partial tail); "stale_query_stage"
+    gives query tile ``nq // 2`` the q, dO, lse and delta (o) of the tile
+    before it. For showing that K4b's tolerance catches either."""
+    t, tile = q.shape[1], K4B_QUERY_TILE
+    if fault == "skip_last_query_tile":
+        kept = t // tile * tile
+        q, o, do, lse = q[:, :kept], o[:, :kept], do[:, :kept], lse[..., :kept]
+    elif fault == "stale_query_stage":
+        j = -(-t // tile) // 2
+        if j < 1:
+            raise ValueError(f"a stale stage needs two query tiles of {tile}, T={t}")
+        rows = slice(j * tile, min((j + 1) * tile, t))
+        n = rows.stop - rows.start
+        q, o, do, lse = (x.clone() for x in (q, o, do, lse))
+        for x in (q, o, do):
+            x[:, rows] = x[:, (j - 1) * tile:(j - 1) * tile + n]
+        lse[..., rows] = lse[..., (j - 1) * tile:(j - 1) * tile + n]
+    else:
+        raise ValueError(f"unknown fault {fault!r}; one of {DKV_FAULTS}")
+    return attention_clamped_bwd_plain(q, k, v, o, do, lse, scale, clip_val)[1:]
+
+
 def _check(name, *tensors):
     """Device, dtype and shape checks of a kernel's (B, T, H, D) inputs;
     returns (B, T, H, D) and the contiguous tensors."""
@@ -107,6 +159,8 @@ def _check(name, *tensors):
         raise ValueError(f"{name} takes bf16 or fp32, got {[x.dtype for x in tensors]}")
     if q.shape[3] > MAX_HEAD_DIM:
         raise ValueError(f"{name}: head_dim {q.shape[3]} > {MAX_HEAD_DIM}")
+    if q.shape[0] * q.shape[2] > MAX_BATCH_HEADS:
+        raise ValueError(f"{name}: batch x heads {q.shape[0] * q.shape[2]} > {MAX_BATCH_HEADS}")
     return tuple(q.shape), tuple(x.contiguous() for x in tensors)
 
 
@@ -189,18 +243,22 @@ def flash_attention_clamped_dq(q, k, v, o, do, lse, scale: float, clip_val: floa
 
 
 def flash_attention_clamped_dkv(q, k, v, o, do, lse, scale: float, clip_val: float = 10.0):
-    """K4b: (dk, dv), each (B, T, H, D) in q's dtype.
-    ``flash_attention_clamped_dkv.launches`` counts launches."""
+    """K4b: (dk, dv), each (B, T, H, D) in q's dtype. In bf16 the launch runs
+    a pre-pass that writes delta = rowsum(do * o) (``attention_delta_plain``)
+    into scratch allocated here, then the kernel; both count as one launch in
+    ``flash_attention_clamped_dkv.launches``."""
     if q.device.type == "cpu":
         return attention_clamped_bwd_plain(q, k, v, o, do, lse, scale, clip_val)[1:]
     shape, (q, k, v, o, do) = _check("flash_attention_clamped_dkv", q, k, v, o, do)
     lse = _check_lse("flash_attention_clamped_dkv", lse, shape)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     if dk.numel():
+        ins = (q, k, v, o, do, lse)
+        if q.dtype == torch.bfloat16:
+            ins += (torch.empty_like(lse),)  # delta
         with torch.cuda.device(q.device):
             _launch("flash_attention_clamped_backward_dkv", q.dtype,
-                    tuple(x.data_ptr() for x in (q, k, v, o, do, lse, dk, dv)), shape, scale,
-                    clip_val)
+                    tuple(x.data_ptr() for x in (*ins, dk, dv)), shape, scale, clip_val)
         flash_attention_clamped_dkv.launches += 1
     return dk, dv
 

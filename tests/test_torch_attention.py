@@ -116,3 +116,16 @@ def test_wrapper_takes_plain_version_for_cpu_tensors():
     before = AK.flash_attention_clamped.launches
     assert torch.equal(AK.flash_attention_clamped(q, k, v, 0.2), AK.attention_clamped_plain(q, k, v, 0.2))
     assert AK.flash_attention_clamped.launches == before
+
+
+def test_faulty_fwd_plain_fails_where_plain_passes():
+    """K3's stale-stage fault (one key tile's v from the tile before) is far
+    outside the tolerance that the plain version meets against JAX's kernel."""
+    q, k, v = _qkv(130, d=24, qk_mag=3.0, seed=4)
+    scale = 24**-0.5
+    ref = np.asarray(j_flash(*map(jnp.asarray, (q, k, v)), scale=scale))
+    tq, tk, tv = map(torch.from_numpy, (q, k, v))
+    assert np.abs(AK.attention_clamped_plain(tq, tk, tv, scale).numpy() - ref).max() < FP32_TOL
+    assert np.abs(AK.faulty_fwd_plain(tq, tk, tv, scale).numpy() - ref).max() > 100 * FP32_TOL
+    with pytest.raises(ValueError):  # T=37 is one key tile: no stage before it
+        AK.faulty_fwd_plain(*map(torch.from_numpy, _qkv(37, d=24)), scale)

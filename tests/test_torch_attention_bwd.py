@@ -25,7 +25,7 @@ import torch
 from jax.experimental import pallas as pl
 
 from music_transcription_tpu.models.cnn_rnn import MultiHeadSelfAttention as JAttention
-from music_transcription_tpu.ops.attention_pallas import _fwd_call
+from music_transcription_tpu.ops.attention_pallas import _fwd_call, _recompute_p_ds
 from music_transcription_tpu.ops.attention_pallas import flash_attention_clamped as j_flash
 from music_transcription_tpu_torch.models.cnn_rnn import MultiHeadSelfAttention
 from music_transcription_tpu_torch.ops import attention_kernel as AK
@@ -183,3 +183,52 @@ def test_module_training_gradients_match_jax(t):
         assert np.abs(g_w - ref_w).max() <= 1e-5 * np.abs(ref_w).max(), name
         ref_b = np.asarray(j_gp[name]["bias"])
         assert np.abs(getattr(pm, name).bias.grad.numpy() - ref_b).max() <= 1e-5 * np.abs(ref_b).max()
+
+
+D_SMALL = 24
+
+
+def _small_inputs(t, seed):
+    rng = np.random.default_rng(seed)
+    return [(m * rng.standard_normal((2, t, 2, D_SMALL))).astype(np.float32)
+            for m in (3.0, 3.0, 1.0, 1.0)]
+
+
+@pytest.mark.parametrize("fault,t", [("skip_last_query_tile", 37), ("skip_last_query_tile", 130),
+                                     ("stale_query_stage", 130)])
+def test_faulty_dkv_plain_fails_where_plain_passes(fault, t):
+    """K4b's ring faults: dk and dv far outside the tolerance that the plain
+    backward meets against JAX's VJP (at T=37 the only query tile is partial,
+    so skipping it leaves nothing)."""
+    q, k, v, do = _small_inputs(t, seed=t + 11)
+    scale = D_SMALL**-0.5
+    args = [jnp.asarray(x) for x in (q, k, v)]
+    _, vjp = jax.vjp(lambda a, b_, c: j_flash(a, b_, c, scale=scale), *args)
+    ref = [np.asarray(g) for g in vjp(jnp.asarray(do))][1:]
+    tq, tk, tv, tdo = map(torch.from_numpy, (q, k, v, do))
+    o, lse = AK.attention_clamped_fwd_plain(tq, tk, tv, scale)
+    plain = AK.attention_clamped_bwd_plain(tq, tk, tv, o, tdo, lse, scale)[1:]
+    faulty = AK.faulty_dkv_plain(tq, tk, tv, o, tdo, lse, scale, fault=fault)
+    for g, f, r in zip(plain, faulty, ref):
+        assert np.abs(g.numpy() - r).max() < GRAD_FP32_TOL
+    assert max(np.abs(f.numpy() - r).max() for f, r in zip(faulty, ref)) > 100 * GRAD_FP32_TOL
+
+
+def test_delta_plain_matches_jax_recompute():
+    """K4b's pre-pass, delta = rowsum(dO o), against the delta inside
+    ``_recompute_p_ds``: with v = 0, k = 0, lse = 0, scale 1 and no clamp,
+    p = 1 and dP = 0, so its dS is exactly -delta."""
+    q, _, _, do = _small_inputs(37, seed=5)
+    o = np.random.default_rng(6).standard_normal(q.shape).astype(np.float32)
+    got = AK.attention_delta_plain(torch.from_numpy(o), torch.from_numpy(do)).numpy()
+    assert got.shape == (2, 2, 37) and got.dtype == np.float32
+    t = q.shape[1]
+    zeros = jnp.zeros((t, D_SMALL), jnp.float32)
+    for b in range(2):
+        for h in range(2):
+            p, ds = _recompute_p_ds(jnp.asarray(q[b, :, h]), zeros, zeros, jnp.asarray(o[b, :, h]),
+                                    jnp.asarray(do[b, :, h]), jnp.zeros((t, 1), jnp.float32), 0,
+                                    scale=1.0, clip_val=1e9, t_valid=t)
+            assert np.all(np.asarray(p) == 1.0)
+            ref = -np.asarray(ds)[:, 0]
+            assert np.abs(got[b, h] - ref).max() <= 1e-6 * np.abs(ref).max()

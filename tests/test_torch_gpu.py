@@ -149,9 +149,11 @@ def test_flash_attention_refuses_a_gradient_on_card(cuda):
 FLASH_GRAD_TOL = {torch.bfloat16: 2.0**-7, torch.float32: 1e-5}
 
 
+# T=257: a partial last tile of both K3's 128 query rows and K4b's 64 key
+# rows, and of the 64-row tiles both stream (one row each)
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
 @pytest.mark.parametrize("b,t,nh,d", [(1, 37, 2, 192), (2, 130, 8, 192), (1, 100, 2, 24),
-                                      (1, 70, 1, 18), (1, 150, 2, 256)])
+                                      (1, 70, 1, 18), (1, 150, 2, 256), (1, 257, 2, 192)])
 def test_flash_training_kernels_match_plain(cuda, b, t, nh, d, dtype):
     rng = np.random.default_rng(t + d + 1)
     q, k, v, do = (torch.from_numpy((m * rng.standard_normal((b, t, nh, d))).astype(np.float32))
@@ -236,7 +238,8 @@ FLASH_TOL = {torch.bfloat16: (2.0**-6, 2.0**-7), torch.float32: (1e-5, 1e-5)}
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
 @pytest.mark.parametrize("b,t,nh,d", [(1, 37, 2, 192), (2, 130, 8, 192), (1, 100, 2, 24),
-                                      (1, 70, 1, 18)])
+                                      (1, 70, 1, 18), (1, 150, 2, 256), (1, 257, 2, 192),
+                                      (1, 257, 2, 256)])
 def test_flash_kernel_matches_plain(cuda, b, t, nh, d, dtype):
     rng = np.random.default_rng(t + d)
     # q scaled up so the +-10 clamp binds on part of the logits
@@ -252,6 +255,47 @@ def test_flash_kernel_matches_plain(cuda, b, t, nh, d, dtype):
     ref_abs_v = AK.attention_clamped_plain(q, k, v.abs(), d**-0.5, 10.0).float()
     got, ref = got.float(), ref.float()
     assert bool(((got - ref).abs() <= rtol * ref.abs() + ptol * ref_abs_v).all())
+
+
+@pytest.mark.parametrize("b,t,nh,d", [(2, 257, 4, 192), (1, 70, 1, 18)])
+def test_flash_kernels_repeat_bit_identical(cuda, b, t, nh, d):
+    """K3 (without and with lse) and K4b, whose tiles stream through a ring
+    of shared-memory stages, launched 5 times on the same inputs: the same
+    bits every time (a stage read before it is refilled shows as a
+    difference)."""
+    rng = np.random.default_rng(t + d + 2)
+    q, k, v, do = (torch.from_numpy((m * rng.standard_normal((b, t, nh, d))).astype(np.float32))
+                   .to(cuda, torch.bfloat16) for m in (6.0, 1.0, 1.0, 1.0))
+    scale = d**-0.5
+    calls = (lambda: (AK.flash_attention_clamped(q, k, v, scale),),
+             lambda: AK.flash_attention_clamped_fwd(q, k, v, scale))
+    for call in calls:
+        first = call()
+        assert all(all(torch.equal(x, y) for x, y in zip(call(), first)) for _ in range(4))
+    o, lse = AK.attention_clamped_fwd_plain(q, k, v, scale)
+    first = AK.flash_attention_clamped_dkv(q, k, v, o, do, lse, scale)
+    for _ in range(4):
+        again = AK.flash_attention_clamped_dkv(q, k, v, o, do, lse, scale)
+        assert all(torch.equal(x, y) for x, y in zip(again, first))
+
+
+def test_flash_wrappers_raise_on_shapes_the_kernels_do_not_take(cuda):
+    """head_dim past 256 (the kernels' shared-memory tiles) and more than
+    65535 (batch, head) pairs (the grids' second dimension): ValueError from
+    K3, K3 with lse and K4b in bf16, and no launch counted."""
+    counters = (AK.flash_attention_clamped, AK.flash_attention_clamped_fwd,
+                AK.flash_attention_clamped_dkv)
+    before = [c.launches for c in counters]
+    for shape in ((1, 4, 1, 264), (8193, 1, 8, 8)):
+        x = torch.zeros(shape, device=cuda, dtype=torch.bfloat16)
+        lse = torch.zeros((shape[0], shape[2], shape[1]), device=cuda)
+        with pytest.raises(ValueError):
+            AK.flash_attention_clamped(x, x, x, 1.0)
+        with pytest.raises(ValueError):
+            AK.flash_attention_clamped_fwd(x, x, x, 1.0)
+        with pytest.raises(ValueError):
+            AK.flash_attention_clamped_dkv(x, x, x, x, x, lse, 1.0)
+    assert [c.launches for c in counters] == before
 
 
 def test_wrappers_raise_on_inputs_the_kernels_do_not_take(cuda):
