@@ -54,11 +54,12 @@ Phases, in order; any failure exits non-zero:
      stale at one step), which must fail the tolerances, and the
      LSTMRecurrence gradient against autograd through the plain recurrence;
      K3 with lse, K4a and K4b (B=24, T=938, 8 heads of 192) in bf16 and
-     fp32, element by element, K3 with lse and K4b launched 5 times with
-     bit-identical outputs, with the scores of a backward without the
-     clamp gate, of one skipping the last partial key tile, and of K4b's
-     plain version skipping the last partial query tile or reading a stale
-     q / dO stage, all of which must fail the bound;
+     fp32, element by element, K3 with lse, K4a and K4b launched 5 times
+     with bit-identical outputs, with the scores of a backward without the
+     clamp gate, of one skipping the last partial key tile, of K4a's plain
+     dq skipping the last partial key tile or reading a stale k / v stage,
+     and of K4b's plain version skipping the last partial query tile or
+     reading a stale q / dO stage, all of which must fail the bound;
   6. train the default 89M cnn_rnn_large (TrainConfig defaults, batch 24)
      through the training CLI on a seeded synthetic cache written here (48
      train and 24 validation chunks of 30 s): 2 epochs of 2 steps with the
@@ -453,7 +454,7 @@ def check_k3(torch, ak, rows):
 # summation order only. The forward's o is held to K3_TOL, its lse to
 # 1e-5 |lse| + 1e-5 (fp32 summation order).
 K4_TOL = {"bfloat16": (2.0**-7, 2.0**-6), "float32": (1e-4, 1e-5)}
-K4_KEY_TILE = {"bfloat16": 64, "float32": 32}  # K4a's key tile
+K4_KEY_TILE_F32 = 32  # the fp32 K4a's key tile (the bf16 one's: ak.K4A_KEY_TILE)
 
 
 def attention_grad_terms(torch, q, k, v, o, do, lse, scale, clip, *, gate=True, keys=None):
@@ -495,9 +496,11 @@ def check_k4(torch, ak, rows):
     """K3 with lse, K4a and K4b against their plain versions at the training
     shape (batch 24: B=24, T=938, 8 heads of 192), bf16 (the training path)
     and fp32 (compute_dtype="float32"), q scaled so that the clamp binds on
-    a share of the logits. K3 with lse and K4b are launched REPEATS times with
-    bit-identical outputs; the scores of a backward without the clamp gate,
-    of one skipping the last partial key tile, and (bf16, K4b's ring:
+    a share of the logits. K3 with lse, K4a and K4b are launched REPEATS
+    times with bit-identical outputs; the scores of a backward without the
+    clamp gate, of one skipping the last partial key tile, (bf16, K4a's ring:
+    ``ak.faulty_dq_plain``, dq alone) of one skipping the last partial key
+    tile and of one reading a stale k / v stage, and (bf16, K4b's ring:
     ``ak.faulty_dkv_plain``) of one skipping the last partial query tile and
     of one reading a stale q / dO stage must fail the bound. Returns the bf16
     records of the three."""
@@ -536,13 +539,18 @@ def check_k4(torch, ak, rows):
                                               gate=False)
             fault_gate = k4_score(ungated, ref, mag, dtype)
             del ungated
-            kept = t // K4_KEY_TILE[dtype] * K4_KEY_TILE[dtype]
+            tile = ak.K4A_KEY_TILE if dtype == "bfloat16" else K4_KEY_TILE_F32
+            kept = t // tile * tile
             skipped, _ = attention_grad_terms(torch, q, k, v, ref_o, do, ref_lse, scale, clip,
                                               keys=kept)
             fault_tile = k4_score(skipped, ref, mag, dtype)
             del skipped
-            dkv_faults = {}
+            dq_faults, dkv_faults = {}, {}
             if dtype == "bfloat16":
+                for name in ak.DQ_FAULTS:
+                    dq_faults[name] = k4_score([ak.faulty_dq_plain(
+                        q, k, v, ref_o, do, ref_lse, scale, clip, fault=name)], ref[:1], mag[:1],
+                        dtype)
                 for name in ak.DKV_FAULTS:
                     dkv_faults[name] = k4_score(ak.faulty_dkv_plain(
                         q, k, v, ref_o, do, ref_lse, scale, clip, fault=name), ref[1:], mag[1:],
@@ -550,6 +558,8 @@ def check_k4(torch, ak, rows):
             del mag
             same_fwd = repeats_identical(
                 torch, lambda: ak.flash_attention_clamped_fwd(q, k, v, scale, clip), (o, lse))
+            same_dq = repeats_identical(torch, lambda: ak.flash_attention_clamped_dq(
+                q, k, v, ref_o, do, ref_lse, scale, clip), dq)
             same_dkv = repeats_identical(torch, lambda: ak.flash_attention_clamped_dkv(
                 q, k, v, ref_o, do, ref_lse, scale, clip), (dk, dv))
             errs = [float((g.float() - r.float()).abs().max()) for g, r in zip(got, ref)]
@@ -571,18 +581,21 @@ def check_k4(torch, ak, rows):
                   "K4a": bound(3 * prod, peak, 6 * x_bytes + lse_bytes),
                   "K4b": bound(4 * prod, peak, 7 * x_bytes + lse_bytes)}
         ok = (fwd_score <= 1.0 and lse_ok and score <= 1.0 and fault_gate > 1.0
-              and fault_tile > 1.0 and all(v > 1.0 for v in dkv_faults.values())
-              and same_fwd and same_dkv
+              and fault_tile > 1.0
+              and all(v > 1.0 for v in (*dq_faults.values(), *dkv_faults.values()))
+              and same_fwd and same_dq and same_dkv
               and all(bool(torch.isfinite(g.float()).all()) for g in got))
         rtol, ptol = K4_TOL[dtype]
-        ring = "".join(f"; K4b {n.replace('_', ' ')}: {v:.1f}" for n, v in dkv_faults.items())
+        ring = "".join(f"; {kernel} {n.replace('_', ' ')}: {v:.1f}"
+                       for kernel, faults in (("K4a", dq_faults), ("K4b", dkv_faults))
+                       for n, v in faults.items())
         rows.append(
             f"K3+lse/K4a/K4b {dtype} B={b} T={t} heads={nh} D={d}: o worst |err|/K3_TOL "
             f"{fwd_score:.3f}, lse max_abs_err {lse_err:.3e}; dq/dk/dv max_abs_err "
             f"{errs[0]:.3e}/{errs[1]:.3e}/{errs[2]:.3e}, worst |err|/({rtol:g}|ref| + {ptol:g}m) "
             f"{score:.3f} (a backward without the clamp gate: {fault_gate:.1f}; one skipping "
             f"the last {t - kept} keys: {fault_tile:.1f}{ring}), clamped share {clamped:.4f}; "
-            f"{REPEATS} launches bit-identical: K3+lse {same_fwd}, K4b {same_dkv}; "
+            f"{REPEATS} launches bit-identical: K3+lse {same_fwd}, K4a {same_dq}, K4b {same_dkv}; "
             f"ms K3+lse {fwd_ms:.4f} K4a {dq_ms:.4f} K4b {dkv_ms:.4f}; plain ms fwd "
             f"{fwd_plain_ms:.3f} bwd {bwd_plain_ms:.3f}; bound ms "
             + ", ".join(f"{n} {v[0]:.4f} ({v[1]})" for n, v in bounds.items())
@@ -598,6 +611,7 @@ def check_k4(torch, ak, rows):
                                      bound_ms=bounds[name][0], bound_by=bounds[name][1],
                                      library_ms=None)
             records["K3+lse"]["repeats_identical"] = same_fwd
+            records["K4a"].update(repeats_identical=same_dq, fault_scores=dq_faults)
             records["K4b"].update(repeats_identical=same_dkv, fault_scores=dkv_faults)
         del q, k, v, do, o, lse, ref_o, ref_lse, dq, dk, dv, ref, got
     return records

@@ -31,8 +31,8 @@
 // for K4a). So the products run on the tensor cores and no (T x T) tile
 // ever reaches device memory.
 //
-// Design of the bf16 K3 and K4b (Hopper): warp-specialised blocks of two
-// consumer warpgroups and one producer warpgroup (384 threads).
+// Design of the bf16 K3, K4a and K4b (Hopper): warp-specialised blocks of
+// two consumer warpgroups and one producer warpgroup (384 threads).
 //   * The producer warpgroup streams tiles into a ring of shared-memory stages
 //     with cp.async 16-byte copies, written in the 128-byte-swizzled layout
 //     (rows of 64 bf16, the 16-byte group g of row r at g ^ (r % 8); head_dim
@@ -54,6 +54,15 @@
 //     rescale of O stay in registers (row statistics by quad shuffles); O
 //     (64 x D fp32 a warpgroup, 96 registers a thread at D=192) never leaves
 //     them. No block-wide barrier in the key loop.
+//   * K4a: block = (batch*head, 64 query rows); the producer loads q and dO
+//     once and streams k and v tiles of 64 keys. Warpgroup 0 computes
+//     S = Q K^T and the gated p (lse of its rows read once into registers;
+//     exp by __expf); warpgroup 1 dP = dO V^T, dS and dQ += dS K, the same
+//     stage's k tile read MN-major. Query rows fall on the M dimension, so dQ
+//     (96 registers a thread at D=192) never leaves warpgroup 1's registers;
+//     p crosses as in K4b. Warpgroup 1 computes delta of its rows from o
+//     before the loop, while the ring fills (four lanes a row, every 16-byte
+//     load issued before the first multiply): o is read once.
 //   * K4b: block = (batch*head, 64 key rows); the producer loads k and v once
 //     and streams q, dO, lse and delta tiles of 64 query rows. Warpgroup 0
 //     computes S^T = K Q^T, p and dV += P^T dO; warpgroup 1 dP^T = V dO^T,
@@ -65,21 +74,12 @@
 //   head_dim is padded to 64, 128, 192 or 256 (a template parameter), and
 //   the ring holds as many stages (up to 4) as the 227 KB of shared memory
 //   a block may have allow. At D=192 K3 takes 197,688 bytes (q 48 KB, 3
-//   stages of k and v, 48 KB each), K4b 215,608 (k and v 48 KB, 3 stages of
-//   q and dO, the p tile). At D=192 ptxas gives both 168 registers a thread,
-//   the most 384 threads allow, with no spills (fewer at smaller D); at
-//   D=256 (128 accumulator registers) they spill some 0.5 KB a thread.
-//
-// Design of the bf16 K4a: one block of 8 warps per (batch*head, tile of 64
-// rows); tiles of the other operand stream through shared memory; every
-// product runs on the tensor cores through WMMA (bf16 16x16x16 fragments,
-// fp32 accumulation), with the fp32 accumulators in shared memory; the
-// elementwise dS work uses 4 consecutive threads per row. head_dim is padded
-// to a multiple of 16 inside shared memory (192 needs none); padded columns
-// are zero and add nothing. Rows past T are zero-filled and never stored;
-// keys past T are masked AFTER the clamp (clamping afterwards would bring
-// them back at -clip). 189 KB of shared memory (q, dO, k, v tiles, S and dP,
-// dS, dQ accumulator); above D=192 the key tiles hold 32 rows.
+//   stages of k and v, 48 KB each), K4a 214,072 (q and dO 48 KB, 3 stages of
+//   k and v, the p tile), K4b 215,608 (k and v 48 KB, 3 stages of q and dO,
+//   the p tile); at D=256 K4a's ring has 2 stages. At D=192 ptxas gives all
+//   three 168 registers a thread, the most 384 threads allow, with no
+//   spills (fewer at smaller D); at D=256 (128 accumulator registers) they
+//   spill some 0.3-0.6 KB a thread.
 //
 // fp32 inputs: the tensor cores take no full-fp32 operands, so every product
 // is an fp32 FMA on the CUDA cores (67 TFLOP/s at most, and the loops read one
@@ -95,12 +95,10 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 
 #include <cstdint>
 #include <initializer_list>
 
-using namespace nvcuda;
 using bf16 = __nv_bfloat16;
 
 namespace {
@@ -110,34 +108,6 @@ constexpr int kThreads = 256, kWarps = kThreads / 32;
 constexpr int kMaxD = 256;
 constexpr int kSmemLimit = 232448;  // bytes of shared memory a block may have
 constexpr float kNegInf = -1e9f;
-
-using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>;
-using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>;
-using FragBT = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major>;
-using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
-
-// Copy rows [t0, t0+rows) of head h of batch b into a [rows][DP] shared tile,
-// zero-filling rows >= T and columns >= D.
-__device__ void load_tile(bf16* dst, const bf16* __restrict__ src, int b, int h, int t0, int rows,
-                          int T, int NH, int D, int DP) {
-  if (D % 8 == 0) {
-    const int vpr = DP / 8;  // 16-byte vectors per shared row
-    for (int e = threadIdx.x; e < rows * vpr; e += kThreads) {
-      const int r = e / vpr, d = (e % vpr) * 8;
-      uint4 val = make_uint4(0, 0, 0, 0);
-      if (t0 + r < T && d < D)
-        val = __ldg(reinterpret_cast<const uint4*>(src + (((size_t)b * T + t0 + r) * NH + h) * D + d));
-      *reinterpret_cast<uint4*>(dst + r * DP + d) = val;
-    }
-  } else {
-    for (int e = threadIdx.x; e < rows * DP; e += kThreads) {
-      const int r = e / DP, d = e % DP;
-      bf16 val = __float2bfloat16(0.0f);
-      if (t0 + r < T && d < D) val = src[(((size_t)b * T + t0 + r) * NH + h) * D + d];
-      dst[r * DP + d] = val;
-    }
-  }
-}
 
 // Rows [t0, t0+rows) of head h of batch b into a [rows][stride] fp32 shared
 // tile, zero-filling rows >= T.
@@ -149,30 +119,8 @@ __device__ void load_tile_f32(float* dst, int stride, const float* __restrict__ 
   }
 }
 
-// out[M][N] (fp32, row stride ldo) = a[M][DP] . bt[N][DP]^T over the padded
-// head dim: the (M/16) x (N/16) tiles of 16x16, dealt to the warps from
-// `first` in steps of `step`.
-__device__ void product_abt(float* out, int ldo, const bf16* a, const bf16* bt, int M, int N,
-                            int DP, int first, int step) {
-  const int tn = N / 16;
-  for (int tile = first; tile < (M / 16) * tn; tile += step) {
-    const int tr = tile / tn, tc = tile % tn;
-    FragC acc;
-    wmma::fill_fragment(acc, 0.0f);
-    for (int kk = 0; kk < DP / 16; ++kk) {
-      FragA fa;
-      FragBT fb;
-      wmma::load_matrix_sync(fa, a + tr * 16 * DP + kk * 16, DP);
-      wmma::load_matrix_sync(fb, bt + tc * 16 * DP + kk * 16, DP);
-      wmma::mma_sync(acc, fa, fb, acc);
-    }
-    wmma::store_matrix_sync(out + tr * 16 * ldo + tc * 16, acc, ldo, wmma::mem_row_major);
-  }
-}
-
 // sum_d dO[d] * o[d] in fp32 over one row of D, by the 32 lanes of a warp
-// (lane-strided, then a butterfly): K4a's row_delta and K4b's pre-pass sum in
-// the same order.
+// (lane-strided, then a butterfly): K4b's delta pre-pass.
 __device__ __forceinline__ float warp_row_dot(const bf16* dos, const bf16* __restrict__ orow, int D,
                                               int lane) {
   float acc = 0.0f;
@@ -180,20 +128,6 @@ __device__ __forceinline__ float warp_row_dot(const bf16* dos, const bf16* __res
 #pragma unroll
   for (int off = 16; off; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
   return acc;
-}
-
-// delta[r] = sum_d dO[r, d] * o[r, d] in fp32 for the rows [t0, t0+rows) of
-// head h of batch b: dO from its shared tile, o from device memory; one warp
-// per row. Rows >= T get 0.
-__device__ void row_delta(float* delta_s, const bf16* dos, const bf16* __restrict__ o, int b,
-                          int h, int t0, int rows, int T, int NH, int D, int DP) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int r = warp; r < rows; r += kWarps) {
-    float acc = 0.0f;
-    if (t0 + r < T)
-      acc = warp_row_dot(dos + r * DP, o + (((size_t)b * T + t0 + r) * NH + h) * D, D, lane);
-    if (lane == 0) delta_s[r] = acc;
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -680,99 +614,227 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// K4a (dQ), bf16; BKT key rows per tile (64, or 32 above D=192)
+// K4a (dQ), bf16
 // ---------------------------------------------------------------------------
 
-size_t smem_bytes_dq(int BKT, int DP) {
-  return sizeof(bf16) * (2 * (size_t)BQ * DP + 2 * (size_t)BKT * DP + (size_t)BQ * BKT) +
-         sizeof(float) * (2 * (size_t)BQ * BKT + (size_t)BQ * DP + 2 * BQ);
+constexpr int kDqRows = 64;  // query rows a block; key tiles of BK rows
+static_assert(BK == kDqRows, "K4a's q, dO, k and v tiles share one size");
+
+template <int DP>
+struct DqTiles {
+  static constexpr int kTile = kDqRows * DP * 2;  // bytes of one q, dO, k or v tile
+  static constexpr int kX = 32 * 128 * 4;        // the gated p, warpgroup 0 -> 1
+  static constexpr int kFit =  // as in FwdTiles, beside q, dO and the p tile
+      (kSmemLimit - 1024 - 2 * kTile - kX - 128) / (2 * kTile);
+  static constexpr int kStages = kFit < 4 ? kFit : 4;
+  static_assert(kStages >= 2, "K4a's ring needs two stages");
+  static constexpr size_t kSmem =
+      1024 + (2 + 2 * (size_t)kStages) * kTile + kX + 8 * (1 + 2 * kStages);
+};
+
+// acc = a . b^T over the DP columns of two K-major 64-row swizzled tiles,
+// waited for.
+template <int DP>
+__device__ __forceinline__ void tile_product_abt(float (&acc)[32], uint32_t a, uint32_t b) {
+#pragma unroll
+  for (int e = 0; e < 32; ++e) acc[e] = 0.0f;
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < DP / 16; ++kk) {
+    const uint32_t off = (kk >> 2) * 64 * kRowBytes + (kk & 3) * 32;
+    wgmma_ss(acc, sw128_desc(a + off, 16), sw128_desc(b + off, 16));
+  }
+  wgmma_commit();
+  wgmma_wait_all();
+  fence_acc(acc);
 }
 
-template <int BKT>
-__global__ void __launch_bounds__(kThreads)
+// delta = sum_d dO[d] * o[d] in fp32 of the thread's two rows (0 unless
+// `ok`), by the four lanes of a quad: lane `quad` takes the 16-byte groups
+// quad, quad + 4, ... of both rows (`vec`: all its loads issued before the
+// first multiply) or the columns quad, quad + 4, ..., then two shuffles.
+template <int DP>
+__device__ __forceinline__ void quad_row_dots(float (&delta)[2], const bf16* __restrict__ dout,
+                                              const bf16* __restrict__ o, const size_t (&at)[2],
+                                              const bool (&ok)[2], int D, bool vec, int quad) {
+  constexpr int G = DP / 32;  // 16-byte groups of a row a lane takes
+  if (vec) {
+    uint4 a[2][G], b[2][G];
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+#pragma unroll
+      for (int j = 0; j < G; ++j) {
+        const int col = 8 * (4 * j + quad);
+        const bool in = ok[r] && col < D;
+        a[r][j] = in ? __ldg(reinterpret_cast<const uint4*>(dout + at[r] + col)) : make_uint4(0, 0, 0, 0);
+        b[r][j] = in ? __ldg(reinterpret_cast<const uint4*>(o + at[r] + col)) : make_uint4(0, 0, 0, 0);
+      }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float acc = 0.0f;
+#pragma unroll
+      for (int j = 0; j < G; ++j) {
+        const uint32_t x[4] = {a[r][j].x, a[r][j].y, a[r][j].z, a[r][j].w};
+        const uint32_t y[4] = {b[r][j].x, b[r][j].y, b[r][j].z, b[r][j].w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {  // a bf16's float is its bits in the high half
+          acc += __uint_as_float(x[e] << 16) * __uint_as_float(y[e] << 16);
+          acc += __uint_as_float(x[e] & 0xffff0000u) * __uint_as_float(y[e] & 0xffff0000u);
+        }
+      }
+      delta[r] = acc;
+    }
+  } else {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float acc = 0.0f;
+      if (ok[r])
+        for (int d = quad; d < D; d += 4)
+          acc += __bfloat162float(dout[at[r] + d]) * __bfloat162float(o[at[r] + d]);
+      delta[r] = acc;
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    delta[r] += __shfl_xor_sync(0xffffffffu, delta[r], 1);
+    delta[r] += __shfl_xor_sync(0xffffffffu, delta[r], 2);
+  }
+}
+
+template <int DP>
+__global__ void __launch_bounds__(kWsThreads, 1)
 flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const bf16* __restrict__ v, const bf16* __restrict__ o,
                     const bf16* __restrict__ dout, const float* __restrict__ lse,
-                    bf16* __restrict__ dq, int T, int NH, int D, int DP, float scale, float clip) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* qs = reinterpret_cast<bf16*>(smem_raw);  // [BQ][DP]
-  bf16* dos = qs + BQ * DP;                       // [BQ][DP] dO
-  bf16* ks = dos + BQ * DP;                       // [BKT][DP]
-  bf16* vs = ks + BKT * DP;                       // [BKT][DP]
-  bf16* dss = vs + BKT * DP;                      // [BQ][BKT] dS, bf16
-  float* ss = reinterpret_cast<float*>(dss + BQ * BKT);  // [BQ][BKT] S
-  float* dps = ss + BQ * BKT;                     // [BQ][BKT] dP
-  float* acc_s = dps + BQ * BKT;                  // [BQ][DP] dQ accumulator
-  float* lse_s = acc_s + BQ * DP;                 // [BQ]
-  float* delta_s = lse_s + BQ;                    // [BQ]
-
-  constexpr int CPL = BKT / 4;  // score columns of each of a row's 4 lanes
+                    bf16* __restrict__ dq, int T, int NH, int D, float scale, float clip,
+                    int vec) {
+  using L = DqTiles<DP>;
+  constexpr int S = L::kStages, NC = DP / kChunk;
+  extern __shared__ __align__(1024) unsigned char smem_ws[];
+  const uint32_t raw = shared_address(smem_ws);
+  const uint32_t sq = (raw + 1023) & ~1023u, sdo = sq + L::kTile;  // [NC][64 rows][64]
+  const uint32_t skv = sdo + L::kTile;  // stage s: k tile at skv + 2 s kTile, v tile after it
+  const uint32_t sx = skv + 2 * L::kTile * S;
+  const uint32_t bars = sx + L::kX;
+  float* xbuf = reinterpret_cast<float*>(smem_ws + (sx - raw));  // [32][128]
   const int bh = blockIdx.y, b = bh / NH, h = bh % NH;
-  const int q0 = blockIdx.x * BQ;
-  const int tid = threadIdx.x, warp = tid / 32;
-  const int nt = DP / 16;
+  const int q0 = blockIdx.x * kDqRows;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int nk = (T + BK - 1) / BK;
+  const size_t head = ((size_t)b * T * NH + h) * D, stride = (size_t)NH * D;
+  init_ring(bars, S);
 
-  load_tile(qs, q, b, h, q0, BQ, T, NH, D, DP);
-  load_tile(dos, dout, b, h, q0, BQ, T, NH, D, DP);
-  for (int e = tid; e < BQ * DP; e += kThreads) acc_s[e] = 0.0f;
-  for (int r = tid; r < BQ; r += kThreads) lse_s[r] = q0 + r < T ? lse[(size_t)bh * T + q0 + r] : 0.0f;
-  __syncthreads();
-  row_delta(delta_s, dos, o, b, h, q0, BQ, T, NH, D, DP);  // read after the loop's first barrier
+  if (threadIdx.x >= kConsumers) {  // the producer warpgroup
+    const int pt = threadIdx.x - kConsumers;
+    load_sw128<DP, kDqRows>(sq, q + head, stride, q0, T, D, vec, pt);
+    load_sw128<DP, kDqRows>(sdo, dout + head, stride, q0, T, D, vec, pt);
+    stage_issued(bars, vec);
+    for (int i = 0; i < nk; ++i) {
+      const int s = i % S;
+      if (i >= S) mbar_wait(bars + 8 * (1 + S + s), (i / S - 1) & 1);
+      const uint32_t ks = skv + 2 * L::kTile * s;
+      load_sw128<DP, BK>(ks, k + head, stride, i * BK, T, D, vec, pt);
+      load_sw128<DP, BK>(ks + L::kTile, v + head, stride, i * BK, T, D, vec, pt);
+      stage_issued(bars + 8 * (1 + s), vec);
+    }
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    return;
+  }
 
-  const int srow = tid / 4, spart = tid % 4;
-  for (int k0 = 0; k0 < T; k0 += BKT) {
-    load_tile(ks, k, b, h, k0, BKT, T, NH, D, DP);
-    load_tile(vs, v, b, h, k0, BKT, T, NH, D, DP);
-    __syncthreads();
+  // Warpgroup 0: S = Q K^T and the gated p; warpgroup 1: dP = dO V^T, dS and
+  // dQ += dS K. This thread's query rows q0 + row and q0 + row + 8, key
+  // columns 8 j + 2 quad (+1) of the tile.
+  const int wg = warp / 4, tid = threadIdx.x % 128;
+  const int row = 16 * (warp % 4) + lane / 4, quad = lane % 4;
+  const bool row_ok[2] = {q0 + row < T, q0 + row + 8 < T};
 
-    // S = q k^T and dP = dO v^T
-    product_abt(ss, BKT, qs, ks, BQ, BKT, DP, warp, kWarps);
-    product_abt(dps, BKT, dos, vs, BQ, BKT, DP, warp, kWarps);
-    __syncthreads();
-
-    // dS, gated on the pre-clip z, 0 at keys >= T
-    {
-      const float lse_r = lse_s[srow], delta_r = delta_s[srow];
+  if (wg == 0) {
+    float lse_r[2];
 #pragma unroll
-      for (int c = 0; c < CPL; ++c) {
-        const int col = spart * CPL + c, idx = srow * BKT + col;
-        const float z = ss[idx] * scale;
-        float ds = 0.0f;
-        if (k0 + col < T && z >= -clip && z <= clip)
-          ds = expf(z - lse_r) * (dps[idx] - delta_r) * scale;
-        dss[idx] = __float2bfloat16(ds);
-      }
-    }
-    __syncthreads();
+    for (int r = 0; r < 2; ++r) lse_r[r] = row_ok[r] ? lse[(size_t)bh * T + q0 + row + 8 * r] : 0.0f;
+    mbar_wait(bars, 0);
+    for (int i = 0; i < nk; ++i) {
+      const int s = i % S;
+      mbar_wait(bars + 8 * (1 + s), (i / S) & 1);
+      fence_proxy_async();
+      float sacc[32];
+      tile_product_abt<DP>(sacc, sq, skv + 2 * L::kTile * s);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(bars + 8 * (1 + S + s));  // this warp is done with the stage
 
-    // dQ += dS K: (BQ/16) x nt tiles over the warps
-    for (int tile = warp; tile < (BQ / 16) * nt; tile += kWarps) {
-      const int tr = tile / nt, tc = tile % nt;
-      FragC acc;
-      wmma::load_matrix_sync(acc, acc_s + tr * 16 * DP + tc * 16, DP, wmma::mem_row_major);
-      for (int kk = 0; kk < BKT / 16; ++kk) {
-        FragA fa;
-        FragB fb;
-        wmma::load_matrix_sync(fa, dss + tr * 16 * BKT + kk * 16, BKT);
-        wmma::load_matrix_sync(fb, ks + kk * 16 * DP + tc * 16, DP);
-        wmma::mma_sync(acc, fa, fb, acc);
+      // p gated on the pre-clip z (where it passes, clip(z) = z <= lse), 0 at
+      // keys >= T (only the last tile has any); __expf (ex2.approx, a few ulp
+      // on z - lse <= 0) in place of the accurate expf, whose extra
+      // instructions here held both warpgroups back
+      const bool tail = (i + 1) * BK > T;
+      if (i > 0) named_sync(2);  // warpgroup 1 has read the previous tile's
+#pragma unroll
+      for (int e = 0; e < 32; ++e) {
+        const float z = sacc[e] * scale;
+        float pg = 0.0f;
+        if ((!tail || i * BK + 8 * (e / 4) + 2 * quad + (e & 1) < T) && z >= -clip && z <= clip)
+          pg = __expf(z - lse_r[(e >> 1) & 1]);
+        xbuf[e * 128 + tid] = pg;
       }
-      wmma::store_matrix_sync(acc_s + tr * 16 * DP + tc * 16, acc, DP, wmma::mem_row_major);
+      named_arrive(1);
     }
-    __syncthreads();  // ks, vs, dss, acc_s settled before the next key tile
+    return;
   }
 
-  for (int e = tid; e < BQ * D; e += kThreads) {
-    const int r = e / D, d = e % D;
-    if (q0 + r < T) dq[(((size_t)b * T + q0 + r) * NH + h) * D + d] = __float2bfloat16(acc_s[r * DP + d]);
+  // warpgroup 1: delta of its two rows from o (read once), while the ring fills
+  float delta_r[2];
+  const size_t at[2] = {head + (size_t)(q0 + row) * stride, head + (size_t)(q0 + row + 8) * stride};
+  quad_row_dots<DP>(delta_r, dout, o, at, row_ok, D, vec, quad);
+  float acc[NC][32];
+#pragma unroll
+  for (int c = 0; c < NC; ++c)
+#pragma unroll
+    for (int e = 0; e < 32; ++e) acc[c][e] = 0.0f;
+  mbar_wait(bars, 0);
+
+  for (int i = 0; i < nk; ++i) {
+    const int s = i % S;
+    mbar_wait(bars + 8 * (1 + s), (i / S) & 1);
+    fence_proxy_async();
+    const uint32_t ks = skv + 2 * L::kTile * s;
+    float ds[32];
+    tile_product_abt<DP>(ds, sdo, ks + L::kTile);  // dP
+
+    named_sync(1);  // warpgroup 0's gated p of this tile is in xbuf
+#pragma unroll
+    for (int e = 0; e < 32; ++e) ds[e] = xbuf[e * 128 + tid] * (ds[e] - delta_r[(e >> 1) & 1]) * scale;
+    if (i + 1 < nk) named_arrive(2);
+    uint32_t fa[4][4];  // dS rounded to bf16, as the A operand
+    to_a_fragments(fa, ds);
+
+    // dQ += dS K, the k tile read MN-major (its rows are the product's K)
+    wgmma_fence();
+#pragma unroll
+    for (int c = 0; c < NC; ++c)
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+        wgmma_rs(acc[c], fa[kk],
+                 sw128_desc(ks + c * BK * kRowBytes + kk * 16 * kRowBytes, BK * kRowBytes));
+    wgmma_commit();
+    wgmma_wait_all();
+#pragma unroll
+    for (int c = 0; c < NC; ++c) fence_acc(acc[c]);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(bars + 8 * (1 + S + s));  // this warp is done with the stage
   }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+    if (row_ok[r])
+      store_row<NC>(dq + head + (size_t)(q0 + row + 8 * r) * stride, acc, r, 1.0f, quad, D, vec);
 }
+
 // ---------------------------------------------------------------------------
 // K4b (dK, dV), bf16, and its delta pre-pass
 // ---------------------------------------------------------------------------
 
 // delta[b, h, t] = sum_d dO[b, t, h, d] o[b, t, h, d] in fp32, one warp a row
-// (in K4a's order); rows are (b, t, h) in memory order, R = B * T * NH.
+// (warp_row_dot); rows are (b, t, h) in memory order, R = B * T * NH.
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_delta_kernel(const bf16* __restrict__ o, const bf16* __restrict__ dout,
                        float* __restrict__ delta, int R, int T, int NH, int D) {
@@ -1153,6 +1215,14 @@ int forward_bf16(const bf16* q, const bf16* k, const bf16* v, bf16* o, float* ls
 }
 
 template <int DP>
+int dq_bf16(const bf16* q, const bf16* k, const bf16* v, const bf16* o, const bf16* dout,
+            const float* lse, bf16* dq, int B, int T, int NH, int D, float scale, float clip,
+            int vec, void* stream) {
+  return launch(flash_bwd_dq_kernel<DP>, dim3((T + kDqRows - 1) / kDqRows, B * NH), kWsThreads,
+                DqTiles<DP>::kSmem, stream, q, k, v, o, dout, lse, dq, T, NH, D, scale, clip, vec);
+}
+
+template <int DP>
 int dkv_bf16(const bf16* q, const bf16* k, const bf16* v, const bf16* dout, const float* lse,
              const float* delta, bf16* dk, bf16* dv, int B, int T, int NH, int D, float scale,
              float clip, int vec, void* stream) {
@@ -1209,8 +1279,6 @@ int flash_attention_clamped_backward_dq(const void* q, const void* k, const void
                                         void* dq, int B, int T, int NH, int D, float scale,
                                         float clip, void* stream) {
   if (bad_shape(B, T, NH, D)) return cudaErrorInvalidValue;
-  const int DP = (D + 15) / 16 * 16;
-  const dim3 grid((T + BQ - 1) / BQ, B * NH);
   const auto* qp = static_cast<const bf16*>(q);
   const auto* kp = static_cast<const bf16*>(k);
   const auto* vp = static_cast<const bf16*>(v);
@@ -1218,11 +1286,13 @@ int flash_attention_clamped_backward_dq(const void* q, const void* k, const void
   const auto* gp = static_cast<const bf16*>(dout);
   const auto* lp = static_cast<const float*>(lse);
   auto* dqp = static_cast<bf16*>(dq);
-  if (smem_bytes_dq(64, DP) <= (size_t)kSmemLimit)
-    return launch(flash_bwd_dq_kernel<64>, grid, kThreads, smem_bytes_dq(64, DP), stream, qp, kp,
-                  vp, op, gp, lp, dqp, T, NH, D, DP, scale, clip);
-  return launch(flash_bwd_dq_kernel<32>, grid, kThreads, smem_bytes_dq(32, DP), stream, qp, kp, vp,
-                op, gp, lp, dqp, T, NH, D, DP, scale, clip);
+  const int vec = rows16(D, {q, k, v, o, dout, dq});
+  switch (padded_dim(D)) {
+    case 64: return dq_bf16<64>(qp, kp, vp, op, gp, lp, dqp, B, T, NH, D, scale, clip, vec, stream);
+    case 128: return dq_bf16<128>(qp, kp, vp, op, gp, lp, dqp, B, T, NH, D, scale, clip, vec, stream);
+    case 192: return dq_bf16<192>(qp, kp, vp, op, gp, lp, dqp, B, T, NH, D, scale, clip, vec, stream);
+    default: return dq_bf16<256>(qp, kp, vp, op, gp, lp, dqp, B, T, NH, D, scale, clip, vec, stream);
+  }
 }
 
 // K4b: dk, dv from q, k, v, o, dout (bf16) and lse (fp32). `delta` is

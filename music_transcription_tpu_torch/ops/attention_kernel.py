@@ -35,6 +35,7 @@ from music_transcription_tpu_torch.ops.precision import full_fp32, matmul_f32
 MAX_HEAD_DIM = 256  # the kernels' shared-memory tiles hold head_dim <= 256
 MAX_BATCH_HEADS = 65535  # B * H: the kernels' grids take one (batch, head) a row of blocks
 K3_KEY_TILE = 64  # keys a bf16 K3 stage holds
+K4A_KEY_TILE = 64  # keys a bf16 K4a stage holds
 K4B_QUERY_TILE = 64  # query rows a bf16 K4b stage holds
 _SUFFIX = {torch.bfloat16: "", torch.float32: "_f32"}  # of each launch function's name
 
@@ -145,6 +146,32 @@ def faulty_dkv_plain(q, k, v, o, do, lse, scale: float, clip_val: float = 10.0, 
     else:
         raise ValueError(f"unknown fault {fault!r}; one of {DKV_FAULTS}")
     return attention_clamped_bwd_plain(q, k, v, o, do, lse, scale, clip_val)[1:]
+
+
+DQ_FAULTS = ("skip_last_key_tile", "stale_key_stage")
+
+
+def faulty_dq_plain(q, k, v, o, do, lse, scale: float, clip_val: float = 10.0, *, fault: str):
+    """What K4a would give with a broken key ring, dq of the plain backward:
+    "skip_last_key_tile" leaves out the keys past the last whole tile of
+    ``K4A_KEY_TILE`` (the partial tail); "stale_key_stage" gives key tile
+    ``nk // 2`` the k and v of the tile before it. For showing that K4a's
+    tolerance catches either."""
+    t, tile = k.shape[1], K4A_KEY_TILE
+    if fault == "skip_last_key_tile":
+        kept = t // tile * tile
+        k, v = k[:, :kept], v[:, :kept]
+    elif fault == "stale_key_stage":
+        j = -(-t // tile) // 2
+        if j < 1:
+            raise ValueError(f"a stale stage needs two key tiles of {tile}, T={t}")
+        n = min((j + 1) * tile, t) - j * tile
+        k, v = k.clone(), v.clone()
+        for x in (k, v):
+            x[:, j * tile:j * tile + n] = x[:, (j - 1) * tile:(j - 1) * tile + n]
+    else:
+        raise ValueError(f"unknown fault {fault!r}; one of {DQ_FAULTS}")
+    return attention_clamped_bwd_plain(q, k, v, o, do, lse, scale, clip_val)[0]
 
 
 def _check(name, *tensors):

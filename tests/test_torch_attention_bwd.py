@@ -214,6 +214,25 @@ def test_faulty_dkv_plain_fails_where_plain_passes(fault, t):
     assert max(np.abs(f.numpy() - r).max() for f, r in zip(faulty, ref)) > 100 * GRAD_FP32_TOL
 
 
+@pytest.mark.parametrize("fault,t", [("skip_last_key_tile", 37), ("skip_last_key_tile", 130),
+                                     ("stale_key_stage", 130)])
+def test_faulty_dq_plain_fails_where_plain_passes(fault, t):
+    """K4a's ring faults: dq far outside the tolerance that the plain backward
+    meets against JAX's VJP (at T=37 the only key tile is partial, so skipping
+    it leaves nothing)."""
+    q, k, v, do = _small_inputs(t, seed=t + 13)
+    scale = D_SMALL**-0.5
+    args = [jnp.asarray(x) for x in (q, k, v)]
+    _, vjp = jax.vjp(lambda a, b_, c: j_flash(a, b_, c, scale=scale), *args)
+    ref = np.asarray(vjp(jnp.asarray(do))[0])
+    tq, tk, tv, tdo = map(torch.from_numpy, (q, k, v, do))
+    o, lse = AK.attention_clamped_fwd_plain(tq, tk, tv, scale)
+    plain = AK.attention_clamped_bwd_plain(tq, tk, tv, o, tdo, lse, scale)[0]
+    faulty = AK.faulty_dq_plain(tq, tk, tv, o, tdo, lse, scale, fault=fault)
+    assert np.abs(plain.numpy() - ref).max() < GRAD_FP32_TOL
+    assert np.abs(faulty.numpy() - ref).max() > 100 * GRAD_FP32_TOL
+
+
 def test_delta_plain_matches_jax_recompute():
     """K4b's pre-pass, delta = rowsum(dO o), against the delta inside
     ``_recompute_p_ds``: with v = 0, k = 0, lse = 0, scale 1 and no clamp,

@@ -259,9 +259,9 @@ def test_flash_kernel_matches_plain(cuda, b, t, nh, d, dtype):
 
 @pytest.mark.parametrize("b,t,nh,d", [(2, 257, 4, 192), (1, 70, 1, 18)])
 def test_flash_kernels_repeat_bit_identical(cuda, b, t, nh, d):
-    """K3 (without and with lse) and K4b, whose tiles stream through a ring
-    of shared-memory stages, launched 5 times on the same inputs: the same
-    bits every time (a stage read before it is refilled shows as a
+    """K3 (without and with lse), K4a and K4b, whose tiles stream through a
+    ring of shared-memory stages, launched 5 times on the same inputs: the
+    same bits every time (a stage read before it is refilled shows as a
     difference)."""
     rng = np.random.default_rng(t + d + 2)
     q, k, v, do = (torch.from_numpy((m * rng.standard_normal((b, t, nh, d))).astype(np.float32))
@@ -273,18 +273,20 @@ def test_flash_kernels_repeat_bit_identical(cuda, b, t, nh, d):
         first = call()
         assert all(all(torch.equal(x, y) for x, y in zip(call(), first)) for _ in range(4))
     o, lse = AK.attention_clamped_fwd_plain(q, k, v, scale)
-    first = AK.flash_attention_clamped_dkv(q, k, v, o, do, lse, scale)
-    for _ in range(4):
-        again = AK.flash_attention_clamped_dkv(q, k, v, o, do, lse, scale)
-        assert all(torch.equal(x, y) for x, y in zip(again, first))
+    for call in (lambda: (AK.flash_attention_clamped_dq(q, k, v, o, do, lse, scale),),
+                 lambda: AK.flash_attention_clamped_dkv(q, k, v, o, do, lse, scale)):
+        first = call()
+        for _ in range(4):
+            again = call()
+            assert all(torch.equal(x, y) for x, y in zip(again, first))
 
 
 def test_flash_wrappers_raise_on_shapes_the_kernels_do_not_take(cuda):
     """head_dim past 256 (the kernels' shared-memory tiles) and more than
     65535 (batch, head) pairs (the grids' second dimension): ValueError from
-    K3, K3 with lse and K4b in bf16, and no launch counted."""
+    K3, K3 with lse, K4a and K4b in bf16, and no launch counted."""
     counters = (AK.flash_attention_clamped, AK.flash_attention_clamped_fwd,
-                AK.flash_attention_clamped_dkv)
+                AK.flash_attention_clamped_dq, AK.flash_attention_clamped_dkv)
     before = [c.launches for c in counters]
     for shape in ((1, 4, 1, 264), (8193, 1, 8, 8)):
         x = torch.zeros(shape, device=cuda, dtype=torch.bfloat16)
@@ -293,6 +295,8 @@ def test_flash_wrappers_raise_on_shapes_the_kernels_do_not_take(cuda):
             AK.flash_attention_clamped(x, x, x, 1.0)
         with pytest.raises(ValueError):
             AK.flash_attention_clamped_fwd(x, x, x, 1.0)
+        with pytest.raises(ValueError):
+            AK.flash_attention_clamped_dq(x, x, x, x, x, lse, 1.0)
         with pytest.raises(ValueError):
             AK.flash_attention_clamped_dkv(x, x, x, x, x, lse, 1.0)
     assert [c.launches for c in counters] == before
