@@ -36,15 +36,18 @@ Phases, in order; any failure exits non-zero:
      channels left out), each of which must fail the bound; the same for K6
      (a whole residual block) at res_block1 + pool (32->64, F=160) and
      res_block2 (64->128, F=80), and at a seeded ResidualBlock(64, 64) (the
-     identity skip), with four faulty outputs (h1 not zeroed outside the
-     tensor, the skip read one column off, shifted pool pairs, one tap of
-     conv2 left out); time each kernel, its plain version and the model's own
-     eager stage or block (cuDNN) with CUDA events, and print their device
-     time under torch.profiler beside them; then run the model's inference
-     CNN front end (CNNRNNLarge.cnn_features) with both ConvBNRelu stages
-     through K5 and both residual blocks through K6 against the model's own:
-     exactly 2 K5 and 2 K6 launches. The device memory held before and after
-     the phase is printed;
+     identity skip), each launched 5 times with bit-identical outputs, with
+     seven faulty outputs (h1 not zeroed outside the tensor, the skip read
+     one column off, shifted pool pairs, one tap of conv2 left out, a stale
+     weight stage, the walk's h1 row ring one step off, a segment border's
+     h1 rows not computed again); time each kernel, its plain version and
+     the model's own eager stage or block (cuDNN) with CUDA events, print
+     their device time under torch.profiler beside them, and K6's executed
+     over its useful work and its rates beside the bound; then run the
+     model's inference CNN front end (CNNRNNLarge.cnn_features) with both
+     ConvBNRelu stages through K5 and both residual blocks through K6
+     against the model's own: exactly 2 K5 and 2 K6 launches. The device
+     memory held before and after the phase is printed;
   5. hold the training kernels against their plain versions at the training
      shapes and time them: K2a and K2b (batch 24: 2B=48, T=938, H=512 and
      256) beside cuDNN's bidirectional LSTM forward and backward and the
@@ -727,31 +730,39 @@ K6_BLOCKS = (("res_block1", 32, 160, True), ("res_block2", 64, 80, False))  # (m
 
 def hold_k6(torch, ck, x, block, pool: bool, name: str):
     """K6 on ``block`` (a port ResidualBlock on the card) and ``x`` against its
-    plain version, to ``ck.k6_score``'s bound, with the scores of the faulty
-    outputs ``ck.faulty_plain_k6`` builds, each of which must fail it.
-    Returns (args, max |err|, text); raises on a failure."""
+    plain version, to ``ck.k6_score``'s bound, launched REPEATS times with
+    bit-identical outputs, with the scores of the faulty outputs
+    ``ck.faulty_plain_k6`` builds (the walk's on the segments K6 takes on this
+    card), each of which must fail it. Returns (args, max |err|, fault
+    scores, bits repeat, text); raises on a failure."""
     args = (x, *ck.res_block_args(block))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    b, c_in, f, t = x.shape
     with torch.no_grad():
         got = ck.fused_res_block(*args, pool=pool)
         ref = ck.fused_res_block_plain(*args, pool=pool)
         torch.cuda.synchronize()
+        same_bits = repeats_identical(torch, lambda: ck.fused_res_block(*args, pool=pool), got)
         score = ck.k6_score(got, ref, args, pool=pool)
-        faults = {k: ck.k6_score(ck.faulty_plain_k6(args, k, pool=pool), ref, args, pool=pool)
+        faults = {k: ck.k6_score(ck.faulty_plain_k6(args, k, pool=pool, sms=sms), ref, args,
+                                 pool=pool)
                   for k in ck.FAULTS_K6}
-    b, c_in, f, t = x.shape
     c_out = block.conv2.out_channels
     err = float((got.float() - ref.float()).abs().max())
     same = float((got == ref).float().mean())
-    ok = (score <= 1.0 and all(v > 1.0 for v in faults.values())
+    seg = ck.k6_device_segment_rows(b, f, t)
+    ok = (score <= 1.0 and all(v > 1.0 for v in faults.values()) and same_bits
+          and seg == ck.k6_segment_rows(b, f, t, sms)
           and got.shape == (b, c_out, f // 2 if pool else f, t)
           and bool(torch.isfinite(got.float()).all()))
     text = (f"K6 {name}{'+pool' if pool else ''} B={b} C {c_in}->{c_out} F={f} T={t} "
-            f"({'1x1 skip' if block.skip is not None else 'identity skip'}): max_abs_err={err:.3e}, "
-            f"bit-identical {same:.6f}, worst |err|/bound {score:.3f} (faults: "
+            f"({'1x1 skip' if block.skip is not None else 'identity skip'}, segments of {seg} "
+            f"rows): max_abs_err={err:.3e}, bit-identical to the plain version {same:.6f}, "
+            f"{REPEATS} launches bit-identical={same_bits}, worst |err|/bound {score:.3f} (faults: "
             + ", ".join(f"{k} {v:.1f}" for k, v in faults.items()) + ")")
     if not ok:
         raise AssertionError(text + " FAIL")
-    return args, err, text
+    return args, err, faults, same_bits, text
 
 
 def check_k6(torch, ck, model, rows):
@@ -759,28 +770,41 @@ def check_k6(torch, ck, model, rows):
     blocks (B=4, T=938; res_block1 with the pool that follows it) on
     ``model``'s weights, and at a seeded ResidualBlock(64, 64), the identity
     skip, at B=4, F=80; K6, its plain version and the model's own eager block
-    (cuDNN bf16 convs + elementwise passes, + pool) timed as K5's stages.
-    Returns the record of the two blocks together, as the front end launches
-    them."""
+    (cuDNN bf16 convs + elementwise passes, + pool) timed as K5's stages,
+    with the work K6 executes (``ck.k6_work``) over the work the block needs
+    and the rates of both. Returns the record of the two blocks together, as
+    the front end launches them."""
     from music_transcription_tpu_torch.models import cnn_rnn
 
     rng = np.random.default_rng(SEED + 12)
     bounds = conv_stage_bounds()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     total = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0, flops=0.0, nbytes=0.0)
+    fault_scores, repeats = {}, True
     for name, c_in, f, pool in K6_BLOCKS:
         block = getattr(model, name)
         x = torch.from_numpy(rng.standard_normal((4, c_in, f, 938)).astype(np.float32)).to(
             "cuda", torch.bfloat16)
-        args, err, text = hold_k6(torch, ck, x, block, pool, name)
+        args, err, faults, same_bits, text = hold_k6(torch, ck, x, block, pool, name)
+        label = f"{name}{'+pool' if pool else ''}"
+        fault_scores[label], repeats = faults, repeats and same_bits
         with torch.no_grad():
             (ms, plain_ms, lib_ms), (dev_ms, dev_plain_ms, dev_lib_ms) = time_kernel_plain_model(
                 torch, lambda: ck.fused_res_block(*args, pool=pool),
                 lambda: ck.fused_res_block_plain(*args, pool=pool),
                 lambda: cnn_rnn._res_block(x, block, torch.bfloat16, pool))
-        flops, nbytes, b_ms, b_by = bounds[f"K6 {name}{'+pool' if pool else ''}"]
+        flops, nbytes, b_ms, b_by = bounds[f"K6 {label}"]
+        work = ck.k6_work(4, c_in, block.conv1.out_channels, block.conv2.out_channels, f, 938,
+                          block.skip is not None, sms)
         rows.append(text + f"; ms={ms:.4f} plain_ms={plain_ms:.3f} model_block_ms={lib_ms:.4f} "
                     f"(device time under torch.profiler: {dev_ms:.4f} / {dev_plain_ms:.3f} / "
-                    f"{dev_lib_ms:.4f}) bound_ms={b_ms:.4f} ({b_by}) ok")
+                    f"{dev_lib_ms:.4f}) bound_ms={b_ms:.4f} ({b_by}); executed / useful work: "
+                    f"conv1 {work['conv1_executed'] / work['conv1_useful']:.4f}, block "
+                    f"{work['executed'] / work['useful']:.4f}; TFLOP/s useful "
+                    f"{flops / ms / 1e9:.1f}"
+                    f" (device time {flops / dev_ms / 1e9:.1f}), executed "
+                    f"{work['executed'] / dev_ms / 1e9:.1f} (device time), at the bound "
+                    f"{flops / b_ms / 1e9:.1f} ok")
         for key, v in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", lib_ms),
                        ("flops", flops), ("nbytes", nbytes)):
             total[key] += v
@@ -792,9 +816,12 @@ def check_k6(torch, ck, model, rows):
     identity.cuda().eval()
     x = torch.from_numpy(rng.standard_normal((4, 64, 80, 938)).astype(np.float32)).to(
         "cuda", torch.bfloat16)
-    rows.append(hold_k6(torch, ck, x, identity, False, "ResidualBlock(64, 64)")[2] + " ok")
+    _, _, faults, same_bits, text = hold_k6(torch, ck, x, identity, False, "ResidualBlock(64, 64)")
+    fault_scores["ResidualBlock(64, 64)"], repeats = faults, repeats and same_bits
+    rows.append(text + " ok")
     b_ms, b_by = bound(total.pop("flops"), PEAK_BF16, total.pop("nbytes"))
-    return dict(total, bound_ms=b_ms, bound_by=b_by)
+    return dict(total, bound_ms=b_ms, bound_by=b_by, repeats_identical=repeats,
+                fault_scores=fault_scores)
 
 
 def conv_phase(torch, ck, model, card):

@@ -1,5 +1,5 @@
 // Fused inference ResidualBlock [+ (2,1) max-pool over frequency] on the H100: K6.
-// bf16 in / bf16 out, one launch per block call.
+// bf16 in / bf16 out; a block call launches the weight packing, then K6.
 //
 // Replaces music_transcription_tpu/ops/conv_pallas.py:
 //   K6  fused_res_block -> _res_block_kernel
@@ -25,39 +25,51 @@
 // (B=4, T=938): res_block1 (C 32->64, F=160, pool) does 68.85 GFLOP on 77.0 MB,
 // res_block2 (C 64->128, F=80) 137.70 GFLOP on 115.7 MB: operations, 0.070
 // and 0.139 ms at the 989 TFLOP/s bf16 tensor-core rate. h1 never goes to
-// device memory.
+// device memory. A block must also read the weights: res_block2's 448 KiB do
+// not fit in shared memory, so they stream from L2 once for every step of the
+// walk below (1.17 GB a call at 2 output rows a step).
 //
-// Design. A block takes an output tile of FR = 2 rows (one pool pair) x
-// TM = 62 columns, all output channels, and holds in shared memory:
-//   * the x window, rows f0-2 .. f0+3 and columns t0-2 .. t0+63 (6 x 66
-//     pixels), all C_in channels, zeros outside the tensor;
-//   * the h1 tile, rows f0-1 .. f0+2 and columns t0-1 .. t0+62 (4 x 64
-//     pixels, stored with a row stride of 66 whose last two columns are
-//     zero), all C_mid channels, since conv2 contracts over all of them;
-//   * one chunk of weights: 9 taps x 64 output channels x 16 input channels.
-// Both pixel tiles are channel-innermost in chunks of 16 channels ([chunk]
-// [pixel][16], 32 bytes a pixel, the two 16-byte halves swapped in rows 4-7
-// of every 8 so that an ldmatrix phase falls on distinct banks: tile_mma.cuh,
-// shared with K5). So every product is an implicit GEMM on the tensor cores
-// (ldmatrix + mma.sync m16n8k16 bf16, fp32 accumulators in registers) whose A
-// operand is read in place: the lane's pixel address moved by the tap.
-//   1. conv1 over the 4 x 64 h1 pixels (16 m16 fragments, 4 a warp), 64
-//      channels of C_mid at a time, over chunks of 16 input channels; its
-//      epilogue writes bf16 h1 into shared memory, zero at every row and
-//      column outside the tensor (a value computed there from the zero-padded
-//      x is not zero: o1, then ReLU).
-//   2. conv2 over the 2 x 64 output pixels (the last 2 columns of each row
-//      are computed and dropped), 64 output channels at a time, over chunks
-//      of 16 h1 channels; the 1x1 skip reads the centre of the staged x
-//      window into accumulators of its own (or the identity reads x there);
-//      the epilogue (both affines, the sum, ReLU, bf16) writes the tile to
-//      shared memory over the weight chunk, and the threads store it along T
-//      (coalesced), taking the max of each row pair with pool.
-// The h1 halo rows are computed by both neighbouring tiles: conv1 runs over
-// 4 rows for 2 output rows, some 33% more operations than the block needs
-// (res_block2: conv1 over 256 pixels and conv2 over 128 per tile, about equal),
-// plus 2 dropped columns in 64. The weights are staged by cp.async and
-// waited for: no pipelining.
+// Design (Hopper). A block owns a strip of TM = 62 output columns of one
+// image over a segment of output rows, and walks down the segment in steps
+// of 2 output rows (one pool pair). It keeps in shared memory, every pixel
+// channel-innermost in chunks of 16 channels ([chunk][pixel][16], 32 bytes a
+// pixel, the two 16-byte halves swapped in rows 4-7 of every 8: tile_mma.cuh's
+// layout, which is wgmma's 32-byte swizzle):
+//   * a ring of x rows f-2 .. f+3 (6 rows of 66 pixels, columns t0-2 ..
+//     t0+63), zeros outside the tensor;
+//   * a ring of h1 rows f-1 .. f+2 (4 rows of 64 pixels, columns t0-1 ..
+//     t0+62, a row stride of 66 whose last two columns stay zero), zeros
+//     outside the tensor (a value computed there from the zero-padded x is
+//     not zero: o1, then ReLU);
+//   * the per-channel affines, a float4 each;
+//   * the weights in chunks of one 16-channel input chunk x all 9 taps x 64
+//     output channels (18 KB; the skip's chunk holds up to 9 input chunks):
+//     resident when all of a step's chunks fit beside the rings (res_block1:
+//     112 KiB, loaded once a block), else a ring of stages with a full and an
+//     empty mbarrier each (res_block2: 26 chunks a step through 5 stages).
+//     The entry first packs every chunk, as a stage holds it, into scratch,
+//     so that one thread loads a stage with one bulk copy (TMA).
+// 384 threads in four roles: two consumer warpgroups; one warp whose first
+// lane issues the weights' bulk copies; three warps that gather the next x
+// rows (2-byte loads along T of 16 channels, packed into 32-byte pixel rows)
+// into a ring of 3 row pairs with full / empty mbarriers of their own.
+// A step of the walk: conv1 computes the 2 new h1 rows (M = 128 pixels, 64 a
+// consumer warpgroup); conv2 and the 1x1 skip the 2 output rows (M = 128: a
+// warpgroup takes 32 columns of both rows, so a pool pair is in one thread's
+// registers). The segment's first step also computes its 2 top h1 rows, so
+// conv1 computes 2 rows a segment again, not 2 of every 4. Every product is
+// wgmma m64n64k16 (bf16 in, fp32 accumulators in registers), A from
+// registers -- ldmatrix.x4 of each warp's 16 pixels, moved by the tap's
+// df * 66 + dt, gives exactly the A fragment -- and B a weight stage's
+// [tap][64][16] rows through a 32-byte-swizzle K-major descriptor; output
+// channels in groups of 64. Epilogues: conv1's writes bf16 h1 into its ring;
+// conv2's sums both affines, applies ReLU and bf16 (and the pool) and stores
+// along T from the registers. Two named barriers a step order the
+// warpgroups' h1 writes and reads. The segment height makes strips x B x
+// segments fill the SMs (res_block1 and res_block2 at B=4, T=938 on 132
+// SMs: 2 segments of 80 and 40 rows, 128 blocks), at least 8 rows. No
+// atomics: every output is summed in the same order in every launch and in
+// every segment layout.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -65,33 +77,79 @@
 #include <cstdint>
 
 #include "tile_mma.cuh"
+#include "warpgroup.cuh"
 
 using bf16 = __nv_bfloat16;
 
 namespace {
 
-constexpr int kThreads = 256;
 constexpr int kSmemLimit = 232448;  // bytes of shared memory a block may have
+constexpr int kConsumers = 256;     // two consumer warpgroups
+constexpr int kLoaders = 96;        // three warps gather the x rows
+constexpr int kThreads = kConsumers + 32 + kLoaders;  // and one warp loads the weights
 
-constexpr int FR = 2;           // output rows per tile (one pool pair)
-constexpr int TM = 62;          // output columns per tile
-constexpr int W = TM + 4;       // 66: the x window's width, the h1 tile's row stride
-constexpr int XPIX = (FR + 4) * W;  // x window pixels
-constexpr int HC = TM + 2;      // 64 h1 columns computed
-constexpr int HPIX = (FR + 2) * W;  // h1 tile pixels
-constexpr int OC = 64;          // output columns computed per row
-constexpr int NT = 64;          // output channels per N chunk
-constexpr int OBS = FR * OC + 8;  // row stride (bf16) of the [NT][FR x OC] output tile
-constexpr int WCHUNK = 9 * NT * CK;  // bf16 of one weight chunk
-static_assert(NT * OBS <= WCHUNK, "the output tile fits in the weight chunk");
+constexpr int TM = 62;                 // output columns of a strip
+constexpr int W = TM + 4;              // 66: pixels of a ring row
+constexpr int XROWS = 6, HROWS = 4;    // rows of the x and h1 rings
+constexpr int XPIX = XROWS * W, HPIX = HROWS * W;
+constexpr int NW = 64;                 // output channels of a product (n64)
+constexpr int PIX_BYTES = CK * 2;      // 32: one pixel's (or weight row's) 16 channels
+constexpr int TAP_BYTES = NW * PIX_BYTES;   // one tap's (or input chunk's) weight rows
+constexpr int CHUNK_BYTES = 9 * TAP_BYTES;  // a weight chunk, a ring stage
+constexpr int kMaxStages = 8;
+constexpr int kMinSegmentRows = 8;
 
-size_t smem_bytes(int C_in, int C_mid) {
-  return sizeof(bf16) * ((size_t)XPIX * C_in + (size_t)HPIX * C_mid + WCHUNK);
+// What a launch computes where, the same for every block (host-side plan).
+struct Plan {
+  int C_in, C_mid, C_out, F, T, pool, skip;
+  int seg_rows;   // output rows of a segment (even)
+  int g1, g2;     // groups of 64 channels of C_mid (conv1) and C_out
+  int nk1, nk2;   // 16-channel input chunks of conv1 (and the skip), conv2
+  int ns;         // skip chunks a group (up to 9 input chunks each), 0 without
+  int per_step;   // weight chunks a step: g1 nk1 + g2 (ns + nk2)
+  int stages;     // weight ring stages; 0: all of a step's chunks resident
+  // from the 1024-aligned base (x ring at 0): the h1 ring, the per-channel
+  // affines, the weights, the barriers
+  uint32_t h_off, prm_off, w_off, bar_off;
+};
+
+__device__ __forceinline__ uint32_t swizzled_bytes(int row, int h) {
+  return (uint32_t)(row * PIX_BYTES + 16 * (h ^ ((row >> 2) & 1)));
 }
 
-// Offset (bf16) of channel c of pixel `px` in a [chunk][pixels][16] tile.
-__device__ __forceinline__ int channel_at(int c, int px, int pixels) {
-  return (c / CK) * pixels * CK + swizzled(px, (c % CK) / 8) + c % 8;
+// wgmma's descriptor of a K-major B tile of 32-byte rows (16 bf16 of K) in
+// the 32-byte swizzle: 8-row groups 256 bytes apart. The tile's base is a
+// multiple of 256 bytes, so the swizzle's phase is 0.
+__device__ __forceinline__ uint64_t sw32_desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | (uint64_t)1 << 16 | (uint64_t)(256 >> 4) << 32 |
+         3ull << 62;
+}
+
+// d (64 x 64 fp32) += a (64 x 16 bf16 in registers, each warp's 16 rows in
+// the mma.sync m16n8k16 A layout) . b, b a K-major tile in shared memory.
+__device__ __forceinline__ void wgmma_rs_kmajor(float (&d)[32], const uint32_t (&a)[4],
+                                                uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WGMMA_D32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : WGMMA_ACC32(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// Keeps A fragments alive (unreused) until the products that read them
+// have completed.
+__device__ __forceinline__ void keep(const uint32_t (&a)[9][4]) {
+#pragma unroll
+  for (int t = 0; t < 9; ++t)
+    asm volatile("" ::"r"(a[t][0]), "r"(a[t][1]), "r"(a[t][2]), "r"(a[t][3]));
+}
+
+// Makes the compiler compute both values here, on every thread's path: an
+// accumulator read inside a branch of one thread's own would make ptxas
+// serialize the products (a warpgroup arrive in a divergent path).
+__device__ __forceinline__ void settle(float& a, float& b) {
+  asm volatile("" : "+f"(a), "+f"(b));
 }
 
 // + conv bias in fp32, one bf16 rounding, the BN affine in fp32 (rounded
@@ -101,236 +159,488 @@ __device__ __forceinline__ float bn_affine(float acc, float bias, float s, float
   return __fadd_rn(__fmul_rn(h, s), o);
 }
 
-// Stage the weight chunk of output channels n0 .. n0+NT-1 and input channels
-// k0 .. k0+15 of w (taps, C_n, C_k) as [tap][NT][16] (swizzled halves),
-// zeros past C_n, and wait for it.
-__device__ __forceinline__ void stage_weights(bf16* wsm, const bf16* __restrict__ w, int taps,
-                                              int C_n, int C_k, int n0, int k0) {
-  for (int e = threadIdx.x; e < taps * NT * 2; e += kThreads) {
-    const int row = e / 2, half = e % 2, tap = row / NT, n = row % NT;
-    const bool valid = n0 + n < C_n;
-    copy16_async(wsm + swizzled(row, half),
-                 valid ? w + ((size_t)tap * C_n + n0 + n) * C_k + k0 + 8 * half : w, valid);
-  }
-  wait_async_copies();
+__device__ __forceinline__ void zero(float (&acc)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = 0.0f;
 }
 
-// acc[i] += the KH x KW taps of the staged weight chunk (the warp's 32 output
-// channels: 4 n8 tiles) times the A operand of fragment i: 16 pixels of `src`
-// (a [pixels][16] chunk tile), the lane's at a_pix[i], moved by df * W + dt.
-template <int FM, int KH, int KW>
-__device__ __forceinline__ void mma_taps(float (&acc)[FM][4][4], const bf16* src,
-                                         const bf16* wsm, const int (&a_pix)[FM], int wn,
-                                         int lane) {
-  const int a_half = lane / 16;
-  // B: channels 0-7 halves 0, 1, then channels 8-15 halves 0, 1
-  const int b_row = (lane & 7) + ((lane >> 4) << 3), b_half = (lane >> 3) & 1;
+// acc += the products of `n` (<= 9) A operands with the weight chunk at `b`
+// ([n][64][16]): A number k at the lane's pixel px[k] of the [pixels][16]
+// tile at a_tile + k * a_stride. The 9 taps of a conv chunk share one tile;
+// the skip's input chunks are one tile each. `active` false: all of the
+// warpgroup's pixels lie past T, and it takes no part in the products.
+__device__ __forceinline__ void mma_chunk(float (&acc)[32], uint32_t a_tile, uint32_t a_stride,
+                                          const int (&px)[9], int n, uint32_t b, int half,
+                                          bool active) {
+  if (!active) return;
+  uint32_t a[9][4];
 #pragma unroll
-  for (int df = 0; df < KH; ++df) {
-#pragma unroll
-    for (int dt = 0; dt < KW; ++dt) {
-      const int tap = df * KW + dt;
-      unsigned b[2][4];
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        ldmatrix_x4(b[j], shared_address(wsm + swizzled(tap * NT + (wn * 2 + j) * 16 + b_row,
-                                                        b_half)));
-#pragma unroll
-      for (int i = 0; i < FM; ++i) {
-        unsigned a[4];
-        ldmatrix_x4(a, shared_address(src + swizzled(a_pix[i] + df * W + dt, a_half)));
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          mma_bf16(acc[i][2 * j], a, b[j][0], b[j][1]);
-          mma_bf16(acc[i][2 * j + 1], a, b[j][2], b[j][3]);
-        }
-      }
+  for (int k = 0; k < 9; ++k) {
+    if (k < n) {
+      ldmatrix_x4(a[k], a_tile + k * a_stride + swizzled_bytes(px[k], half));
+      wgmma_fence();
+      wgmma_rs_kmajor(acc, a[k], sw32_desc(b + k * TAP_BYTES));
     }
   }
+  wgmma_commit();
+  wgmma_wait_all();
+  fence_acc(acc);
+  keep(a);
 }
 
-template <int FM>
-__device__ __forceinline__ void zero(float (&acc)[FM][4][4]) {
-#pragma unroll
-  for (int i = 0; i < FM; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) acc[i][j][q] = 0.0f;
+// Weight chunk `c` of a step (its place in the step's order: conv1's g1 x
+// nk1, then for each group of 64 output channels the skip's ns and conv2's
+// nk2): its rows (taps, or the skip's input chunks, x 64 output channels),
+// and where row `row`'s 16-byte half `half` comes from in w1 / ws / w2
+// (taps, C_n, C_k); null past C_n.
+struct ChunkRow {
+  int rows;
+  const bf16* src;
+};
+__device__ __forceinline__ ChunkRow chunk_row(int c, int row, int half, const Plan& p,
+                                              const bf16* __restrict__ w1,
+                                              const bf16* __restrict__ w2,
+                                              const bf16* __restrict__ ws) {
+  const bf16* w;
+  int C_n, C_k, ng, k0, rows;
+  bool skip = false;  // rows are (input chunk, n); convs: (tap, n)
+  if (c < p.g1 * p.nk1) {
+    w = w1, C_n = p.C_mid, C_k = p.C_in, ng = c / p.nk1, k0 = (c % p.nk1) * CK, rows = 9 * NW;
+  } else {
+    const int r = c - p.g1 * p.nk1, per = p.ns + p.nk2, j = r % per;
+    ng = r / per;
+    if (j < p.ns) {
+      w = ws, C_n = p.C_out, C_k = p.C_in, k0 = j * 9 * CK, skip = true;
+      rows = (p.nk1 - j * 9 < 9 ? p.nk1 - j * 9 : 9) * NW;
+    } else {
+      w = w2, C_n = p.C_out, C_k = p.C_mid, k0 = (j - p.ns) * CK, rows = 9 * NW;
+    }
+  }
+  const int outer = row / NW, n = ng * NW + row % NW;
+  if (w == nullptr || row >= rows || n >= C_n) return {rows, nullptr};
+  return {rows, w + (skip ? (size_t)n * C_k + k0 + outer * CK + 8 * half
+                          : ((size_t)outer * C_n + n) * C_k + k0 + 8 * half)};
 }
 
-__global__ void __launch_bounds__(kThreads, 2)
-res_block_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
+// Every weight chunk of a step as a stage holds it ([tap or input chunk][64]
+// [16], 32-byte swizzle, zeros past C_n), chunk c at packed + c *
+// CHUNK_BYTES: what K6's bulk copies read. One block a chunk.
+__global__ void pack_weights_kernel(const bf16* __restrict__ w1, const bf16* __restrict__ w2,
+                                    const bf16* __restrict__ ws, unsigned char* __restrict__ packed,
+                                    const Plan p) {
+  const int c = blockIdx.x, rows = chunk_row(c, 0, 0, p, w1, w2, ws).rows;
+  for (int e = threadIdx.x; e < rows * 2; e += blockDim.x) {
+    const ChunkRow at = chunk_row(c, e / 2, e % 2, p, w1, w2, ws);
+    *reinterpret_cast<uint4*>(packed + (size_t)c * CHUNK_BYTES + swizzled_bytes(e / 2, e % 2)) =
+        at.src ? *reinterpret_cast<const uint4*>(at.src) : make_uint4(0, 0, 0, 0);
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+res_block_kernel(const bf16* __restrict__ x, const unsigned char* __restrict__ packed,
                  const float* __restrict__ b1, const float* __restrict__ s1,
-                 const float* __restrict__ o1, const bf16* __restrict__ w2,
-                 const float* __restrict__ b2, const float* __restrict__ s2,
-                 const float* __restrict__ o2, const bf16* __restrict__ ws,
+                 const float* __restrict__ o1, const float* __restrict__ b2,
+                 const float* __restrict__ s2, const float* __restrict__ o2,
                  const float* __restrict__ bs, const float* __restrict__ ss,
-                 const float* __restrict__ os, bf16* __restrict__ out, int C_in, int C_mid,
-                 int C_out, int F, int T, int pool) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* xs = reinterpret_cast<bf16*>(smem_raw);  // [C_in / 16][XPIX][16]
-  bf16* hs = xs + XPIX * C_in;                    // [C_mid / 16][HPIX][16]
-  bf16* wsm = hs + HPIX * C_mid;                  // [taps][NT][16], or the output tile
+                 const float* __restrict__ os, bf16* __restrict__ out, const Plan p) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* base = smem_raw + ((1024 - (shared_address(smem_raw) & 1023)) & 1023);
+  const uint32_t xs = shared_address(base);  // x ring: [nk1][XPIX][16]
+  const uint32_t hs = xs + p.h_off;          // h1 ring: [nk2][HPIX][16]
+  const uint32_t wsm = xs + p.w_off;         // weight stages, CHUNK_BYTES each
+  const bool resident = p.stages == 0;
+  const int nstage = resident ? p.per_step : p.stages;
+  // full[nstage], empty[nstage] (ring only), x_full[3], x_empty[3]
+  const uint32_t wfull = xs + p.bar_off, wempty = wfull + 8 * nstage,
+                 xfull = wempty + 8 * nstage, xempty = xfull + 24;
+  // per-channel affines: conv1 (b1, s1, o1), conv2 (b2, s2, o2), skip (bs, ss, os)
+  float4* prm1 = reinterpret_cast<float4*>(base + p.prm_off);
+  float4* prm2 = prm1 + p.C_mid;
+  float4* prms = prm2 + p.C_out;
 
-  const int t0 = blockIdx.x * TM, f0 = blockIdx.y * FR, b = blockIdx.z;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int wm = warp / 2, wn = warp % 2;  // 4 x 2 warps; a warp's 32 of NT channels
-  const int a_row = lane % 16;
-  // accumulator q of an m16n8 tile: pixel lane / 4 (+8 for q >= 2), channel
-  // 2 (lane % 4) (+1 for odd q)
-  const int g = lane / 4, c2 = 2 * (lane % 4);
+  const int t0 = blockIdx.x * TM, f0 = blockIdx.y * p.seg_rows, b = blockIdx.z;
+  const int steps = (p.F - f0 < p.seg_rows ? p.F - f0 : p.seg_rows) / 2;
+  // the warp's index as a value ptxas knows to be the same on all its lanes
+  // (else it cannot tell that the roles' branches, and the products in
+  // them, do not diverge, and serializes the products)
+  const int tid = threadIdx.x, warp = __shfl_sync(0xffffffffu, tid / 32, 0), lane = tid % 32;
 
-  // the x window, channel-innermost, zeros outside the tensor
-  for (int e = tid; e < (C_in / CK) * XPIX; e += kThreads) {
-    const int kc = e / XPIX, px = e % XPIX;
-    const int gr = f0 - 2 + px / W, gt = t0 - 2 + px % W;
-    uint32_t pk[CK / 2] = {};  // channel pairs, the lower channel in the low half
-    if (gr >= 0 && gr < F && gt >= 0 && gt < T) {
-      const bf16* src = x + (((size_t)b * C_in + kc * CK) * F + gr) * T + gt;
-#pragma unroll
-      for (int p = 0; p < CK / 2; ++p)
-        pk[p] = __bfloat16_as_ushort(src[(size_t)(2 * p) * F * T]) |
-                (uint32_t)__bfloat16_as_ushort(src[(size_t)(2 * p + 1) * F * T]) << 16;
+  if (tid == 0) {
+    for (int s = 0; s < nstage; ++s) {
+      mbar_init(wfull + 8 * s, 1);
+      mbar_init(wempty + 8 * s, 8);
     }
-    bf16* dst = xs + kc * XPIX * CK;
-    *reinterpret_cast<uint4*>(dst + swizzled(px, 0)) = make_uint4(pk[0], pk[1], pk[2], pk[3]);
-    *reinterpret_cast<uint4*>(dst + swizzled(px, 1)) = make_uint4(pk[4], pk[5], pk[6], pk[7]);
+    for (int s = 0; s < 3; ++s) {
+      mbar_init(xfull + 8 * s, kLoaders);
+      mbar_init(xempty + 8 * s, 8);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  // the h1 tile's last two columns of each row (read only for dropped outputs)
-  for (int e = tid; e < (C_mid / CK) * (FR + 2) * (W - HC) * 2; e += kThreads) {
-    const int half = e % 2, q = e / 2, per_chunk = (FR + 2) * (W - HC);
-    const int kc = q / per_chunk, r = (q % per_chunk) / (W - HC), col = HC + q % (W - HC);
-    *reinterpret_cast<uint4*>(hs + kc * HPIX * CK + swizzled(r * W + col, half)) =
+  for (int c = tid; c < p.C_mid + 2 * p.C_out; c += kThreads) {
+    if (c < p.C_mid) {
+      prm1[c] = make_float4(b1[c], s1[c], o1[c], 0.0f);
+    } else if (c < p.C_mid + p.C_out) {
+      const int k = c - p.C_mid;
+      prm2[k] = make_float4(b2[k], s2[k], o2[k], 0.0f);
+    } else if (p.skip) {
+      const int k = c - p.C_mid - p.C_out;
+      prms[k] = make_float4(bs[k], ss[k], os[k], 0.0f);
+    }
+  }
+  // the h1 ring's last two columns of each row (read only for dropped outputs)
+  for (int e = tid; e < p.nk2 * HROWS * (W - 64) * 2; e += kThreads) {
+    const int half = e % 2, q = e / 2, kc = q / (HROWS * (W - 64)), r = q % (HROWS * (W - 64));
+    *reinterpret_cast<uint4*>(base + p.h_off + kc * HPIX * PIX_BYTES +
+                              swizzled_bytes((r / (W - 64)) * W + 64 + r % (W - 64), half)) =
         make_uint4(0, 0, 0, 0);
   }
+  __syncthreads();
 
-  // 1. conv1 -> h1: warp wm takes h1 row wm, its 4 fragments of 16 columns
-  {
-    int a_pix[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) a_pix[i] = wm * W + i * 16 + a_row;
-    const int gr = f0 - 1 + wm;
-    const bool row_inside = gr >= 0 && gr < F;
-    for (int n0 = 0; n0 < C_mid; n0 += NT) {
-      float acc[4][4][4];
-      zero(acc);
-      for (int k0 = 0; k0 < C_in; k0 += CK) {
-        __syncthreads();  // the previous chunk is consumed (first: the tiles are written)
-        stage_weights(wsm, w1, 9, C_mid, C_in, n0, k0);
-        __syncthreads();
-        mma_taps<4, 3, 3>(acc, xs + (k0 / CK) * XPIX * CK, wsm, a_pix, wn, lane);
+  if (warp == kConsumers / 32) {  // the weight warp: one thread's bulk copies
+    if (lane == 0) {
+      const auto issue = [&](int c, int s) {
+        const uint32_t bar = wfull + 8 * s,
+                       bytes = chunk_row(c, 0, 0, p, nullptr, nullptr, nullptr).rows * PIX_BYTES;
+        asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+                     "r"(bytes)
+                     : "memory");
+        asm volatile(
+            "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, "
+            "[%3];\n" ::"r"(wsm + (uint32_t)s * CHUNK_BYTES),
+            "l"(packed + (size_t)c * CHUNK_BYTES), "r"(bytes), "r"(bar)
+            : "memory");
+      };
+      if (resident) {
+        for (int c = 0; c < p.per_step; ++c) issue(c, c);
+      } else {
+        const int first = p.g1 * p.nk1, total = first + steps * p.per_step;
+        for (int n = 0; n < total; ++n) {
+          const int s = n % p.stages;
+          if (n >= p.stages) mbar_wait(wempty + 8 * s, (n / p.stages - 1) & 1);
+          issue(n < first ? n : (n - first) % p.per_step, s);
+        }
       }
+    }
+    return;
+  }
+  if (warp > kConsumers / 32) {  // the x loaders: row pairs 0 .. steps + 1
+    const int lt = tid - kConsumers - 32;
+    const size_t plane = (size_t)p.F * p.T;
+    for (int pr = 0; pr < steps + 2; ++pr) {
+      const int slot = pr % 3;
+      if (pr >= 3) mbar_wait(xempty + 8 * slot, (pr / 3 - 1) & 1);
+      for (int e = lt; e < p.nk1 * 2 * W; e += kLoaders) {
+        const int kc = e / (2 * W), r = (e / W) % 2, px = e % W;
+        const int gr = f0 - 2 + 2 * pr + r, gt = t0 - 2 + px;
+        uint32_t pk[CK / 2] = {};  // channel pairs, the lower channel in the low half
+        if (gr >= 0 && gr < p.F && gt >= 0 && gt < p.T) {
+          const unsigned short* src = reinterpret_cast<const unsigned short*>(x) +
+                                      (((size_t)b * p.C_in + kc * CK) * p.F + gr) * p.T + gt;
+          unsigned short v[CK];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+          for (int ch = 0; ch < CK; ++ch) v[ch] = __ldg(src + ch * plane);
 #pragma unroll
-        for (int j = 0; j < 4; ++j)
+          for (int q = 0; q < CK / 2; ++q) pk[q] = v[2 * q] | (uint32_t)v[2 * q + 1] << 16;
+        }
+        unsigned char* dst = base + kc * XPIX * PIX_BYTES;
+        const int pix = (2 * slot + r) * W + px;
+        *reinterpret_cast<uint4*>(dst + swizzled_bytes(pix, 0)) =
+            make_uint4(pk[0], pk[1], pk[2], pk[3]);
+        *reinterpret_cast<uint4*>(dst + swizzled_bytes(pix, 1)) =
+            make_uint4(pk[4], pk[5], pk[6], pk[7]);
+      }
+      mbar_arrive(xfull + 8 * slot);
+    }
+    return;
+  }
+
+  // The consumers. Warpgroup wg takes columns wg * 32 .. + 31 of both rows
+  // of a step: warp wq of it columns cb .. cb + 7, its 16 M rows (row 0 of
+  // the pair at rows 0-7, row 1 at rows 8-15). This lane addresses M row mr
+  // for ldmatrix; its accumulators hold column cb + g of both rows,
+  // channels 8 j + 2 q, + 1 of the group (j = 0 .. 7).
+  const int wg = warp / 4, cb = wg * 32 + (warp % 4) * 8;
+  const int mr = lane % 16, jr = mr / 8, mc = cb + mr % 8, half = lane / 16;
+  const int g = lane / 4, q = lane % 4;
+  const int col = cb + g;                    // this thread's output (and h1) column
+  const bool act1 = t0 - 1 + wg * 32 < p.T;  // some h1 column of the warpgroup is inside
+  const bool act2 = t0 + wg * 32 < p.T;      // some output column is
+  int n_chunk = 0;                           // weight chunks consumed
+
+  const auto acquire = [&](int c) -> uint32_t {
+    const int s = resident ? c : n_chunk % p.stages;
+    mbar_wait(wfull + 8 * s, resident ? 0 : (n_chunk / p.stages) & 1);
+    return wsm + (uint32_t)s * CHUNK_BYTES;
+  };
+  const auto release = [&]() {
+    if (!resident && lane == 0) mbar_arrive(wempty + 8 * (n_chunk % p.stages));
+    ++n_chunk;
+  };
+  // the lane's A pixel of each tap, in a ring of `rows` rows whose local
+  // row r is in slot r % rows, for the pair of rows from local row0 + jr
+  const auto tap_pixels = [&](int (&px)[9], int row0, int rows) {
+#pragma unroll
+    for (int df = 0; df < 3; ++df)
+#pragma unroll
+      for (int dt = 0; dt < 3; ++dt) px[3 * df + dt] = ((row0 + jr + df) % rows) * W + mc + dt;
+  };
+
+  // conv1 -> h1 local rows hb, hb + 1 (global f0 - 1 + hb ..) from x local
+  // rows hb .. hb + 3. `order`: wait at the named barrier 1 before the
+  // first write (the other warpgroup is done reading the rows replaced).
+  const auto conv1 = [&](int hb, bool order) {
+    int px[9];
+    tap_pixels(px, hb, XROWS);
+    for (int ng = 0; ng < p.g1; ++ng) {
+      float acc[32];
+      zero(acc);
+      for (int kc = 0; kc < p.nk1; ++kc) {
+        mma_chunk(acc, xs + kc * XPIX * PIX_BYTES, 0, px, 9, acquire(ng * p.nk1 + kc), half,
+                  act1);
+        release();
+      }
+      if (order && ng == 0) asm volatile("bar.sync 1, 256;\n" ::: "memory");
+      // this thread's channels ng * 64 + 8 j + 2 q, + 1: in 16-channel
+      // chunk ng * 4 + j / 2, half j % 2, at byte 4 q of it
+      const float4* prm = prm1 + ng * NW + 2 * q;
+      const int nvalid = p.C_mid - ng * NW;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int hr = hb + h, gr = f0 - 1 + hr, gt = t0 - 1 + col;
+        const bool inside = gr >= 0 && gr < p.F && gt >= 0 && gt < p.T;
+        const int hpx = (hr % HROWS) * W + col;
+        unsigned char* at = base + p.h_off + ng * 4 * HPIX * PIX_BYTES + hpx * PIX_BYTES + 4 * q;
+        const int sw = (hpx >> 2) & 1;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float4 c0 = prm[8 * j], c1 = prm[8 * j + 1];
+          float v0 = fmaxf(bn_affine(acc[4 * j + 2 * h], c0.x, c0.y, c0.z), 0.0f);
+          float v1 = fmaxf(bn_affine(acc[4 * j + 2 * h + 1], c1.x, c1.y, c1.z), 0.0f);
+          settle(v0, v1);
+          if (8 * j < nvalid)
+            *reinterpret_cast<__nv_bfloat162*>(at + (j / 2) * HPIX * PIX_BYTES +
+                                               (((j & 1) ^ sw) << 4)) =
+                __floats2bfloat162_rn(inside ? v0 : 0.0f, inside ? v1 : 0.0f);
+        }
+      }
+    }
+  };
+
+  // the segment's top h1 rows, from x row pairs 0 and 1
+  mbar_wait(xfull, 0);
+  mbar_wait(xfull + 8, 0);
+  conv1(0, false);
+  __syncwarp();
+  if (lane == 0) mbar_arrive(xempty);
+
+  for (int i = 0; i < steps; ++i) {
+    const int pr = i + 2;  // the row pair conv1 needs next (pair i + 1 is in)
+    mbar_wait(xfull + 8 * (pr % 3), (pr / 3) & 1);
+    conv1(2 + 2 * i, true);
+    asm volatile("bar.sync 2, 256;\n" ::: "memory");  // both warpgroups' h1 rows written
+
+    // output local rows ob, ob + 1 (global f0 + ob ..): h1 local rows
+    // ob .. ob + 3, x local rows ob + 2, ob + 3 (row pair i + 1)
+    const int ob = 2 * i;
+    int px[9];
+    tap_pixels(px, ob, HROWS);
+    const int spx = ((ob + jr + 2) % XROWS) * W + mc + 2;  // the skip's, in every input chunk
+    const int skip_px[9] = {spx, spx, spx, spx, spx, spx, spx, spx, spx};
+    const int gt = t0 + col;
+    const bool store = col < TM && gt < p.T;
+    for (int ng = 0; ng < p.g2; ++ng) {
+      const int c0 = p.g1 * p.nk1 + ng * (p.ns + p.nk2);  // the group's first chunk
+      uint32_t skp[16];  // bf16(skip + bs) of both rows, channel pairs
+      if (p.skip) {
+        float acc[32];
+        zero(acc);
+        for (int j = 0; j < p.ns; ++j) {
+          const int kcs = p.nk1 - j * 9 < 9 ? p.nk1 - j * 9 : 9;
+          mma_chunk(acc, xs + j * 9 * XPIX * PIX_BYTES, XPIX * PIX_BYTES, skip_px, kcs,
+                    acquire(c0 + j), half, act2);
+          release();
+        }
+        const float4* prm = prms + ng * NW + 2 * q;
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
 #pragma unroll
           for (int h = 0; h < 2; ++h) {
-            const int n = n0 + wn * 32 + j * 8 + c2, col = i * 16 + g + 8 * h;
-            if (n >= C_mid) continue;
-            const int gt = t0 - 1 + col;
-            const bool inside = row_inside && gt >= 0 && gt < T;
-            float v0 = 0.0f, v1 = 0.0f;
-            if (inside) {
-              v0 = fmaxf(bn_affine(acc[i][j][2 * h], b1[n], s1[n], o1[n]), 0.0f);
-              v1 = fmaxf(bn_affine(acc[i][j][2 * h + 1], b1[n + 1], s1[n + 1], o1[n + 1]), 0.0f);
-            }
-            *reinterpret_cast<__nv_bfloat162*>(hs + channel_at(n, wm * W + col, HPIX)) =
-                __floats2bfloat162_rn(v0, v1);
+            const __nv_bfloat162 v =
+                __floats2bfloat162_rn(__fadd_rn(acc[4 * j + 2 * h], prm[8 * j].x),
+                                      __fadd_rn(acc[4 * j + 2 * h + 1], prm[8 * j + 1].x));
+            skp[2 * j + h] = *reinterpret_cast<const uint32_t*>(&v);
           }
-    }
-  }
-
-  // 2. conv2 + the skip -> out: warp wm takes output fragments 2 wm, 2 wm + 1
-  // (row mi / 4, columns 16 (mi % 4) ..)
-  int a_pix[2], s_pix[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int mi = wm * 2 + i, r = mi / 4, col = (mi % 4) * 16 + a_row;
-    a_pix[i] = r * W + col;            // h1 pixel (r + df, col + dt) at tap (df, dt)
-    s_pix[i] = (r + 2) * W + col + 2;  // the x pixel of output (r, col)
-  }
-  for (int n0 = 0; n0 < C_out; n0 += NT) {
-    float acc[2][4][4], accs[2][4][4];
-    zero(acc);
-    zero(accs);
-    for (int k0 = 0; k0 < C_mid; k0 += CK) {
-      __syncthreads();
-      stage_weights(wsm, w2, 9, C_out, C_mid, n0, k0);
-      __syncthreads();
-      mma_taps<2, 3, 3>(acc, hs + (k0 / CK) * HPIX * CK, wsm, a_pix, wn, lane);
-    }
-    if (ws != nullptr) {
-      for (int k0 = 0; k0 < C_in; k0 += CK) {
-        __syncthreads();
-        stage_weights(wsm, ws, 1, C_out, C_in, n0, k0);
-        __syncthreads();
-        mma_taps<2, 1, 1>(accs, xs + (k0 / CK) * XPIX * CK, wsm, s_pix, wn, lane);
       }
-    }
-    __syncthreads();  // the weight chunk is consumed: it takes the output tile
-    bf16* tile = wsm;  // [NT][OBS]: output row r at columns r * OC ..
+      float acc[32];
+      zero(acc);
+      for (int kc = 0; kc < p.nk2; ++kc) {
+        mma_chunk(acc, hs + kc * HPIX * PIX_BYTES, 0, px, 9, acquire(c0 + p.ns + kc), half,
+                  act2);
+        release();
+      }
+      // h2 + skip, ReLU, bf16 [and the pool's max], stored along T: every
+      // value first (accumulators are read outside any branch of this
+      // thread's own), then the stores of the columns inside the strip and
+      // the tensor. Channel 8 j + 2 q + e of the group is at a constant
+      // offset from this thread's first one in every table and tile.
+      const float4* pr2 = prm2 + ng * NW + 2 * q;
+      const float4* prs = prms + ng * NW + 2 * q;
+      const int nvalid = p.C_out - ng * NW;
+      const int rows_out = p.pool ? p.F / 2 : p.F;
+      const size_t plane = (size_t)rows_out * p.T;  // from one channel's output to the next
+      bf16* o_at = out + ((size_t)b * p.C_out + ng * NW + 2 * q) * plane +
+                   (size_t)(p.pool ? (f0 + ob) / 2 : f0 + ob) * p.T + gt;
 #pragma unroll
-    for (int i = 0; i < 2; ++i)
+      for (int j = 0; j < 8; ++j) {
+        float y[2][2];  // [channel 8 j + 2 q + e][row]
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
+        for (int e = 0; e < 2; ++e) {
+          const float4 c2 = pr2[8 * j + e], cs = prs[8 * j + e];
 #pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const int mi = wm * 2 + i, r = mi / 4, col = (mi % 4) * 16 + g + 8 * (q / 2);
-          const int nl = wn * 32 + j * 8 + c2 + q % 2, n = n0 + nl;
-          if (n >= C_out) continue;
-          const float h2 = bn_affine(acc[i][j][q], b2[n], s2[n], o2[n]);
-          const float sk =
-              ws != nullptr ? bn_affine(accs[i][j][q], bs[n], ss[n], os[n])
-                            : __bfloat162float(xs[channel_at(n, (r + 2) * W + col + 2, XPIX)]);
-          tile[nl * OBS + r * OC + col] = __float2bfloat16(fmaxf(__fadd_rn(h2, sk), 0.0f));
+          for (int h = 0; h < 2; ++h) {
+            const float h2 = bn_affine(acc[4 * j + 2 * h + e], c2.x, c2.y, c2.z);
+            float sk;
+            if (p.skip) {
+              const uint32_t pair = skp[2 * j + h];
+              const float v = __bfloat162float(
+                  __ushort_as_bfloat16((unsigned short)(e ? pair >> 16 : pair & 0xFFFF)));
+              sk = __fadd_rn(__fmul_rn(v, cs.y), cs.z);
+            } else {
+              const int xpx = ((ob + h + 2) % XROWS) * W + col + 2;
+              sk = __bfloat162float(*reinterpret_cast<const bf16*>(
+                  base + (ng * 4 + j / 2) * XPIX * PIX_BYTES + xpx * PIX_BYTES +
+                  ((((j & 1) ^ (xpx >> 2)) & 1) << 4) + 4 * q + 2 * e));
+            }
+            y[e][h] = __bfloat162float(__float2bfloat16(fmaxf(__fadd_rn(h2, sk), 0.0f)));
+          }
         }
-    __syncthreads();
-    for (int e = tid; e < NT * TM; e += kThreads) {
-      const int nl = e / TM, col = e % TM, n = n0 + nl, gt = t0 + col;
-      if (n >= C_out || gt >= T) continue;
-      const bf16 y0 = tile[nl * OBS + col], y1 = tile[nl * OBS + OC + col];
-      if (pool) {
-        out[(((size_t)b * C_out + n) * (F / 2) + blockIdx.y) * T + gt] =
-            __float2bfloat16(fmaxf(__bfloat162float(y0), __bfloat162float(y1)));
-      } else {
-        bf16* o_at = out + (((size_t)b * C_out + n) * F + f0) * T + gt;
-        o_at[0] = y0;
-        o_at[T] = y1;
+        settle(y[0][0], y[0][1]);
+        settle(y[1][0], y[1][1]);
+        if (!store || 8 * j >= nvalid) continue;
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          bf16* at = o_at + (size_t)(8 * j + e) * plane;
+          if (p.pool) {
+            at[0] = __float2bfloat16(fmaxf(y[e][0], y[e][1]));
+          } else {
+            at[0] = __float2bfloat16(y[e][0]);
+            at[p.T] = __float2bfloat16(y[e][1]);
+          }
+        }
       }
     }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(xempty + 8 * ((i + 1) % 3));  // row pair i + 1 is done
   }
+}
+
+int sm_count() {
+  int dev = 0, sms = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+    return 0;
+  return sms;
+}
+
+// Output rows of a segment: enough segments that strips x B x segments fill
+// the SMs (one block an SM), at least kMinSegmentRows rows (F if fewer), even.
+int segment_rows(int B, int F, int T, int sms) {
+  const long units = (long)((T + TM - 1) / TM) * B;
+  const int nseg = units >= sms ? 1 : (int)(sms / units);
+  int rows = (F + nseg - 1) / nseg;
+  rows += rows & 1;
+  if (rows < kMinSegmentRows) rows = kMinSegmentRows;
+  return rows < F ? rows : F;
+}
+
+uint32_t round_up(size_t v, size_t to) { return (uint32_t)((v + to - 1) / to * to); }
+
+// The launch's plan (from its channel counts and skip) and its shared
+// memory; false if the rings and one stage do not fit.
+bool make_plan(Plan& p, size_t& smem) {
+  p.g1 = (p.C_mid + NW - 1) / NW;
+  p.g2 = (p.C_out + NW - 1) / NW;
+  p.nk1 = p.C_in / CK;
+  p.nk2 = p.C_mid / CK;
+  p.ns = p.skip ? (p.nk1 + 8) / 9 : 0;
+  p.per_step = p.g1 * p.nk1 + p.g2 * (p.ns + p.nk2);
+  p.h_off = round_up((size_t)XPIX * PIX_BYTES * p.nk1, 1024);
+  p.prm_off = p.h_off + round_up((size_t)HPIX * PIX_BYTES * p.nk2, 1024);
+  p.w_off = p.prm_off + round_up(sizeof(float4) * (p.C_mid + 2 * p.C_out), 1024);
+  const size_t fixed = 1024 + p.w_off + 8 * 6;  // alignment slack, x barriers
+  const size_t stage = CHUNK_BYTES + 16;        // and a stage's two barriers
+  if (fixed + p.per_step * stage <= (size_t)kSmemLimit) {
+    p.stages = 0;
+    p.bar_off = p.w_off + p.per_step * CHUNK_BYTES;
+    smem = fixed + p.per_step * stage;
+    return true;
+  }
+  if (fixed + stage > (size_t)kSmemLimit) return false;
+  const size_t fit = ((size_t)kSmemLimit - fixed) / stage;
+  p.stages = fit < (size_t)kMaxStages ? (int)fit : kMaxStages;
+  p.bar_off = p.w_off + p.stages * CHUNK_BYTES;
+  smem = fixed + p.stages * stage;
+  return true;
 }
 
 }  // namespace
 
 extern "C" {
 
+// Output rows of a segment of K6's walk at (B, F, T) on the current device.
+int res_block_segment_rows(int B, int F, int T) { return segment_rows(B, F, T, sm_count()); }
+
+// Bytes of the scratch res_block_forward packs the weights into (every
+// weight chunk of a step, as a stage holds it), or -1 where the kernel's
+// rings and one stage do not fit in shared memory.
+long long res_block_scratch_bytes(int C_in, int C_mid, int C_out, int skip) {
+  Plan p{};
+  p.C_in = C_in, p.C_mid = C_mid, p.C_out = C_out, p.skip = skip;
+  size_t smem = 0;
+  if (C_in <= 0 || C_mid <= 0 || C_out <= 0 || C_in % CK || C_mid % CK || C_out % CK ||
+      !make_plan(p, smem))
+    return -1;
+  return (long long)p.per_step * CHUNK_BYTES;
+}
+
 // K6 on `stream`; ws, bs, ss, os null for the identity skip (C_in == C_out).
-// Returns 0 or a cudaError_t code.
+// `scratch`: res_block_scratch_bytes of device memory, which a first kernel
+// fills with the packed weights. Returns 0 or a cudaError_t code.
 int res_block_forward(const void* x, const void* w1, const void* b1, const void* s1,
                       const void* o1, const void* w2, const void* b2, const void* s2,
                       const void* o2, const void* ws, const void* bs, const void* ss,
                       const void* os, void* out, int B, int C_in, int C_mid, int C_out, int F,
-                      int T, int pool, void* stream) {
+                      int T, int pool, void* scratch, void* stream) {
   const bool skip = ws != nullptr;
   if (B <= 0 || C_in <= 0 || C_mid <= 0 || C_out <= 0 || F <= 0 || T <= 0 || C_in % CK ||
-      C_mid % CK || C_out % CK || F % 2 || (pool && F % 4) || F / FR > 65535 || B > 65535 ||
+      C_mid % CK || C_out % CK || F % 2 || (pool && F % 4) || B > 65535 || scratch == nullptr ||
       (!skip && C_in != C_out) || (skip && (bs == nullptr || ss == nullptr || os == nullptr)))
     return cudaErrorInvalidValue;
-  const size_t smem = smem_bytes(C_in, C_mid);
-  if (smem > (size_t)kSmemLimit) return cudaErrorInvalidValue;
+  const int sms = sm_count();
+  if (sms <= 0) return cudaErrorInvalidDevice;
+  Plan p{};
+  p.C_in = C_in, p.C_mid = C_mid, p.C_out = C_out, p.F = F, p.T = T, p.pool = pool;
+  p.skip = skip;
+  p.seg_rows = segment_rows(B, F, T, sms);
+  size_t smem = 0;
+  if (!make_plan(p, smem) || (F + p.seg_rows - 1) / p.seg_rows > 65535)
+    return cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(res_block_kernel,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
-  const dim3 grid((T + TM - 1) / TM, F / FR, B);
-  res_block_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(w1), static_cast<const float*>(b1),
-      static_cast<const float*>(s1), static_cast<const float*>(o1), static_cast<const bf16*>(w2),
-      static_cast<const float*>(b2), static_cast<const float*>(s2), static_cast<const float*>(o2),
-      static_cast<const bf16*>(ws), static_cast<const float*>(bs), static_cast<const float*>(ss),
-      static_cast<const float*>(os), static_cast<bf16*>(out), C_in, C_mid, C_out, F, T, pool);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  unsigned char* packed = static_cast<unsigned char*>(scratch);
+  pack_weights_kernel<<<p.per_step, 256, 0, st>>>(static_cast<const bf16*>(w1),
+                                                  static_cast<const bf16*>(w2),
+                                                  static_cast<const bf16*>(ws), packed, p);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  const dim3 grid((T + TM - 1) / TM, (F + p.seg_rows - 1) / p.seg_rows, B);
+  res_block_kernel<<<grid, kThreads, smem, st>>>(
+      static_cast<const bf16*>(x), packed, static_cast<const float*>(b1),
+      static_cast<const float*>(s1), static_cast<const float*>(o1), static_cast<const float*>(b2),
+      static_cast<const float*>(s2), static_cast<const float*>(o2), static_cast<const float*>(bs),
+      static_cast<const float*>(ss), static_cast<const float*>(os), static_cast<bf16*>(out), p);
   return cudaGetLastError();
 }
 

@@ -278,15 +278,65 @@ def conv_bn_relu_stage(x, conv: torch.nn.Conv2d, bn: torch.nn.BatchNorm2d, *,
 SUM_ULP = 2.0**-23
 AFFINE_ULP = 2.0**-22
 FAULTS_K6 = ("h1_halo_not_zeroed", "skip_column_shifted", "shifted_pool_pair",
-             "one_tap_of_a_chunk_dropped")
-# K6's shared memory (csrc/res_block.cu smem_bytes): the x window of 6 x 66
-# pixels and the h1 tile of 4 x 66 pixels, all channels, bf16, and one chunk
-# of 9 taps x 64 output channels x 16 input channels of weights.
+             "one_tap_of_a_chunk_dropped", "stale_weight_stage", "row_ring_off_by_one_step",
+             "segment_border_not_recomputed")
+# K6's plan (csrc/res_block.cu segment_rows, make_plan). A block walks a
+# strip of 62 output columns down a segment of rows, 2 rows a step; the
+# segment height makes strips x B x segments fill the SMs, at least 8 rows.
+# Shared memory: x rows in a ring of 6 x 66 pixels, h1 rows in a ring of
+# 4 x 66 pixels, all channels, bf16; the per-channel affines (a float4 per
+# channel of conv1, conv2 and the skip); each rounded up to 1 KiB; 1 KiB of
+# alignment slack and 6 x-ring barriers; and at least one weight stage of 9
+# taps x 64 output channels x 16 input channels with its two barriers (all
+# of a step's weights, when they fit, stay resident).
 K6_SMEM_LIMIT = 232448
+K6_STRIP = 62
+K6_MIN_SEGMENT_ROWS = 8
+H100_SMS = 132
 
 
-def _k6_smem_bytes(c_in: int, c_mid: int) -> int:
-    return 2 * (6 * 66 * c_in + 4 * 66 * c_mid + 9 * 64 * 16)
+def _k6_smem_bytes(c_in: int, c_mid: int, c_out: int) -> int:
+    """The least shared memory K6 runs in: the rings, the affines and one
+    weight stage."""
+    def kib(n):
+        return -(-n // 1024) * 1024
+    rings = kib(6 * 66 * 2 * c_in) + kib(4 * 66 * 2 * c_mid)
+    return 1024 + rings + kib(16 * (c_mid + 2 * c_out)) + 8 * 6 + 9 * 64 * 32 + 16
+
+
+def k6_segment_rows(b: int, f: int, t: int, sms: int = H100_SMS) -> int:
+    """Output rows of a segment of K6's walk at (B, F, T) on a card of
+    ``sms`` SMs (the kernel's ``segment_rows``)."""
+    units = -(-t // K6_STRIP) * b
+    nseg = 1 if units >= sms else sms // units
+    rows = -(-f // nseg)
+    rows = max(rows + rows % 2, K6_MIN_SEGMENT_ROWS)
+    return min(rows, f)
+
+
+def k6_work(b, c_in, c_mid, c_out, f, t, skip: bool, sms: int = H100_SMS) -> dict:
+    """The multiply-adds (x 2: FLOP) K6 executes at this shape, beside those
+    the block needs: conv1 over every h1 pixel of the tensor once, conv2 and
+    the skip over every output pixel once. Executed counts what the walk
+    computes and drops: the 2 halo columns of a strip's 64 h1 columns and 2
+    dropped output columns, the last strip's columns past T (a warpgroup's
+    32 columns unless all lie past T), the 2 h1 rows a segment computes
+    again, rows outside the tensor, and output channels padded to the
+    tile."""
+    seg = k6_segment_rows(b, f, t, sms)
+    rows = [min(seg, f - f0) for f0 in range(0, f, seg)]
+    pad_mid, pad_out = -(-c_mid // 64) * 64, -(-c_out // 64) * 64
+    cols1 = cols2 = 0  # a warpgroup takes 32 columns, skipped when all lie past T
+    for t0 in range(0, t, K6_STRIP):
+        for wg in (0, 1):
+            cols1 += 32 * (t0 - 1 + 32 * wg < t)
+            cols2 += 32 * (t0 + 32 * wg < t)
+    per_px1, per_px2 = 2 * 9 * c_in, 2 * (9 * c_mid + (c_in if skip else 0))
+    conv1 = (b * cols1 * sum(r + 2 for r in rows) * per_px1 * pad_mid,
+             b * f * t * per_px1 * c_mid)
+    rest = (b * cols2 * sum(rows) * per_px2 * pad_out, b * f * t * per_px2 * c_out)
+    return {"conv1_executed": conv1[0], "conv1_useful": conv1[1],
+            "executed": conv1[0] + rest[0], "useful": conv1[1] + rest[1]}
 
 
 def _k6_split(args):
@@ -306,9 +356,11 @@ def _affine(h, g, b, mean, var):
     return h * s.view(1, -1, 1, 1) + o.view(1, -1, 1, 1)
 
 
-def _k6_plain(args, pool: bool, *, zero_h1_halo: bool = True, skip_shift: int = 0):
-    """K6's plain version, with two of ``faulty_plain_k6``'s mistakes as
-    options."""
+def _k6_plain(args, pool: bool, *, zero_h1_halo: bool = True, skip_shift: int = 0,
+              conv2_fault=None, seg_rows: int = 0):
+    """K6's plain version, with three of ``faulty_plain_k6``'s mistakes as
+    options (``conv2_fault``: one of the segment walk's, on segments of
+    ``seg_rows`` output rows)."""
     x, (w1, b1, *bn1), (w2, b2, *bn2), skip = _k6_split(args)
     _check_rows(x.shape[2], pool)
     if skip is None and x.shape[1] != w2.shape[0]:
@@ -320,11 +372,41 @@ def _k6_plain(args, pool: bool, *, zero_h1_halo: bool = True, skip_shift: int = 
                       3, 3)
     else:  # h1 computed on the ring outside the tensor too, and kept
         h1 = _bn_relu_pool(_pre_affine(F.pad(xb, (2, 2, 2, 2)), w1, b1), *bn1, False).float()
-    h2 = _affine(_pre_affine(h1, w2, b2), *bn2)
+    a2 = _pre_affine(h1, w2, b2)
+    if conv2_fault is not None:
+        a2 = _segment_walk_fault(h1, w2, b2, a2, seg_rows, conv2_fault)
+    h2 = _affine(a2, *bn2)
     xs = F.pad(xb[..., skip_shift:], (0, skip_shift)) if skip_shift else xb
     sk = xs if skip is None else _affine(_pre_affine(xs, skip[0], skip[1]), *skip[2:])
     out = torch.relu(h2 + sk).to(torch.bfloat16)
     return F.max_pool2d(out.float(), (2, 1)).to(torch.bfloat16) if pool else out
+
+
+def _segment_walk_fault(h1, w2, b2, a2, seg_rows: int, fault: str):
+    """conv2's bf16(conv + bias) ``a2`` (from the padded ``h1``) as a walk
+    over segments of ``seg_rows`` output rows would give it with ``fault``.
+    ``row_ring_off_by_one_step``: the second step's row pair of each
+    segment reads the h1 rows of the first step.
+    ``segment_border_not_recomputed``: each segment sees zeros for the h1
+    rows past its borders that its neighbour computes (f0 - 1 and
+    f0 + seg_rows inside the tensor)."""
+    f = a2.shape[2]
+    a2 = a2.clone()
+    for f0 in range(0, f, seg_rows):
+        f1 = min(f0 + seg_rows, f)
+        if fault == "row_ring_off_by_one_step":
+            if f1 - f0 >= 4:
+                a2[:, :, f0 + 2:f0 + 4] = a2[:, :, f0:f0 + 2].clone()
+        elif fault == "segment_border_not_recomputed":
+            h = h1[:, :, f0:f1 + 2].clone()  # padded rows of global f0 - 1 .. f1
+            if f0 > 0:
+                h[:, :, 0] = 0
+            if f1 < f:
+                h[:, :, -1] = 0
+            a2[:, :, f0:f1] = _pre_affine(h, w2, b2)
+        else:
+            raise ValueError(f"unknown fault {fault!r}")
+    return a2
 
 
 def fused_res_block_plain(x, w1, b1, g1, be1, m1, v1, w2, b2, g2, be2, m2, v2, ws=None,
@@ -387,16 +469,21 @@ def k6_score(got, ref, args, *, pool: bool) -> float:
 
 
 @torch.no_grad()
-def faulty_plain_k6(args, fault: str, *, pool: bool) -> torch.Tensor:
-    """What K6 on ``args`` would give with one of four mistakes, from its
+def faulty_plain_k6(args, fault: str, *, pool: bool, sms: int = H100_SMS) -> torch.Tensor:
+    """What K6 on ``args`` would give with one of seven mistakes, from its
     plain version: ``h1_halo_not_zeroed`` keeps h1's values computed on the
     ring outside the tensor (from the zero-padded x: not zero) for conv2;
     ``skip_column_shifted`` reads the skip's input one column later (zeros
     past the last); ``shifted_pool_pair`` pools the rows (2f + 1, 2f + 2)
     (the last pair (F - 1, F - 1)), or without pool shifts the rows by one;
     ``one_tap_of_a_chunk_dropped`` leaves out conv2's last tap (2, 2) of the
-    last 16 h1 channels. For showing that ``k6_score``'s bound catches such
-    mistakes (``FAULTS_K6``)."""
+    last 16 h1 channels; ``stale_weight_stage`` multiplies conv2's last 16
+    h1 channels by the weights of the 16 before them (a weight stage read
+    before it was refilled); ``row_ring_off_by_one_step`` and
+    ``segment_border_not_recomputed`` (``_segment_walk_fault``) are the
+    walk's, on the segments K6 takes at this shape on a card of ``sms`` SMs.
+    For showing that ``k6_score``'s bound catches such mistakes
+    (``FAULTS_K6``)."""
     if fault == "h1_halo_not_zeroed":
         return _k6_plain(args, pool, zero_h1_halo=False)
     if fault == "skip_column_shifted":
@@ -405,11 +492,17 @@ def faulty_plain_k6(args, fault: str, *, pool: bool) -> torch.Tensor:
         y = _k6_plain(args, False).float()
         y = torch.cat([y[:, :, 1:], y[:, :, -1:]], dim=2)
         return F.max_pool2d(y, (2, 1)).to(torch.bfloat16) if pool else y.to(torch.bfloat16)
-    if fault == "one_tap_of_a_chunk_dropped":
+    if fault in ("one_tap_of_a_chunk_dropped", "stale_weight_stage"):
         args = list(args)
         args[7] = args[7].clone()
-        args[7][:, -16:, 2, 2] = 0
+        if fault == "one_tap_of_a_chunk_dropped":
+            args[7][:, -16:, 2, 2] = 0
+        else:
+            args[7][:, -16:] = args[7][:, -32:-16]
         return _k6_plain(args, pool)
+    if fault in ("row_ring_off_by_one_step", "segment_border_not_recomputed"):
+        b, _, f, t = args[0].shape
+        return _k6_plain(args, pool, conv2_fault=fault, seg_rows=k6_segment_rows(b, f, t, sms))
     raise ValueError(f"unknown fault {fault!r}")
 
 
@@ -436,11 +529,11 @@ def _launch_k6(args, pool: bool) -> torch.Tensor:
     if bad:
         raise ValueError(f"fused_res_block: shapes (got, want) {bad}")
     if (c_in % 16 or c_mid % 16 or c_out % 16
-            or _k6_smem_bytes(c_in, c_mid) > K6_SMEM_LIMIT):
+            or _k6_smem_bytes(c_in, c_mid, c_out) > K6_SMEM_LIMIT):
         raise ValueError(f"fused_res_block: the kernel takes channel counts that are multiples "
                          f"of 16 and fit its shared memory, got {c_in} -> {c_mid} -> {c_out}")
     _check_rows(f, pool)
-    if f // 2 > 65535 or b > 65535:
+    if -(-f // K6_MIN_SEGMENT_ROWS) > 65535 or b > 65535:  # the grid's segments, images
         raise ValueError(f"fused_res_block: grid too large for B={b}, F={f}")
     xb = x.to(torch.bfloat16).contiguous()
     convs = [conv1, conv2] + ([skip] if skip is not None else [])
@@ -451,10 +544,13 @@ def _launch_k6(args, pool: bool) -> torch.Tensor:
     out = torch.empty((b, c_out, f // 2 if pool else f, t), device=x.device, dtype=torch.bfloat16)
     if out.numel():
         lib, fn = _entry_k6()
+        # the weights packed as the kernel's stages hold them
+        n = lib.res_block_scratch_bytes(c_in, c_mid, c_out, int(skip is not None))
+        scratch = torch.empty(n, device=x.device, dtype=torch.uint8)
         addrs = [a.data_ptr() for a in ptrs] + [None] * (12 - len(ptrs))
         with torch.cuda.device(x.device):
             err = fn(xb.data_ptr(), *addrs, out.data_ptr(), b, c_in, c_mid, c_out, f, t,
-                     int(pool), torch.cuda.current_stream().cuda_stream)
+                     int(pool), scratch.data_ptr(), torch.cuda.current_stream().cuda_stream)
         _build.check(lib, err, "res_block_forward kernel")
     return out
 
@@ -463,9 +559,20 @@ def _launch_k6(args, pool: bool) -> torch.Tensor:
 def _entry_k6():
     lib = _build.load("res_block")
     fn = lib.res_block_forward
-    fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 2
     fn.restype = ctypes.c_int
+    lib.res_block_segment_rows.argtypes = [ctypes.c_int] * 3
+    lib.res_block_segment_rows.restype = ctypes.c_int
+    lib.res_block_scratch_bytes.argtypes = [ctypes.c_int] * 4
+    lib.res_block_scratch_bytes.restype = ctypes.c_longlong
     return lib, fn
+
+
+def k6_device_segment_rows(b: int, f: int, t: int) -> int:
+    """The segment height K6 takes at (B, F, T) on the current card (its
+    library's ``res_block_segment_rows``), for holding ``k6_segment_rows``
+    to it."""
+    return _entry_k6()[0].res_block_segment_rows(b, f, t)
 
 
 def fused_res_block(x, w1, b1, g1, be1, m1, v1, w2, b2, g2, be2, m2, v2, ws=None, bs=None,

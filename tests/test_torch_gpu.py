@@ -373,13 +373,18 @@ def _k6_args(cuda, seed, b, c_in, c_out, f, t):
 
 
 # the 89M model's two blocks at a short T and with a partial last T tile (the
-# kernel's tiles are 62 columns), one T tile exactly, the identity skip at
-# 16 -> 16 and 64 -> 64, a C_out that fills part of a 64-channel chunk, and
-# the 30 s route's shape
+# kernel's strips are 62 columns), one strip exactly, the identity skip at
+# 16 -> 16 and 64 -> 64, a C_out that fills part of a 64-channel group, and
+# the 30 s route's shape; then the walk: F over several segments with a
+# shorter last one (on 132 SMs: 36 + 34 rows at B=4, T=938; 6 x 8 + 4 rows
+# at B=1, T=200 with the pool; 5 x 8 + 4 at B=2, T=130, identity), and a
+# C_out of 64 + 16 channels (a second, partial output group)
 @pytest.mark.parametrize("b,c_in,c_out,f,t,pool", [
     (1, 32, 64, 160, 70, True), (1, 64, 128, 80, 130, False), (2, 32, 64, 16, 62, True),
     (1, 16, 16, 8, 65, False), (1, 64, 64, 12, 200, False), (1, 16, 48, 8, 33, True),
     (4, 32, 64, 160, 938, True), (4, 64, 128, 80, 938, False),
+    (4, 64, 128, 70, 938, False), (1, 32, 64, 52, 200, True), (2, 64, 64, 44, 130, False),
+    (1, 16, 80, 12, 70, False),
 ])
 def test_k6_matches_plain(cuda, b, c_in, c_out, f, t, pool):
     """K6 against its plain version, element by element to ``k6_score``'s
@@ -395,6 +400,27 @@ def test_k6_matches_plain(cuda, b, c_in, c_out, f, t, pool):
     assert CK.k6_score(got, ref, args, pool=pool) <= 1.0
 
 
+@pytest.mark.parametrize("c_in,c_out,f,pool", [(32, 64, 160, True), (64, 128, 80, False)],
+                         ids=["res_block1-89M", "res_block2-89M"])
+def test_k6_repeats_bit_identical(cuda, c_in, c_out, f, pool):
+    """Five launches of K6 at an 89M block (B=4, T=938) give the same bits:
+    no atomics, so every output is summed in the same order."""
+    args = _k6_args(cuda, c_in + f, 4, c_in, c_out, f, 938)
+    with torch.no_grad():
+        first = CK.fused_res_block(*args, pool=pool)
+        for _ in range(4):
+            assert torch.equal(CK.fused_res_block(*args, pool=pool), first)
+
+
+def test_k6_segment_rows_follow_the_plan(cuda):
+    """The kernel's segment height (its library's) is ``k6_segment_rows``
+    on this card's SM count, which the faults and the work counts use."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for b, f, t in ((4, 160, 938), (4, 80, 938), (1, 52, 200), (2, 44, 130), (1, 8, 65),
+                    (64, 80, 938), (1, 4, 20)):
+        assert CK.k6_device_segment_rows(b, f, t) == CK.k6_segment_rows(b, f, t, sms)
+
+
 def test_k6_raises_on_inputs_it_does_not_take(cuda):
     args = _k6_args(cuda, 0, 1, 16, 32, 8, 20)
     with pytest.raises(ValueError):  # conv1's weight on the CPU
@@ -406,6 +432,8 @@ def test_k6_raises_on_inputs_it_does_not_take(cuda):
         CK.fused_res_block(*_k6_args(cuda, 1, 1, 8, 16, 8, 20))
     with pytest.raises(ValueError):  # no skip conv, but C_in != C_out
         CK.fused_res_block(*args[:13])
+    with pytest.raises(ValueError):  # the x and h1 rings of 256 channels exceed shared memory
+        CK.fused_res_block(*_k6_args(cuda, 2, 1, 256, 256, 8, 20))
 
 
 @pytest.mark.parametrize("dtype,attention,rel_tol", [("float32", "xla", 1e-4),

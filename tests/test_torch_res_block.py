@@ -127,13 +127,44 @@ def test_identity_residual_block_matches_jax():
                          ids=["res_block1-89M", "res_block2-89M"])
 def test_k6_bound_catches_faults(fault, c_in, c_out, f, pool):
     """Each faulty output ``faulty_plain_k6`` builds fails ``k6_score``'s
-    bound at the 89M blocks' widths (B=1, T=24), which the plain version
-    meets."""
+    bound at the 89M blocks' widths (B=1, T=24: the walk's faults on
+    segments of 8 rows), which the plain version meets."""
     x, _, block = _block(c_in + f, 1, c_in, c_out, f, 24)
     args = (_nchw(x), *CK.res_block_args(block))
     ref = CK.fused_res_block_plain(*args, pool=pool)
     assert CK.k6_score(ref, ref, args, pool=pool) == 0.0
     assert CK.k6_score(CK.faulty_plain_k6(args, fault, pool=pool), ref, args, pool=pool) > 1.0
+
+
+@pytest.mark.parametrize("c_in,c_out,f", [(32, 64, 160), (64, 128, 80)],
+                         ids=["res_block1-89M", "res_block2-89M"])
+def test_k6_walk_computes_few_h1_rows_again(c_in, c_out, f):
+    """At the 30 s route's shape (B=4, T=938) on an H100's 132 SMs, K6's walk
+    takes 2 segments (80 and 40 rows), and conv1 executes at most 1.15 times
+    the work of computing every h1 pixel of the tensor once (the halo
+    columns of each strip and the 2 h1 rows a segment computes again)."""
+    assert CK.k6_segment_rows(4, f, 938) == f // 2
+    work = CK.k6_work(4, c_in, c_out, c_out, f, 938, skip=True)
+    assert 1.0 < work["conv1_executed"] / work["conv1_useful"] <= 1.15
+    assert work["conv1_useful"] < work["useful"] < work["executed"]
+
+
+def test_k6_segment_rows():
+    """Segments fill the SMs (one block an SM), are even, at least 8 rows,
+    and no taller than F."""
+    assert CK.k6_segment_rows(4, 70, 938) == 36  # 64 strips x 2 segments; 36 + 34 rows
+    assert CK.k6_segment_rows(1, 52, 200) == 8  # 4 strips: 33 segments wanted, 8 rows at least
+    assert CK.k6_segment_rows(1, 4, 20) == 4  # F under 8 rows: one segment
+    assert CK.k6_segment_rows(64, 80, 938) == 80  # 1024 strips: one segment
+    assert CK.k6_segment_rows(4, 80, 938, sms=114) == 80
+
+
+def test_k6_shared_memory_limit():
+    """The 89M blocks and the identity block fit in K6's shared memory; rings
+    of 256 channels do not (the wrapper raises on them)."""
+    for c_in, c_mid, c_out in ((32, 64, 64), (64, 128, 128), (64, 64, 64), (16, 256, 256)):
+        assert CK._k6_smem_bytes(c_in, c_mid, c_out) <= CK.K6_SMEM_LIMIT
+    assert CK._k6_smem_bytes(256, 256, 256) > CK.K6_SMEM_LIMIT
 
 
 def test_front_end_through_k5_and_k6_matches_the_model():
