@@ -30,10 +30,14 @@ Phases, in order; any failure exits non-zero:
   4b. hold K5 (fused ConvBNRelu + pool) against its plain version at the
      default model's two ConvBNRelu stages (B=4, T=938: conv1 3x3 1->32 at
      F=320, freq_aware_conv 7x3 128->256 at F=80; seeded weights, BatchNorm
-     statistics made non-trivial), element by element, with the scores of
-     three faulty outputs built from the plain version (the bottom halo read
-     without zero fill, the shifted row pairs pooled, one tap of 16 input
-     channels left out), each of which must fail the bound; the same for K6
+     statistics made non-trivial), element by element, launched 5 times with
+     bit-identical outputs, with the scores of faulty outputs built from the
+     plain version (the bottom halo read without zero fill, the shifted row
+     pairs pooled, one tap of 16 input channels left out; at freq_aware_conv
+     also the walk's: a stale weight stage, the x-row ring one step off, a
+     segment border's halo rows read as zeros), each of which must fail the
+     bound, and the weight bytes it reads from L2 and the x bytes it gathers
+     beside its rates and bound; the same for K6
      (a whole residual block) at res_block1 + pool (32->64, F=160) and
      res_block2 (64->128, F=80), and at a seeded ResidualBlock(64, 64) (the
      identity skip), each launched 5 times with bit-identical outputs, with
@@ -672,29 +676,41 @@ def time_kernel_plain_model(torch, kernel, plain, model_stage):
 def check_k5(torch, ck, model, rows):
     """K5 against its plain version at the default model's two ConvBNRelu
     stages (B=4, T=938, pool) on ``model``'s weights, to ``ck.k5_score``'s
-    bound, with the scores of the faulty outputs ``ck.faulty_plain`` builds,
+    bound, launched REPEATS times with bit-identical outputs, with the scores
+    of the faulty outputs ``ck.faulty_plain`` builds (the walk's on the
+    segments K5 takes on this card, at freq_aware_conv: conv1 runs the
+    CUDA-core kernel, which has no weight stages, x-row ring or segments),
     each of which must fail it; K5, its plain version and the model's own
     eager stage (cuDNN bf16 conv + elementwise passes) timed with CUDA events
     around repeated calls (the record's times), and their device time per
-    call under torch.profiler beside them. Returns the record of the two
-    stages together, as the front end launches them."""
+    call under torch.profiler beside them; the weight bytes K5 reads from L2
+    and the x bytes it gathers (``ck.k5_traffic``), and its rates beside the
+    bound. Returns the record of the two stages together, as the front end
+    launches them."""
     from music_transcription_tpu_torch.models import cnn_rnn
 
     rng = np.random.default_rng(SEED + 10)
     bounds = conv_stage_bounds()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     total = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0, flops=0.0, nbytes=0.0)
+    fault_scores, repeats = {}, True
     for name, c_in, f in K5_STAGES:
         conv, bn = getattr(model, name)
+        c_out, kh, kw = conv.out_channels, *conv.kernel_size
         x = torch.from_numpy(rng.standard_normal((4, c_in, f, 938)).astype(np.float32)).to(
             "cuda", torch.bfloat16)
         args = (x, conv.weight, conv.bias, bn.weight, bn.bias, bn.running_mean, bn.running_var)
+        faults = [k for k in ck.FAULTS if c_in >= 16 or k not in ck.K5_WALK_FAULTS]
         with torch.no_grad():
             got = ck.fused_conv_bn_relu(*args, pool=True)
             ref = ck.fused_conv_bn_relu_plain(*args, pool=True)
             torch.cuda.synchronize()
+            same_bits = repeats_identical(torch, lambda: ck.fused_conv_bn_relu(*args, pool=True),
+                                          got)
             score = ck.k5_score(got, ref, args, pool=True)
-            fault_scores = {k: ck.k5_score(ck.faulty_plain(args, k, pool=True), ref, args, pool=True)
-                            for k in ck.FAULTS}
+            scores = {k: ck.k5_score(ck.faulty_plain(args, k, pool=True, sms=sms), ref, args,
+                                     pool=True)
+                      for k in faults}
             err = float((got.float() - ref.float()).abs().max())
             same = float((got == ref).float().mean())
             (ms, plain_ms, lib_ms), (dev_ms, dev_plain_ms, dev_lib_ms) = time_kernel_plain_model(
@@ -702,17 +718,29 @@ def check_k5(torch, ck, model, rows):
                 lambda: ck.fused_conv_bn_relu_plain(*args, pool=True),
                 lambda: cnn_rnn._pooled_conv_bn_relu(x, conv, bn, torch.bfloat16))
         flops, nbytes, b_ms, b_by = bounds[f"K5 {name}+pool"]
-        ok = (score <= 1.0 and all(v > 1.0 for v in fault_scores.values())
-              and got.shape == (4, conv.out_channels, f // 2, 938)
+        traffic = ck.k5_traffic(4, c_in, c_out, f, 938, kh, kw, True, sms)
+        seg = ck.k5_device_segment_rows(4, f, 938)
+        fault_scores[name] = scores
+        repeats = repeats and same_bits
+        ok = (score <= 1.0 and all(v > 1.0 for v in scores.values()) and same_bits
+              and seg == ck.k5_segment_rows(4, f, 938, sms)
+              and got.shape == (4, c_out, f // 2, 938)
               and bool(torch.isfinite(got.float()).all()))
-        rows.append(f"K5 {name}+pool B=4 C {c_in}->{conv.out_channels} F={f} T=938 "
-                    f"{'x'.join(map(str, conv.kernel_size))}: max_abs_err={err:.3e}, bit-identical "
-                    f"{same:.5f}, worst |err|/({ck.K5_TOL:g}|ref| + |s|({ck.K5_TOL:g}|h| + "
-                    f"2n2^-23 m)) {score:.3f} (faults: "
-                    + ", ".join(f"{k} {v:.1f}" for k, v in fault_scores.items())
+        walk = (f"the walk, segments of {seg} rows" if ck._k5_tensor_cores(c_in, c_out, kh, kw)
+                else "the CUDA-core chunks")
+        rows.append(f"K5 {name}+pool B=4 C {c_in}->{c_out} F={f} T=938 {kh}x{kw} ({walk}): "
+                    f"max_abs_err={err:.3e}, bit-identical {same:.5f}, {REPEATS} launches "
+                    f"bit-identical={same_bits}, worst |err|/({ck.K5_TOL:g}|ref| + "
+                    f"|s|({ck.K5_TOL:g}|h| + 2n2^-23 m)) {score:.3f} (faults: "
+                    + ", ".join(f"{k} {v:.1f}" for k, v in scores.items())
                     + f"); ms={ms:.4f} plain_ms={plain_ms:.3f} model_stage_ms={lib_ms:.4f} "
                     f"(device time under torch.profiler: {dev_ms:.4f} / {dev_plain_ms:.3f} / "
-                    f"{dev_lib_ms:.4f}) bound_ms={b_ms:.4f} ({b_by}) {'ok' if ok else 'FAIL'}")
+                    f"{dev_lib_ms:.4f}) bound_ms={b_ms:.4f} ({b_by}); weights from L2 "
+                    f"{traffic['weights_l2'] / 1e9:.4f} GB, x gathered "
+                    f"{traffic['x_gathered'] / 1e6:.2f} MB ({traffic['x_gathered'] / traffic['x_bytes']:.3f}x "
+                    f"the input); TFLOP/s {flops / ms / 1e9:.1f} (device time "
+                    f"{flops / dev_ms / 1e9:.1f}), at the bound {flops / b_ms / 1e9:.1f} "
+                    f"{'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(rows[-1])
         for key, v in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", lib_ms),
@@ -722,7 +750,8 @@ def check_k5(torch, ck, model, rows):
         del x, args, got, ref
     # the two launches of one front end: the least time for their work together
     b_ms, b_by = bound(total.pop("flops"), PEAK_BF16, total.pop("nbytes"))
-    return dict(total, bound_ms=b_ms, bound_by=b_by)
+    return dict(total, bound_ms=b_ms, bound_by=b_by, repeats_identical=repeats,
+                fault_scores=fault_scores)
 
 
 K6_BLOCKS = (("res_block1", 32, 160, True), ("res_block2", 64, 80, False))  # (module, C_in, F, pool)

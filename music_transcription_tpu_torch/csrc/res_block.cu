@@ -77,7 +77,6 @@
 #include <cstdint>
 
 #include "tile_mma.cuh"
-#include "warpgroup.cuh"
 
 using bf16 = __nv_bfloat16;
 
@@ -93,7 +92,6 @@ constexpr int W = TM + 4;              // 66: pixels of a ring row
 constexpr int XROWS = 6, HROWS = 4;    // rows of the x and h1 rings
 constexpr int XPIX = XROWS * W, HPIX = HROWS * W;
 constexpr int NW = 64;                 // output channels of a product (n64)
-constexpr int PIX_BYTES = CK * 2;      // 32: one pixel's (or weight row's) 16 channels
 constexpr int TAP_BYTES = NW * PIX_BYTES;   // one tap's (or input chunk's) weight rows
 constexpr int CHUNK_BYTES = 9 * TAP_BYTES;  // a weight chunk, a ring stage
 constexpr int kMaxStages = 8;
@@ -113,43 +111,12 @@ struct Plan {
   uint32_t h_off, prm_off, w_off, bar_off;
 };
 
-__device__ __forceinline__ uint32_t swizzled_bytes(int row, int h) {
-  return (uint32_t)(row * PIX_BYTES + 16 * (h ^ ((row >> 2) & 1)));
-}
-
-// wgmma's descriptor of a K-major B tile of 32-byte rows (16 bf16 of K) in
-// the 32-byte swizzle: 8-row groups 256 bytes apart. The tile's base is a
-// multiple of 256 bytes, so the swizzle's phase is 0.
-__device__ __forceinline__ uint64_t sw32_desc(uint32_t addr) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | (uint64_t)1 << 16 | (uint64_t)(256 >> 4) << 32 |
-         3ull << 62;
-}
-
-// d (64 x 64 fp32) += a (64 x 16 bf16 in registers, each warp's 16 rows in
-// the mma.sync m16n8k16 A layout) . b, b a K-major tile in shared memory.
-__device__ __forceinline__ void wgmma_rs_kmajor(float (&d)[32], const uint32_t (&a)[4],
-                                                uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WGMMA_D32
-      ", {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
-      : WGMMA_ACC32(d)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
 // Keeps A fragments alive (unreused) until the products that read them
 // have completed.
 __device__ __forceinline__ void keep(const uint32_t (&a)[9][4]) {
 #pragma unroll
   for (int t = 0; t < 9; ++t)
     asm volatile("" ::"r"(a[t][0]), "r"(a[t][1]), "r"(a[t][2]), "r"(a[t][3]));
-}
-
-// Makes the compiler compute both values here, on every thread's path: an
-// accumulator read inside a branch of one thread's own would make ptxas
-// serialize the products (a warpgroup arrive in a divergent path).
-__device__ __forceinline__ void settle(float& a, float& b) {
-  asm volatile("" : "+f"(a), "+f"(b));
 }
 
 // + conv bias in fp32, one bf16 rounding, the BN affine in fp32 (rounded

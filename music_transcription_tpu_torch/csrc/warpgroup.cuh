@@ -1,5 +1,6 @@
 // Hopper building blocks shared by the warp-specialised kernels:
-// flash_attention_clamped.cu (K3, K4a, K4b) and res_block.cu (K6).
+// flash_attention_clamped.cu (K3, K4a, K4b), conv_bn_relu.cu (K5) and
+// res_block.cu (K6).
 //   * wgmma's fence, commit and wait, and the operand lists of a 64 x 64
 //     fp32 accumulator (32 registers a thread) for its inline assembly;
 //   * the mbarriers of a producer / consumer ring: init, arrive, and a wait

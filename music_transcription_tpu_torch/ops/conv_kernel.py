@@ -32,9 +32,11 @@ model's stages through the kernel on the model's own modules.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -139,38 +141,184 @@ def k5_score(got, ref, args, *, pool: bool) -> float:
     return float(torch.where(err == 0, torch.zeros_like(err), err / bound).max())
 
 
-def faulty_plain(args, fault: str, *, pool: bool) -> torch.Tensor:
-    """What K5 on ``args`` would give with one of three mistakes, from its
+# K5's plan (csrc/conv_bn_relu.cu segment_rows, make_plan). C_in >= 16 (or
+# weights that do not fit the CUDA-core kernel's shared memory) takes the
+# walk on the tensor cores: a block walks a strip of 64 output columns down a
+# segment of rows, 4 rows a step; the segment height makes strips x B x
+# segments fill the SMs, at least 8 rows, a multiple of 4 (or F). Shared
+# memory: the x ring of every 16-channel input chunk, KH + 3 rows of 64 + KW
+# - 1 pixels, bf16; the affines of every 64-channel output group (a float4
+# per channel); each rounded up to 1 KiB; 1 KiB of alignment slack and two
+# barriers a chunk; and at least one weight stage (7 taps, 3 for a 3x3
+# filter, 1 for one whose taps are no multiple of 7 or 3; x 64 output
+# channels x 16 input channels) with its two barriers. A step streams every
+# stage of every group and chunk from L2 once.
+K5_SMEM_LIMIT = 232448
+K5_STRIP = 64
+K5_STEP = 4
+K5_MIN_SEGMENT_ROWS = 8
+H100_SMS = 132
+# the CUDA-core kernel (C_in < 16): blocks of 128 threads, 3 an SM at most,
+# each thread 8 outputs a store; in conv1's case a thread's chunk of 8
+# outputs of 16 channels shares one input window (two across a row end)
+K5_CC_THREADS = 128
+K5_CC_BLOCKS_PER_SM = 3
+K5_CC_CHANNELS = 16
+
+
+def _kib(n: int) -> int:
+    return -(-n // 1024) * 1024
+
+
+def _k5_tensor_cores(c_in: int, c_out: int, kh: int, kw: int) -> bool:
+    """Whether K5 takes the walk on the tensor cores (else the CUDA-core
+    chunks, whose weights and affines sit in shared memory)."""
+    return c_in >= 16 or 16 * c_out + 4 * c_out * c_in * kh * kw > K5_SMEM_LIMIT
+
+
+def _k5_stage_taps(kh: int, kw: int) -> tuple[int, int]:
+    """Taps of a weight stage of K5's walk (7, 3 or 1: a divisor of the
+    filter's taps) and stages a chunk."""
+    taps = kh * kw
+    spt = 7 if taps % 7 == 0 else 3 if taps % 3 == 0 else 1
+    return spt, taps // spt
+
+
+def _k5_smem_bytes(c_in: int, c_out: int, kh: int, kw: int) -> int:
+    """The least shared memory K5's walk runs in: the x ring, the affines,
+    the barriers and one weight stage."""
+    nk, g = -(-c_in // 16), -(-c_out // 64)
+    ring = _kib(nk * (kh + K5_STEP - 1) * (K5_STRIP + kw - 1) * 32)
+    return 1024 + ring + _kib(16 * 64 * g) + 16 * nk + _k5_stage_taps(kh, kw)[0] * 64 * 32 + 16
+
+
+def k5_segment_rows(b: int, f: int, t: int, sms: int = H100_SMS) -> int:
+    """Output rows of a segment of K5's walk at (B, F, T) on a card of
+    ``sms`` SMs (the kernel's ``segment_rows``)."""
+    units = -(-t // K5_STRIP) * b
+    nseg = 1 if units >= sms else sms // units
+    rows = -(-f // nseg)
+    rows = max(-(-rows // K5_STEP) * K5_STEP, K5_MIN_SEGMENT_ROWS)
+    return min(rows, f)
+
+
+def k5_traffic(b, c_in, c_out, f, t, kh, kw, pool: bool, sms: int = H100_SMS) -> dict:
+    """What K5 reads at this shape (bf16 x): ``weights_l2``, the weight
+    bytes its blocks read from L2 (the walk: every stage of a step once a
+    step; the CUDA-core kernel: the fp32 weights once a block);
+    ``x_gathered``, the x bytes it gathers into its rings or registers
+    (zeros outside the tensor counted); ``x_bytes``, the input's size."""
+    taps = kh * kw
+    x_bytes = 2 * b * c_in * f * t
+    if _k5_tensor_cores(c_in, c_out, kh, kw):
+        seg = k5_segment_rows(b, f, t, sms)
+        steps = [-(-min(seg, f - f0) // K5_STEP) for f0 in range(0, f, seg)]
+        strips = b * -(-t // K5_STRIP)
+        per_step = -(-c_out // 64) * -(-c_in // 16) * taps * 64 * 32
+        rows = sum(K5_STEP * s + kh - 1 for s in steps)
+        return {"weights_l2": strips * sum(steps) * per_step,
+                "x_gathered": strips * rows * (K5_STRIP + kw - 1) * c_in * 2, "x_bytes": x_bytes}
+    plane = (f // 2 if pool else f) * t
+    if c_in == 1 and kh == kw == 3 and t >= 8 and plane % 8 == 0:  # windows of a chunk
+        starts = np.arange(0, plane, 8) % t
+        groups = -(-c_out // K5_CC_CHANNELS)
+        windows = b * groups * (len(starts) + int((starts > t - 8).sum()))
+        units, gathered = b * groups * plane // 8, windows * 4 * 10 * 2
+    else:  # element by element
+        units = -(-b * c_out * plane // 8)
+        gathered = b * c_out * plane * c_in * taps * (2 if pool else 1) * 2
+    blocks = min(-(-units // K5_CC_THREADS), K5_CC_BLOCKS_PER_SM * sms)
+    return {"weights_l2": blocks * 4 * c_out * c_in * taps, "x_gathered": gathered,
+            "x_bytes": x_bytes}
+
+
+def _k5_walk_fault(xp, weight, conv_bias, h, seg_rows: int, fault: str):
+    """The walk's bf16(conv + bias) ``h`` (from the SAME-padded ``xp``) as
+    segments of ``seg_rows`` output rows would give it with ``fault``.
+    ``x_row_ring_off_by_one_step``: the second step of each segment reads
+    the x rows of the first (its 4 rows repeat the first 4).
+    ``segment_border_halo_zeros``: each segment sees zeros for the x rows
+    past its borders that lie inside the tensor."""
+    kh = weight.shape[2]
+    f = h.shape[2]
+    h = h.clone()
+    for f0 in range(0, f, seg_rows):
+        f1 = min(f0 + seg_rows, f)
+        if fault == "x_row_ring_off_by_one_step":
+            if f1 - f0 >= 2 * K5_STEP:
+                h[:, :, f0 + K5_STEP:f0 + 2 * K5_STEP] = h[:, :, f0:f0 + K5_STEP].clone()
+        elif fault == "segment_border_halo_zeros":
+            xs = xp[:, :, f0:f1 + kh - 1].clone()  # padded rows of x rows f0 - kh // 2 ..
+            xs[:, :, :kh // 2] = 0
+            xs[:, :, kh // 2 + f1 - f0:] = 0
+            h[:, :, f0:f1] = _pre_affine(xs, weight, conv_bias)
+        else:
+            raise ValueError(f"unknown fault {fault!r}")
+    return h
+
+
+def faulty_plain(args, fault: str, *, pool: bool, sms: int = H100_SMS) -> torch.Tensor:
+    """What K5 on ``args`` would give with one of six mistakes, from its
     plain version: ``halo_no_zero_fill`` reads the bottom halo rows past F
     from the top of the plane instead of zeros; ``shifted_pool_pair`` pools
-    the rows (2f + 1, 2f + 2) (the last pair (F - 1, F - 1)); and
+    the rows (2f + 1, 2f + 2) (the last pair (F - 1, F - 1));
     ``one_tap_of_a_chunk_dropped`` leaves out the last tap (kh - 1, kw - 1)
-    of the last 16 input channels. For showing that ``k5_score``'s bound
-    catches such mistakes (``FAULTS``)."""
+    of the last 16 input channels. The walk's (C_in >= 16,
+    ``K5_WALK_FAULTS``): ``stale_weight_stage`` multiplies the last input
+    chunk's last weight stage of the last output group by the stage before
+    it (the same chunk's previous taps; the previous chunk's taps when a
+    chunk is one stage): a stage read before it was refilled;
+    ``x_row_ring_off_by_one_step`` and ``segment_border_halo_zeros``
+    (``_k5_walk_fault``) on the segments the walk takes at this shape on a
+    card of ``sms`` SMs. For showing that ``k5_score``'s bound catches such
+    mistakes (``FAULTS``)."""
     x, weight, conv_bias, *bn = args
-    kh, kw = weight.shape[2:]
+    c_out, c_in, kh, kw = weight.shape
+    if fault in K5_WALK_FAULTS and not _k5_tensor_cores(c_in, c_out, kh, kw):
+        raise ValueError(f"{fault!r} is a fault of the walk on the tensor cores (C_in >= 16)")
     if fault == "shifted_pool_pair":
         y = fused_conv_bn_relu_plain(*args, pool=False).float()
         y = torch.cat([y[:, :, 1:], y[:, :, -1:]], dim=2)
         return F.max_pool2d(y, (2, 1)).to(torch.bfloat16) if pool else y.to(torch.bfloat16)
     xp = _padded(x, kh, kw)
+    if fault in ("x_row_ring_off_by_one_step", "segment_border_halo_zeros"):
+        b, _, f, t = x.shape
+        h = _k5_walk_fault(xp, weight, conv_bias, _pre_affine(xp, weight, conv_bias),
+                           k5_segment_rows(b, f, t, sms), fault)
+        return _bn_relu_pool(h, *bn, pool)
     if fault == "halo_no_zero_fill":
         below = kh - 1 - kh // 2  # padding rows after the last row: x's first rows instead
         xp[:, :, xp.shape[2] - below:] = xp[:, :, kh // 2: kh // 2 + below]
     elif fault == "one_tap_of_a_chunk_dropped":
         weight = weight.clone()
         weight[:, -16:, kh - 1, kw - 1] = 0
+    elif fault == "stale_weight_stage":
+        spt, sper = _k5_stage_taps(kh, kw)
+        n0, c0 = 64 * ((c_out - 1) // 64), 16 * ((c_in - 1) // 16)
+        w = weight.clone().reshape(c_out, c_in, kh * kw)
+        if sper > 1:
+            last = spt * (sper - 1)
+            w[n0:, c0:, last:] = w[n0:, c0:, last - spt:last].clone()
+        elif c0 > 0:
+            w[n0:, c0:] = w[n0:, c0 - 16:c_in - 16].clone()
+        else:
+            raise ValueError("stale_weight_stage needs two weight stages in a step")
+        weight = w.reshape(weight.shape)
     else:
         raise ValueError(f"unknown fault {fault!r}")
     return _bn_relu_pool(_pre_affine(xp, weight, conv_bias), *bn, pool)
 
 
-FAULTS = ("halo_no_zero_fill", "shifted_pool_pair", "one_tap_of_a_chunk_dropped")
+K5_WALK_FAULTS = ("stale_weight_stage", "x_row_ring_off_by_one_step", "segment_border_halo_zeros")
+FAULTS = ("halo_no_zero_fill", "shifted_pool_pair", "one_tap_of_a_chunk_dropped") + K5_WALK_FAULTS
+# the raw tensors' dtype codes for the kernels (csrc/conv_bn_relu.cu)
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2, torch.float64: 3}
 
 
 def _launch(x, weight, conv_bias, bn_scale, bn_bias, bn_mean, bn_var, pool: bool) -> torch.Tensor:
-    """Check the inputs and launch K5 on the current stream of x's device;
-    returns the output."""
+    """Check the inputs and launch K5 on the current stream of x's device
+    (the packing of the raw weights and vectors, then the kernel); returns
+    the output."""
     tensors = (x, weight, conv_bias, bn_scale, bn_bias, bn_mean, bn_var)
     if not x.is_cuda or any(t.device != x.device for t in tensors):
         raise ValueError(f"fused_conv_bn_relu: inputs on {[str(t.device) for t in tensors]}")
@@ -181,24 +329,37 @@ def _launch(x, weight, conv_bias, bn_scale, bn_bias, bn_mean, bn_var, pool: bool
     if any(tuple(v.shape) != (c_out,) for v in tensors[2:]):
         raise ValueError(f"fused_conv_bn_relu: per-channel vectors must be ({c_out},), got "
                          f"{[tuple(v.shape) for v in tensors[2:]]}")
-    if not all(t.is_floating_point() for t in tensors):
-        raise ValueError(f"fused_conv_bn_relu takes floating inputs, got {[t.dtype for t in tensors]}")
+    if any(t.dtype not in _DTYPE_CODES for t in tensors):
+        raise ValueError(f"fused_conv_bn_relu takes fp32, bf16, fp16 or fp64 inputs, got "
+                         f"{[t.dtype for t in tensors]}")
     _check_rows(f, pool)
-    xb = x.to(torch.bfloat16).contiguous()
-    wk = weight.to(torch.bfloat16).permute(2, 3, 0, 1).contiguous()  # (kh, kw, C_out, C_in)
-    bias = conv_bias.float().contiguous()
-    s, o = (v.contiguous() for v in bn_affine(bn_scale, bn_bias, bn_mean, bn_var))
-    out = torch.empty((b, c_out, f // 2 if pool else f, t), device=x.device, dtype=torch.bfloat16)
-    args = (xb, wk, bias, s, o, out)
-    if not all(a.is_contiguous() for a in args):
-        raise ValueError("fused_conv_bn_relu: an input is not contiguous")
-    if out.numel():
+    if _k5_tensor_cores(c_in, c_out, kh, kw) and _k5_smem_bytes(c_in, c_out, kh, kw) > K5_SMEM_LIMIT:
+        raise ValueError(f"fused_conv_bn_relu: the x ring of {c_in} input channels at kh={kh}, "
+                         f"kw={kw} exceeds the kernel's shared memory")
+    if b > 65535:
+        raise ValueError(f"fused_conv_bn_relu: grid too large for B={b}")
+    tensors = tuple(a.contiguous() for a in tensors)
+    shape = (b, c_out, f // 2 if pool else f, t)
+    n = b * c_out * shape[2] * t
+    # storage padded to whole 16-byte stores of 8 outputs
+    out = torch.empty(-(-n // 8) * 8, device=x.device, dtype=torch.bfloat16)[:n].view(shape)
+    if n:
         lib, fn = _entry()
-        with torch.cuda.device(x.device):
-            err = fn(*(a.data_ptr() for a in args), b, c_in, c_out, f, t, kh, kw, int(pool),
-                     torch.cuda.current_stream().cuda_stream)
+        scratch = torch.empty(_k5_scratch_bytes(c_in, c_out, kh, kw), device=x.device,
+                              dtype=torch.uint8)
+        dtypes = sum(_DTYPE_CODES[a.dtype] << 3 * i for i, a in enumerate(tensors))
+        with (contextlib.nullcontext() if x.device.index == torch.cuda.current_device()
+              else torch.cuda.device(x.device)):
+            err = fn(*(a.data_ptr() for a in tensors), out.data_ptr(), scratch.data_ptr(), dtypes,
+                     b, c_in, c_out, f, t, kh, kw, int(pool), torch.cuda.current_stream().cuda_stream)
         _build.check(lib, err, "conv_bn_relu_forward kernel")
     return out
+
+
+@functools.cache
+def _k5_scratch_bytes(c_in: int, c_out: int, kh: int, kw: int) -> int:
+    """Bytes of the scratch K5 packs the affines and weights into."""
+    return _entry()[0].conv_bn_relu_scratch_bytes(c_in, c_out, kh, kw)
 
 
 @functools.cache
@@ -206,9 +367,20 @@ def _entry():
     """The library and its launch function, typed once."""
     lib = _build.load("conv_bn_relu")
     fn = lib.conv_bn_relu_forward
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    lib.conv_bn_relu_segment_rows.argtypes = [ctypes.c_int] * 3
+    lib.conv_bn_relu_segment_rows.restype = ctypes.c_int
+    lib.conv_bn_relu_scratch_bytes.argtypes = [ctypes.c_int] * 4
+    lib.conv_bn_relu_scratch_bytes.restype = ctypes.c_longlong
     return lib, fn
+
+
+def k5_device_segment_rows(b: int, f: int, t: int) -> int:
+    """The segment height K5's walk takes at (B, F, T) on the current card
+    (its library's ``conv_bn_relu_segment_rows``), for holding
+    ``k5_segment_rows`` to it."""
+    return _entry()[0].conv_bn_relu_segment_rows(b, f, t)
 
 
 def fused_conv_bn_relu(x, weight, conv_bias, bn_scale, bn_bias, bn_mean, bn_var, *,
@@ -217,9 +389,10 @@ def fused_conv_bn_relu(x, weight, conv_bias, bn_scale, bn_bias, bn_mean, bn_var,
     F, T) x, (C_out, C_in, kh, kw) weight, (C_out,) conv bias and BN scale,
     bias, running mean and variance -> (B, C_out, F[/2], T) bf16.
 
-    A CUDA tensor goes through K5 (or raises); a CPU tensor through
-    ``fused_conv_bn_relu_plain``. ``fused_conv_bn_relu.launches`` counts
-    K5's launches."""
+    A CUDA tensor goes through K5 (or raises ``ValueError`` on what it does
+    not take); a CPU tensor through ``fused_conv_bn_relu_plain``.
+    ``fused_conv_bn_relu.launches`` counts K5's launches (a call that
+    launches counts once)."""
     if x.device.type == "cpu":
         return fused_conv_bn_relu_plain(x, weight, conv_bias, bn_scale, bn_bias, bn_mean,
                                         bn_var, pool=pool)
@@ -292,16 +465,13 @@ FAULTS_K6 = ("h1_halo_not_zeroed", "skip_column_shifted", "shifted_pool_pair",
 K6_SMEM_LIMIT = 232448
 K6_STRIP = 62
 K6_MIN_SEGMENT_ROWS = 8
-H100_SMS = 132
 
 
 def _k6_smem_bytes(c_in: int, c_mid: int, c_out: int) -> int:
     """The least shared memory K6 runs in: the rings, the affines and one
     weight stage."""
-    def kib(n):
-        return -(-n // 1024) * 1024
-    rings = kib(6 * 66 * 2 * c_in) + kib(4 * 66 * 2 * c_mid)
-    return 1024 + rings + kib(16 * (c_mid + 2 * c_out)) + 8 * 6 + 9 * 64 * 32 + 16
+    rings = _kib(6 * 66 * 2 * c_in) + _kib(4 * 66 * 2 * c_mid)
+    return 1024 + rings + _kib(16 * (c_mid + 2 * c_out)) + 8 * 6 + 9 * 64 * 32 + 16
 
 
 def k6_segment_rows(b: int, f: int, t: int, sms: int = H100_SMS) -> int:

@@ -87,13 +87,56 @@ def test_k5_matches_jax(b, c_in, c_out, f, t, kh, kw, pool, f_blk):
                          ids=["conv1-89M", "freq_aware_conv-89M"])
 def test_k5_bound_catches_faults(fault, c_in, c_out, f, kh):
     """Each faulty output ``faulty_plain`` builds fails ``k5_score``'s bound at
-    the 89M stages' widths (B=1, T=24, pool), which the plain version meets."""
+    the 89M stages' widths (B=1, T=24, pool), which the plain version meets.
+    The walk's faults (a stale weight stage, the x-row ring one step off, a
+    segment border's halo rows read as zeros; on the walk's 8-row segments
+    at this shape) belong to the tensor-core kernel only."""
+    if fault in CK.K5_WALK_FAULTS and c_in < 16:
+        pytest.skip("conv1 (C_in = 1) runs the CUDA-core kernel, which has no weight stages, "
+                    "x-row ring or segments")
     x, kernel, *vecs = _stage_inputs(c_in + f, 1, c_in, c_out, f, 24, kh, 3)
     args = (_nchw(x), torch.from_numpy(np.ascontiguousarray(kernel.transpose(3, 2, 0, 1))),
             *(torch.from_numpy(v) for v in vecs))
     ref = CK.fused_conv_bn_relu_plain(*args, pool=True)
     assert CK.k5_score(ref, ref, args, pool=True) == 0.0
     assert CK.k5_score(CK.faulty_plain(args, fault, pool=True), ref, args, pool=True) > 1.0
+
+
+@pytest.mark.parametrize("b,f,t,rows", [(4, 80, 938, 40), (1, 80, 24, 8), (1, 20, 130, 8),
+                                         (64, 80, 938, 80)])
+def test_k5_segment_rows(b, f, t, rows):
+    """The walk's segment height on 132 SMs: at freq_aware_conv (B=4, T=938:
+    15 strips x 4 images) 2 segments of 40 rows, 120 blocks; a few strips
+    take segments of the least 8 rows (F=20: 8 + 8 + 4); strips enough to
+    fill the card one segment."""
+    assert CK.k5_segment_rows(b, f, t, 132) == rows
+
+
+@pytest.mark.parametrize("c_in,kh,fits", [(128, 7, True), (128, 3, True), (160, 7, True),
+                                          (176, 7, False), (256, 7, False), (256, 3, True)])
+def test_k5_shared_memory_limit(c_in, kh, fits):
+    """The walk's least shared memory (x ring, affines, one weight stage) at
+    C_out 256: 128 input channels fit at freq_aware_conv's 7 rows of taps
+    (KH + 3 = 10 ring rows of 66 pixels), 176 or more do not, and the
+    wrapper refuses those; 3 rows of taps leave room for 256."""
+    assert CK._k5_tensor_cores(c_in, 256, kh, 3)
+    assert (CK._k5_smem_bytes(c_in, 256, kh, 3) <= CK.K5_SMEM_LIMIT) == fits
+
+
+def test_k5_traffic_at_the_89m_stages():
+    """freq_aware_conv (B=4, T=938, 132 SMs): the walk reads its 1.38 MB of
+    weights from L2 once a step of 4 x 64 outputs, 1.65 GB a call (at most
+    1.8 GB; 2 x 64 tiles read 3.30 GB), and gathers x about once (at most
+    1.5 times the input: a segment's 6 halo rows and a strip's 2 halo
+    columns). conv1 takes the CUDA-core chunks: its weights are 1.15 KB a
+    block, its input windows some 5 times the input (10 columns and 4 rows
+    of a window for 8 x 2 outputs of 16 channels, 2 windows for 32)."""
+    tc = CK.k5_traffic(4, 128, 256, 80, 938, 7, 3, True, 132)
+    assert tc["weights_l2"] == 60 * 20 * 4 * 8 * 21 * 64 * 32 <= 1.8e9
+    assert tc["x_gathered"] <= 1.5 * tc["x_bytes"]
+    cc = CK.k5_traffic(4, 1, 32, 320, 938, 3, 3, True, 132)
+    assert cc["weights_l2"] == 3 * 132 * 4 * 32 * 9
+    assert 4 * cc["x_bytes"] < cc["x_gathered"] < 6 * cc["x_bytes"]
 
 
 @pytest.fixture(scope="module")

@@ -317,6 +317,10 @@ def test_wrappers_raise_on_inputs_the_kernels_do_not_take(cuda):
         CK.fused_conv_bn_relu(torch.zeros(1, 2, 7, 8, device=cuda), w, vec, vec, vec, vec, vec)
     with pytest.raises(ValueError):  # C_in of x and weight differ
         CK.fused_conv_bn_relu(torch.zeros(1, 3, 8, 8, device=cuda), w, vec, vec, vec, vec, vec)
+    vec = torch.ones(256, device=cuda)
+    with pytest.raises(ValueError):  # the x ring of 256 channels at kh=7 exceeds shared memory
+        CK.fused_conv_bn_relu(torch.zeros(1, 256, 8, 8, device=cuda),
+                              torch.zeros(256, 256, 7, 3, device=cuda), vec, vec, vec, vec, vec)
 
 
 def _k5_args(cuda, seed, b, c_in, c_out, f, t, kh, kw):
@@ -331,16 +335,24 @@ def _k5_args(cuda, seed, b, c_in, c_out, f, t, kh, kw):
     return (x, w, *vecs, var)
 
 
-# C_in 1 and < 16 take the CUDA-core kernel, >= 16 the tensor cores (N tiles
-# of 32, 64 and 128 channels; a C_out that is not a multiple of 8); T not a
-# multiple of either kernel's column tile (64, 128); F not a multiple of 4
-# without pool
+# C_in 1 and < 16 take the CUDA-core kernel (conv1's 3x3 at C_in 1 a thread's
+# windows in registers, where the output planes are multiples of 8; F=18,
+# T=130 without pool are not; the rest element by element), >= 16 the walk on
+# the tensor cores (one and several 64-channel output groups, partial ones; a
+# C_out that is not a multiple of 8; C_in 40 not a multiple of 16); T not a
+# multiple of the strip (64); F not a multiple of 4 without pool; then the
+# walk's segments on 132 SMs: F over several segments with a shorter last
+# one, a strip boundary inside T, at B=1 (F=20, T=130: 8 + 8 + 4 rows, 3
+# strips) and B=4 (F=44, T=200: 5 x 8 + 4 rows, 4 strips, the last 8
+# columns), and a last segment of half a step (F=18: 8 + 8 + 2 rows)
 @pytest.mark.parametrize("b,c_in,c_out,f,t,kh,kw,pool", [
     (2, 1, 32, 16, 70, 3, 3, True), (1, 1, 32, 18, 130, 3, 3, False),
     (2, 12, 16, 8, 20, 7, 3, False), (2, 3, 40, 12, 200, 7, 3, True),
     (2, 32, 64, 16, 70, 3, 3, True), (1, 128, 256, 20, 130, 7, 3, False),
     (1, 16, 20, 8, 65, 3, 3, True), (1, 40, 24, 8, 33, 7, 3, True),
     (1, 128, 256, 80, 938, 7, 3, True), (1, 1, 32, 320, 938, 3, 3, True),
+    (1, 32, 64, 20, 130, 3, 3, True), (4, 128, 256, 44, 200, 7, 3, False),
+    (1, 16, 24, 18, 70, 3, 3, False),
 ])
 def test_k5_matches_plain(cuda, b, c_in, c_out, f, t, kh, kw, pool):
     """K5 against its plain version, element by element to ``k5_score``'s
@@ -354,6 +366,40 @@ def test_k5_matches_plain(cuda, b, c_in, c_out, f, t, kh, kw, pool):
     assert CK.fused_conv_bn_relu.launches == before + 1
     assert got.dtype == torch.bfloat16 and got.shape == ref.shape == (b, c_out, f // 2 if pool else f, t)
     assert CK.k5_score(got, ref, args, pool=pool) <= 1.0
+
+
+@pytest.mark.parametrize("c_in,c_out,f,kh", [(1, 32, 320, 3), (128, 256, 80, 7)],
+                         ids=["conv1-89M", "freq_aware_conv-89M"])
+def test_k5_repeats_bit_identical(cuda, c_in, c_out, f, kh):
+    """Five launches of K5 at an 89M stage (B=4, T=938, pool) give the same
+    bits: no atomics, so every output is summed in the same order."""
+    args = _k5_args(cuda, c_in + f, 4, c_in, c_out, f, 938, kh, 3)
+    first = CK.fused_conv_bn_relu(*args, pool=True)
+    for _ in range(4):
+        assert torch.equal(CK.fused_conv_bn_relu(*args, pool=True), first)
+
+
+def test_k5_segment_rows_follow_the_plan(cuda):
+    """The walk's segment height (its library's) is ``k5_segment_rows`` on
+    this card's SM count, which the faults and ``k5_traffic`` use."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for b, f, t in ((4, 80, 938), (1, 20, 130), (4, 44, 200), (1, 18, 70), (64, 80, 938),
+                    (1, 8, 65)):
+        assert CK.k5_device_segment_rows(b, f, t) == CK.k5_segment_rows(b, f, t, sms)
+
+
+@pytest.mark.parametrize("c_in,c_out,f,kh", [(1, 32, 16, 3), (32, 40, 16, 7)],
+                         ids=["chunks", "walk"])
+def test_k5_takes_raw_dtypes(cuda, c_in, c_out, f, kh):
+    """The packing reads the raw tensors: fp32 x, bf16 weights, fp64 and
+    fp16 vectors give what the plain version gives on the same values."""
+    args = _k5_args(cuda, c_in + c_out, 2, c_in, c_out, f, 70, kh, 3)
+    raw = (args[0].float(), args[1].to(torch.bfloat16), args[2].double(), args[3].half(),
+           *args[4:])
+    got = CK.fused_conv_bn_relu(*raw, pool=True)
+    ref = CK.fused_conv_bn_relu_plain(*raw, pool=True)
+    torch.cuda.synchronize()
+    assert CK.k5_score(got, ref, raw, pool=True) <= 1.0
 
 
 def _k6_args(cuda, seed, b, c_in, c_out, f, t):
