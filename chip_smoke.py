@@ -75,6 +75,19 @@ Phases, in order; any failure exits non-zero:
      batch; model_best must serve the phase-3 WAV; --resume auto must
      continue from model_epoch_2. Then time warm train steps, profile one,
      and hold one full-width fp32 step on the card against the CPU;
+  6b. write a seeded raw MAESTRO-layout tree (4 train pieces of 380 s: 52
+     chunks, 4 of them 20 s tails; 1 validation piece of 121 s: 4 chunks)
+     and preprocess it at n_mels 320 with the preprocessing CLI on the card
+     (-d cuda, 2 decoder threads), on the host (-d cpu, a pool of 2 workers)
+     and on the host in this process, each with --verify: the host kit must
+     have built, the card's rolls and metadata must equal the host's and its
+     mel lie within 6e-2 dB of it; then train the default model from the
+     card-built cache through the training CLI with --device_data slab
+     --slab_gb 0.02 (2 slabs of 24 items, 1 step each, 2 epochs): 4 finite
+     steps, none skipped, K2a and K2b up by 4 a step and K1 by 4 a validation
+     batch, and every batch bit-identical to its items loaded on the host.
+     Prints each path's chunks/s, each slab's staging time and GB/s, each
+     step's time and the loader's wait before it, and the peak device memory;
   7. the same through the flash attention: ModelConfig(attention_backend=
      "pallas") into train/loop.train_model on the same cache, 2 epochs of 2
      steps. Per train step K3 with lse, K4a and K4b must rise by 1 and K2a,
@@ -99,6 +112,7 @@ import contextlib
 import copy
 import dataclasses
 import gc
+import io
 import json
 import os
 import re
@@ -1028,17 +1042,17 @@ def write_train_cache(path, acfg, seed: int, n_train: int = 48, n_val: int = 24)
             "n_mels": acfg.n_mels, "sr": acfg.sample_rate, "hop_length": acfg.hop_length})
 
 
-def write_maestro_tree(root, seed: int, seconds: float = 121.0, pieces: int = 2) -> None:
-    """A seeded raw MAESTRO-v3 layout (CSV + WAV + MIDI): ``pieces`` recordings
-    of the test split, each a ``write_wav`` signal with a MIDI file of random
-    notes."""
+def write_maestro_tree(root, seed: int, pieces) -> None:
+    """A seeded raw MAESTRO-v3 layout (CSV + WAV + MIDI): one recording per
+    (split, seconds) of ``pieces``, each a ``write_wav`` signal with a MIDI
+    file of 200 random notes."""
     import csv
 
     from music_transcription_tpu_torch.data import midi as midi_io
 
     rng = np.random.default_rng(seed)
     rows = []
-    for i in range(pieces):
+    for i, (split, seconds) in enumerate(pieces):
         rel_wav, rel_mid = f"2018/piece{i}.wav", f"2018/piece{i}.midi"
         os.makedirs(os.path.join(root, "2018"), exist_ok=True)
         write_wav(os.path.join(root, rel_wav), seconds, seed + i)
@@ -1047,7 +1061,7 @@ def write_maestro_tree(root, seed: int, seconds: float = 121.0, pieces: int = 2)
                  for p, s, d in zip(rng.integers(30, 100, 200), starts, 0.1 + rng.random(200))]
         midi_io.save_midi(midi_io.notes_to_midi(notes), os.path.join(root, rel_mid))
         rows.append({"canonical_composer": "Seeded", "canonical_title": f"Piece {i}",
-                     "split": "test", "year": 2018, "midi_filename": rel_mid,
+                     "split": split, "year": 2018, "midi_filename": rel_mid,
                      "audio_filename": rel_wav, "duration": seconds})
     with open(os.path.join(root, "maestro-v3.0.0.csv"), "w", newline="") as f:
         writer = csv.DictWriter(f, fieldnames=list(rows[0]))
@@ -1058,8 +1072,6 @@ def write_maestro_tree(root, seed: int, seconds: float = 121.0, pieces: int = 2)
 def run_evaluate(argv) -> dict:
     """``python -m music_transcription_tpu_torch.evaluate`` in this process
     (so that its launches are counted): its EVAL_* lines, or raises."""
-    import io
-
     from music_transcription_tpu_torch import evaluate
 
     out = io.StringIO()
@@ -1072,17 +1084,22 @@ def run_evaluate(argv) -> dict:
 
 
 @contextlib.contextmanager
-def recorded_steps():
+def recorded_steps(keep_batches: bool = False):
     """train/loop's train steps, recorded with their host time (each ends in
-    a host read of its loss): yields the list they are appended to."""
+    a host read of its loss) and the host clock at their start and end:
+    yields the list they are appended to. ``keep_batches`` also keeps a
+    copy of each step's batch on the host, made before the step's end is
+    read."""
     from music_transcription_tpu_torch.train import loop as train_loop
 
     steps, real_step = [], train_loop.train_step
 
-    def recorded_step(*args, **kwargs):
+    def recorded_step(state, batch, *args, **kwargs):
         t_start = time.perf_counter()
-        metrics = real_step(*args, **kwargs)
-        steps.append(dict(metrics, ms=(time.perf_counter() - t_start) * 1e3))
+        metrics = real_step(state, batch, *args, **kwargs)
+        ms = (time.perf_counter() - t_start) * 1e3
+        kept = tuple(a.cpu() for a in batch) if keep_batches else None
+        steps.append(dict(metrics, ms=ms, start=t_start, end=time.perf_counter(), batch=kept))
         return metrics
 
     train_loop.train_step = recorded_step
@@ -1262,6 +1279,154 @@ def check_fp32_step(torch, mcfg, tcfg, rows) -> None:
         raise AssertionError(rows[-1])
 
 
+MEL_DEVICE_TOL = 6e-2  # dB: the device mel against the host's, the JAX package's own bound
+
+
+def preprocess_slab_phase(torch, lk, ak, card):
+    """Phase 6b: preprocess a seeded raw MAESTRO-layout tree with the
+    preprocessing CLI on the card and on the host, then train the default
+    model from the card-built cache through slab rotation."""
+    from music_transcription_tpu_torch import native
+    from music_transcription_tpu_torch import preprocess as preprocess_cli
+    from music_transcription_tpu_torch.config import AudioConfig
+    from music_transcription_tpu_torch.data import cache, pipeline
+    from music_transcription_tpu_torch.train import __main__ as train_cli
+
+    acfg = AudioConfig()
+    root = os.path.join(WORK, "maestro_slab")
+    dev_cache, host_cache = os.path.join(WORK, "cache_card"), os.path.join(WORK, "cache_host")
+    host1_cache, run_dir = os.path.join(WORK, "cache_host_1"), os.path.join(WORK, "slab_run")
+    for d in (root, dev_cache, host_cache, host1_cache, run_dir):
+        shutil.rmtree(d, ignore_errors=True)
+    t0 = time.perf_counter()
+    # 4 train pieces of 380 s: 12 chunks of 30 s and a 20 s tail each (a tail
+    # of at least half a chunk is kept); 1 validation piece of 121 s: 4 chunks
+    write_maestro_tree(root, SEED + 11, [("train", 380.0)] * 4 + [("validation", 121.0)])
+    print(f"[6b] raw tree of 4 x 380 s train and 1 x 121 s validation pieces written in "
+          f"{time.perf_counter() - t0:.1f} s; host kit built: {native.available()} "
+          f"({native.library_path().name})")
+    if not native.available():
+        raise AssertionError("the host kit did not build")
+
+    argv = ["--root_dir", root, "--splits", "train,validation", "--n_mels", str(acfg.n_mels),
+            "--verify"]
+    rates = {}
+    # the card path with 2 decoder threads, the host path with a pool of 2
+    # spawned workers, and the host path in this process (no pool to start)
+    for name, out, device, workers in (("card", dev_cache, "cuda", 2),
+                                       ("host", host_cache, "cpu", 2),
+                                       ("host in this process", host1_cache, "cpu", 1)):
+        log = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(log):
+            rc = preprocess_cli.main(argv + ["--cache_dir", out, "-d", device,
+                                             "--num_workers", str(workers)])
+        wall = time.perf_counter() - t0
+        n = sum(cache.load_metadata(out, split)["num_chunks"] for split in ("train", "validation"))
+        verified = [cache.verify_cache(out, split) for split in ("train", "validation")]
+        rates[name] = n / wall
+        print(f"    preprocess -d {device} --num_workers {workers}: rc {rc}, {n} chunks in "
+              f"{wall:.2f} s ({n / wall:.1f} chunks/s), verify {verified}")
+        if rc != 0 or log.getvalue().count("verify: OK") != 2 or not all(ok for ok, _ in verified):
+            raise AssertionError(f"preprocessing on {device} failed:\n{log.getvalue()[-3000:]}")
+    print(f"    card path {rates['card']:.1f} chunks/s against the host path's "
+          f"{rates['host']:.1f} ({rates['card'] / rates['host']:.2f}x) and "
+          f"{rates['host in this process']:.1f} in this process "
+          f"({rates['card'] / rates['host in this process']:.2f}x), on {card}")
+    worst, tails = 0.0, 0
+    for split in ("train", "validation"):
+        meta = cache.load_metadata(dev_cache, split)
+        if meta != cache.load_metadata(host_cache, split):
+            raise AssertionError(f"the {split} metadata differs between the card and the host")
+        for i in range(meta["num_chunks"]):
+            a = cache.load_chunk(os.path.join(dev_cache, split), i)
+            b = cache.load_chunk(os.path.join(host_cache, split), i)
+            if a["mel"].shape != b["mel"].shape or not np.array_equal(a["roll"], b["roll"]):
+                raise AssertionError(f"{split} chunk {i}: shape or roll differs")
+            worst = max(worst, float(np.abs(a["mel"] - b["mel"]).max()))
+            tails += a["mel"].shape[1] < acfg.mel_frames_per_chunk - 1
+    n_train = cache.load_metadata(dev_cache, "train")["num_chunks"]
+    n_val = cache.load_metadata(dev_cache, "validation")["num_chunks"]
+    print(f"    card cache against host cache: {n_train} + {n_val} chunks ({tails} tails), rolls "
+          f"identical, mel max_abs_err {worst:.3e} dB (tol {MEL_DEVICE_TOL})")
+    if (n_train, n_val, tails) != (52, 4, 4) or worst > MEL_DEVICE_TOL:
+        raise AssertionError("the card-built cache disagrees with the host-built one")
+
+    made = []
+
+    class Recorded(pipeline.SlabRotatingLoader):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            made.append(self)
+
+    counters = (lk.lstm_recurrence, lk.lstm_recurrence_fwd, lk.lstm_recurrence_bwd)
+    real_loader = pipeline.SlabRotatingLoader
+    pipeline.SlabRotatingLoader = Recorded
+    try:
+        with recorded_steps(keep_batches=True) as steps:
+            for counter in counters:
+                counter.launches = 0
+            gc.collect()  # a peak counts no garbage of earlier phases
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            log = io.StringIO()
+            with contextlib.redirect_stdout(log):
+                rc = train_cli.main(["--cache_dir", dev_cache, "--root_dir", root,
+                                     "--run_dir", run_dir, "--device_data", "slab",
+                                     "--slab_gb", "0.02", "--batch_size", "24", "--epochs", "2",
+                                     "--num_workers", "4", "--seed", str(SEED)])
+            wall = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated()
+            launches = {c.__name__: c.launches for c in counters}
+    finally:
+        pipeline.SlabRotatingLoader = real_loader
+    (loader,) = made
+    print(f"    train CLI --device_data slab --slab_gb 0.02: rc {rc}, wall {wall:.1f} s; "
+          f"{loader.n_slabs} slabs x {loader.items_per_slab} items of {loader.item_bytes} bytes, "
+          f"{len(loader)} steps an epoch; step losses {[round(m['loss'], 5) for m in steps]}, "
+          f"skipped {sum(m['skipped'] for m in steps)}; launches {launches}")
+    if rc != 0:
+        raise AssertionError(f"slab training failed:\n{log.getvalue()[-3000:]}")
+    if (loader.n_slabs, loader.items_per_slab, loader.item_bytes) != (2, 24, 682868) \
+            or len(steps) != 4 or any(m["skipped"] for m in steps) \
+            or not all(np.isfinite(m["loss"]) for m in steps):
+        raise AssertionError("slab training did not take 4 finite steps over 2 slabs")
+    if launches != {"lstm_recurrence": 4 * 2, "lstm_recurrence_fwd": 4 * 4,
+                    "lstm_recurrence_bwd": 4 * 4}:
+        raise AssertionError(f"slab training missed a kernel: {launches}")
+
+    # every batch equals the same items loaded on the host: load_chunk,
+    # collate_mel, the mel rounded to bf16 and widened, the roll widened
+    data = cache.CachedMaestroDataset(dev_cache, "train", verbose=False)
+    expected = [slab[order[b * 24:(b + 1) * 24]] for epoch in range(2)
+                for slab, orders in loader.plan(epoch) for order in orders
+                for b in range(loader.items_per_slab // 24)]
+    for k, (idx, m) in enumerate(zip(expected, steps, strict=True)):
+        mel, roll, lengths = pipeline.collate_mel([data[int(i)] for i in idx],
+                                                  pad_to=acfg.mel_frames_per_chunk)
+        want = (torch.from_numpy(mel).to(torch.bfloat16).float(), torch.from_numpy(roll),
+                torch.from_numpy(lengths))
+        for got, ref in zip(m["batch"], want, strict=True):
+            if got.dtype != ref.dtype or not torch.equal(got, ref):
+                raise AssertionError(f"step {k + 1}'s batch differs from its items on the host")
+    print(f"    all {len(steps)} batches bit-identical to their items loaded on the host "
+          f"(load_chunk, collate_mel, bf16 round, widened)")
+
+    for j, st in enumerate(loader.stage_log):
+        print(f"    slab {j + 1} (epoch {j // 2 + 1}): {st['items']} items, "
+              f"{st['bytes'] / 1e6:.2f} MB, host {st['host_s'] * 1e3:.1f} ms, copy "
+              f"{st['copy_s'] * 1e3:.2f} ms ({st['bytes'] / max(st['copy_s'], 1e-9) / 1e9:.2f} "
+              f"GB/s)")
+    for k, m in enumerate(steps):
+        wait = (m["start"] - steps[k - 1]["end"]) * 1e3 if k else float("nan")
+        kind = "first of a slab staged behind the last" if k % 2 else "first of an epoch"
+        print(f"    step {k + 1} ({kind}): {m['ms']:.1f} ms, loader wait before it "
+              f"{wait:.1f} ms")
+    print(f"    peak device memory {peak / 2**30:.2f} GiB ({held / 2**30:.2f} GiB held before), "
+          f"on {card}")
+
+
 def flash_train_phase(torch, lk, ak, rows, xla_ms):
     """Phase 7: the default model with attention_backend="pallas" through
     train/loop.train_model on the phase-6 cache staged on the card, 2 epochs
@@ -1353,7 +1518,7 @@ def eval_phase(torch, lk, ak, flash_best, xla_best):
     # the phase-6 model_best at --window 120 on a raw MAESTRO-layout tree: one
     # batch of 2 windows padded to 8 rows, 4*8*8*3751^2 bytes of scores, so
     # "auto" takes K3
-    write_maestro_tree(root, SEED + 9)
+    write_maestro_tree(root, SEED + 9, [("test", 121.0)] * 2)
     for c in counters:
         c.launches = 0
     t0 = time.perf_counter()
@@ -1506,6 +1671,10 @@ def main() -> int:
 
     # 6. training at full width through the CLI (attention on the plain route)
     train_launches, xla_ms, xla_best = train_phase(torch, lk, ak, wav30, rows)
+
+    # 6b. preprocessing on the card and on the host, then training through
+    # slab rotation from the card-built cache
+    preprocess_slab_phase(torch, lk, ak, card)
 
     # 7. training at full width through the flash attention
     flash_launches, flash_best = flash_train_phase(torch, lk, ak, rows, xla_ms)

@@ -6,8 +6,9 @@ IEEE float32/64, WAVE_FORMAT_EXTENSIBLE) is decoded here; other containers
 go through the optional ``soundfile`` package when it is installed.
 
 Resampling is a polyphase FIR (scipy.signal.resample_poly with a Kaiser
-window). The same numpy decode is the JAX package's parity oracle for its
-native decoder, so both packages see identical samples.
+window). A mono decode goes through the host kit (``native.py``, C++) when
+it builds; the numpy decode below is its fallback and its oracle, and gives
+the same samples.
 """
 
 from __future__ import annotations
@@ -17,6 +18,8 @@ import struct
 
 import numpy as np
 from scipy import signal
+
+from music_transcription_tpu_torch import native
 
 _KAISER_BETA = 14.769656459379492  # ~ kaiser_best quality
 
@@ -93,6 +96,19 @@ def load_wav(
     differs from the file rate, the signal is resampled and, with
     ``duration`` set, trimmed/zero-padded to round(duration * sr) samples.
     """
+    decoded = _load_wav_native(path, offset, duration) if mono else None
+    y, file_sr = decoded if decoded is not None else _load_wav_numpy(path, mono, offset,
+                                                                      duration)
+    if sr is not None and sr != file_sr:
+        y = resample(y, file_sr, sr)
+        if duration is not None:
+            y = fix_length(y, int(round(duration * sr)))
+        file_sr = sr
+    return np.ascontiguousarray(y, dtype=np.float32), file_sr
+
+
+def _load_wav_numpy(path, mono, offset, duration):
+    """The numpy decode of the window at the file's rate: (samples, file_sr)."""
     with open(path, "rb") as f:
         fmt_code, channels, file_sr, bits, data_offset, data_size = _parse_wav_header(f)
         bytes_per_frame = channels * (bits // 8)
@@ -105,18 +121,26 @@ def load_wav(
         f.seek(data_offset + start_frame * bytes_per_frame)
         raw = f.read(n_frames * bytes_per_frame)
     x = _decode_frames(raw, fmt_code, bits, channels)
-    if mono:
-        y = x.mean(axis=1) if channels > 1 else x[:, 0]
-    else:
-        y = x.T
-    if sr is not None and sr != file_sr:
-        y = resample(y, file_sr, sr)
-        if duration is not None:
-            y = fix_length(y, int(round(duration * sr)))
-        out_sr = sr
-    else:
-        out_sr = file_sr
-    return np.ascontiguousarray(y, dtype=np.float32), out_sr
+    if not mono:
+        return x.T, file_sr
+    return (x.mean(axis=1) if channels > 1 else x[:, 0]), file_sr
+
+
+def _load_wav_native(path, offset, duration):
+    """The host kit's mono decode of the window: (samples, file_sr), or None
+    when the kit is not built or does not take the file."""
+    if not native.available():
+        return None
+    try:
+        info = native.wav_info(path)
+        start = min(int(round(offset * info.sample_rate)), info.n_frames)
+        if duration is None:
+            n = info.n_frames - start
+        else:
+            n = min(int(round(duration * info.sample_rate)), info.n_frames - start)
+        return native.decode_wav(path, start, n), info.sample_rate
+    except ValueError:
+        return None
 
 
 def load_audio(path, sr=None, mono=True, offset=0.0, duration=None):

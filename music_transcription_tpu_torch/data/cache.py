@@ -1,4 +1,4 @@
-"""Preprocessed-chunk cache: read and write.
+"""Preprocessed-chunk cache: write, read, verify.
 
 The port's copy of the JAX package's ``data/cache.py`` (numpy only), so a
 cache written by either package, or by the reference, loads in both:
@@ -12,7 +12,8 @@ cache written by either package, or by the reference, loads in both:
     n_mels, sr, hop_length, return_waveform, tokenize, chunks)
 
 ``HybridMaestroDataset`` uses the cache when its chunk_length and overlap
-match the request, else loads chunks from the raw dataset.
+match the request, else loads chunks from the raw dataset. ``verify_cache``
+checks a split's chunk count against its metadata and loads chunk 0.
 """
 
 from __future__ import annotations
@@ -23,7 +24,10 @@ import pickle
 import numpy as np
 
 CHUNK_FMT = "chunk_{:06d}"
-# PCM16 codec of compact waveforms: round(x * 32768) clipped to int16
+# PCM16 codec of compact waveforms: round(x * 32768) clipped to int16, and
+# back x / 32768. The one scale of the encoder (quantize_i16, used by
+# preprocessing's --compact and by device staging) and of the decoders
+# (load_chunk, pipeline.dequantize_i16).
 PCM16_SCALE = 32768.0
 
 
@@ -46,6 +50,11 @@ def save_metadata(cache_dir, split: str, meta: dict) -> None:
 
 def chunk_path(split_dir, idx: int, fmt: str = "npz") -> str:
     return os.path.join(str(split_dir), CHUNK_FMT.format(idx) + "." + fmt)
+
+
+def quantize_i16(a: np.ndarray) -> np.ndarray:
+    """Exact for audio decoded from 16-bit PCM; half-LSB error otherwise."""
+    return np.clip(np.rint(a * PCM16_SCALE), -32768, 32767).astype(np.int16)
 
 
 def save_chunk(split_dir, idx: int, arrays: dict) -> str:
@@ -156,3 +165,31 @@ class HybridMaestroDataset:
 
     def __getitem__(self, idx: int):
         return self.dataset[idx]
+
+
+def verify_cache(cache_dir, split: str) -> tuple[bool, str]:
+    """Chunk count against the metadata, then chunk 0 loaded and its keys
+    checked. Returns (ok, message)."""
+    try:
+        meta = load_metadata(cache_dir, split)
+    except FileNotFoundError:
+        return False, f"missing metadata for split '{split}'"
+    split_dir = os.path.join(str(cache_dir), split)
+    if meta.get("num_chunks") == 0:
+        # an empty split writes no chunk files and may have no directory
+        return True, "0 chunks (empty split)"
+    if not os.path.isdir(split_dir):
+        return False, f"missing split directory {split_dir}"
+    n_files = len([f for f in os.listdir(split_dir)
+                   if f.startswith("chunk_") and not f.endswith(".tmp.npz")])
+    if n_files != meta["num_chunks"]:
+        return False, f"chunk count mismatch: metadata={meta['num_chunks']} files={n_files}"
+    try:
+        data = load_chunk(split_dir, 0)
+    except Exception as e:  # a corrupt file of any kind fails the check, reported
+        return False, f"failed to load chunk 0: {e}"
+    want_keys = {"tokens", "waveform"} if meta.get("tokenize") else (
+        {"waveform", "roll"} if meta.get("return_waveform") else {"mel", "roll"})
+    if not want_keys <= set(data):
+        return False, f"chunk 0 keys {sorted(data)} missing {sorted(want_keys - set(data))}"
+    return True, f"{meta['num_chunks']} chunks ok"

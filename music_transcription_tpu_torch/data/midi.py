@@ -19,6 +19,8 @@ import numpy as np
 
 from music_transcription_tpu_torch.config import MIN_MIDI, NUM_KEYS
 
+from music_transcription_tpu_torch import native
+
 _SUSTAIN_CC = 64
 
 
@@ -93,7 +95,15 @@ class MidiFile:
 
 
 def _fill_roll(notes, fs: float, n_cols: int) -> np.ndarray:
-    """Velocity-summed note fill."""
+    """Velocity-summed note fill: the host kit (``native.py``, C++) when it
+    builds, else numpy."""
+    if native.available():
+        return native.fill_roll([n.pitch for n in notes], [n.start for n in notes],
+                                [n.end for n in notes], [n.velocity for n in notes], fs, n_cols)
+    return _fill_roll_numpy(notes, fs, n_cols)
+
+
+def _fill_roll_numpy(notes, fs: float, n_cols: int) -> np.ndarray:
     roll = np.zeros((128, n_cols))
     for n in notes:
         roll[n.pitch, int(n.start * fs) : int(n.end * fs)] += n.velocity

@@ -9,20 +9,22 @@ package's ``data/pipeline.py``.
   * ``DeviceStagedLoader``: the whole dataset staged on the card once
     (mel as bf16 and the binary roll as uint8 under bf16 compute), batches
     gathered there by index, so a step moves one index vector to the card
+  * ``SlabRotatingLoader``: for caches larger than the staging limit, each
+    epoch's permutation cut into equal slabs, one slab staged at a time
+    while the next stages behind it; the JAX package's batches in its order
   * ``epoch_index_batches``: the index batches of one epoch over a staged set
-
-The JAX package's ``SlabRotatingLoader`` (caches larger than device memory)
-is not ported yet.
 """
 
 from __future__ import annotations
 
+import time
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
 from music_transcription_tpu_torch.config import NUM_KEYS
+from music_transcription_tpu_torch.data.cache import PCM16_SCALE, quantize_i16
 
 
 def pad_to_multiple(x: np.ndarray, multiple: int, axis: int = 0) -> tuple[np.ndarray, int]:
@@ -113,22 +115,29 @@ class Loader:
                 yield self._maybe_pad(self.collate([f.result() for f in fs], pad_to=self.pad_to))
 
 
-def stage_to_device(dataset, collate, *, device, pad_to: int | None = None,
-                    num_workers: int = 4, verbose: bool = False,
-                    bf16_fields: tuple[int, ...] = (), u8_fields: tuple[int, ...] = ()):
-    """Collate a whole dataset into one batch per field and put it on
-    ``device``. ``bf16_fields`` are staged as bfloat16 (half the bytes; for
-    model inputs under bf16 compute, whose first layer makes the same
-    round-to-nearest cast), ``u8_fields`` as uint8 (binary piano rolls,
-    exact; anything but 0 and 1 raises). Returns (tensors, n_items)."""
-    n = len(dataset)
+def collate_subset(dataset, collate, indices, *, pad_to: int | None = None,
+                   num_workers: int = 4, compact_fields: tuple[int, ...] = (),
+                   bf16_fields: tuple[int, ...] = (),
+                   u8_fields: tuple[int, ...] = ()) -> list[torch.Tensor]:
+    """The items at ``indices`` collated into one batch per field, as CPU
+    tensors in their staged dtypes: ``compact_fields`` as int16 at PCM16
+    scale (``quantize_i16``: exact for audio decoded from 16-bit PCM),
+    ``bf16_fields`` as bfloat16 (for model inputs under bf16 compute, whose
+    first layer makes the same round-to-nearest cast), ``u8_fields`` as
+    uint8 (binary piano rolls, exact; anything but 0 and 1 raises)."""
+    indices = [int(i) for i in indices]
     if num_workers > 0:
         with ThreadPoolExecutor(max_workers=num_workers) as pool:
-            items = list(pool.map(dataset.__getitem__, range(n)))
+            items = list(pool.map(dataset.__getitem__, indices))
     else:
-        items = [dataset[i] for i in range(n)]
-    host = [torch.from_numpy(np.ascontiguousarray(a)) for a in collate(items, pad_to=pad_to)]
+        items = [dataset[i] for i in indices]
+    host = list(collate(items, pad_to=pad_to))
     del items
+    for i in compact_fields:
+        if not np.issubdtype(host[i].dtype, np.floating):
+            raise ValueError(f"compact field {i} must be float, got {host[i].dtype}")
+        host[i] = quantize_i16(host[i])
+    host = [torch.from_numpy(np.ascontiguousarray(a)) for a in host]
     for i in bf16_fields:
         if not host[i].is_floating_point():
             raise ValueError(f"bf16 field {i} must be float, got {host[i].dtype}")
@@ -139,10 +148,45 @@ def stage_to_device(dataset, collate, *, device, pad_to: int | None = None,
             raise ValueError(f"u8 field {i} must be a binary float array (piano roll); "
                              f"got dtype={a.dtype}")
         host[i] = a.to(torch.uint8)
+    return host
+
+
+def stage_to_device(dataset, collate, *, device, pad_to: int | None = None,
+                    num_workers: int = 4, verbose: bool = False,
+                    compact_fields: tuple[int, ...] = (), bf16_fields: tuple[int, ...] = (),
+                    u8_fields: tuple[int, ...] = (), indices=None):
+    """Collate the dataset (or the items at ``indices``) into one batch per
+    field, in the dtypes of ``collate_subset``, and put it on ``device``.
+    Returns (tensors, n_items)."""
+    if indices is None:
+        indices = range(len(dataset))
+    host = collate_subset(dataset, collate, indices, pad_to=pad_to, num_workers=num_workers,
+                          compact_fields=compact_fields, bf16_fields=bf16_fields,
+                          u8_fields=u8_fields)
     if verbose:
         mb = sum(a.numel() * a.element_size() for a in host) / 1e6
-        print(f"Staging {n} items ({mb:.0f} MB) on {device}...")
-    return tuple(a.to(device) for a in host), n
+        print(f"Staging {len(indices)} items ({mb:.0f} MB) on {device}...")
+    return tuple(a.to(device) for a in host), len(indices)
+
+
+def dequantize_i16(a: torch.Tensor) -> torch.Tensor:
+    """Inverse of ``cache.quantize_i16``. 1 / 32768 is a power of two, so the
+    product equals ``load_chunk``'s quotient bit for bit."""
+    return a.float() * (1.0 / PCM16_SCALE)
+
+
+def _make_dequantizer(compact_fields=(), bf16_fields=(), u8_fields=()):
+    """Per field, the inverse of the staged dtype: int16 PCM dequantized,
+    bf16 and uint8 widened to float32, so gathered batches come out in the
+    streaming Loader's dtypes."""
+    cf = frozenset(compact_fields)
+    widen = frozenset(bf16_fields) | frozenset(u8_fields)
+
+    def dq(out):
+        return tuple(dequantize_i16(a) if i in cf else a.float() if i in widen else a
+                     for i, a in enumerate(out))
+
+    return dq
 
 
 def epoch_index_batches(n: int, batch_size: int, *, shuffle: bool = True, seed: int = 0,
@@ -172,7 +216,7 @@ class DeviceStagedLoader:
         self.arrays, self.n = stage_to_device(
             dataset, collate, device=self.device, pad_to=pad_to, num_workers=num_workers,
             verbose=verbose, bf16_fields=bf16_fields, u8_fields=u8_fields)
-        self.widen = frozenset(bf16_fields) | frozenset(u8_fields)
+        self.dequantize = _make_dequantizer(bf16_fields=bf16_fields, u8_fields=u8_fields)
         self.batch_size = batch_size
         self.shuffle, self.seed = shuffle, seed
         self.drop_last = drop_last
@@ -191,8 +235,154 @@ class DeviceStagedLoader:
             if n_real < self.batch_size and self.pad_last_batch:
                 idx = np.pad(idx, (0, self.batch_size - n_real))
             sel = torch.from_numpy(idx.astype(np.int64)).to(self.device)
-            out = [a.index_select(0, sel) for a in self.arrays]
-            out = [a.float() if i in self.widen else a for i, a in enumerate(out)]
+            out = list(self.dequantize(tuple(a.index_select(0, sel) for a in self.arrays)))
             if self.pad_last_batch:
                 out[-1][n_real:] = 0
             yield tuple(out)
+
+
+class SlabRotatingLoader:
+    """Device-staged feeding for caches larger than the staging limit.
+
+    Each epoch draws a permutation of the dataset and cuts it into
+    ``n_slabs`` equal slabs of ``items_per_slab`` items (whole batches; the
+    permutation's remainder sits the epoch out, different items each epoch).
+    One slab at a time is staged on ``device`` and its batches gathered there
+    by index, as in ``DeviceStagedLoader``; ``passes_per_slab`` > 1 walks a
+    staged slab again in a new order before it rotates. Slab s + 1 stages on
+    one background thread while slab s trains, so the data on the device
+    peaks at 2 slabs; size ``slab_bytes`` for that.
+
+    The order is the JAX package's: one ``np.random.default_rng(seed +
+    epoch)`` draws ``permutation(n)`` for the slabs, then
+    ``permutation(items_per_slab)`` per slab and pass, in that sequence, so
+    the batches hold the same items in the same order at the same seed.
+
+    On a CUDA device a slab is staged from pinned host memory on a side
+    stream, with an event recorded there; the consumer's stream waits on the
+    event before the slab's first gather, and the slab's tensors are marked
+    as used by that stream (``record_stream``), so the caching allocator
+    does not hand their memory to the next slab's copy while a gather still
+    reads it. ``stage_log`` holds each slab's items, bytes, host time
+    (reading and collating the items) and copy time. When the consumer
+    abandons an epoch (an early break or an exception), the current slab
+    and any prefetched one are dropped and the prefetch thread is joined.
+    """
+
+    def __init__(self, dataset, batch_size: int, *, device, collate=collate_mel,
+                 pad_to: int | None = None, slab_bytes: float = 4e9,
+                 passes_per_slab: int = 1, seed: int = 0, num_workers: int = 4,
+                 verbose: bool = False,
+                 compact_fields: tuple[int, ...] = (), bf16_fields: tuple[int, ...] = (),
+                 u8_fields: tuple[int, ...] = ()):
+        self.device = torch.device(device)
+        self.dataset = dataset
+        self.batch_size = batch_size
+        self.collate = collate
+        self.pad_to = pad_to
+        self.seed = seed
+        self.num_workers = num_workers
+        self.verbose = verbose
+        self.fields = dict(compact_fields=tuple(compact_fields),
+                           bf16_fields=tuple(bf16_fields), u8_fields=tuple(u8_fields))
+        self.dequantize = _make_dequantizer(**self.fields)
+        self.passes_per_slab = max(1, int(passes_per_slab))
+        self.epoch = 0
+        self.stage_log: list[dict] = []
+
+        n = len(dataset)
+        probe = collate([dataset[0]], pad_to=pad_to)
+        item_bytes = 0
+        for i, a in enumerate(probe):
+            b = int(np.asarray(a).nbytes)
+            if i in compact_fields or i in bf16_fields:
+                b //= 2  # staged as int16 / bfloat16
+            elif i in u8_fields:
+                b //= 4  # staged as uint8
+            item_bytes += b
+        budget_items = max(batch_size, int(slab_bytes // max(1, item_bytes)))
+        n_slabs = max(1, -(-n // budget_items))
+        # equal slabs of whole batches: one gather shape for the whole run
+        self.items_per_slab = max(batch_size, (n // n_slabs) // batch_size * batch_size)
+        # a budget under 2 batches can leave the last slabs short of items:
+        # they are dropped (the JAX package's loader gathers clamped
+        # duplicates there)
+        self.n_slabs = min(n_slabs, n // self.items_per_slab)
+        self.item_bytes = item_bytes
+        self._stream = torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
+        if verbose:
+            print(f"Slab rotation: {self.n_slabs} slabs x {self.items_per_slab} items "
+                  f"({self.items_per_slab * item_bytes / 1e9:.2f} GB/slab, {n} items, "
+                  f"{item_bytes / 1e6:.2f} MB/item)")
+
+    def __len__(self) -> int:
+        return self.n_slabs * self.passes_per_slab * (self.items_per_slab // self.batch_size)
+
+    def plan(self, epoch: int) -> list[tuple[np.ndarray, list[np.ndarray]]]:
+        """Epoch ``epoch``'s slabs: for each, its dataset indices and, per
+        pass, the order of its positions; batch b of a pass holds
+        ``slab[order[b * batch_size:(b + 1) * batch_size]]``."""
+        rng = np.random.default_rng(self.seed + epoch)
+        m = self.items_per_slab
+        perm = rng.permutation(len(self.dataset))
+        return [(perm[s * m:(s + 1) * m], [rng.permutation(m) for _ in range(self.passes_per_slab)])
+                for s in range(self.n_slabs)]
+
+    def _stage(self, idx):
+        """(tensors on the device, the event of their copy or None)."""
+        t0 = time.perf_counter()
+        host = collate_subset(self.dataset, self.collate, idx, pad_to=self.pad_to,
+                              num_workers=self.num_workers, **self.fields)
+        nbytes = sum(a.numel() * a.element_size() for a in host)
+        ready = None
+        if self._stream is None:
+            arrays = tuple(a.to(self.device) for a in host)
+            t1 = t2 = time.perf_counter()
+        else:
+            host = [a.pin_memory() for a in host]
+            t1 = time.perf_counter()
+            with torch.cuda.stream(self._stream):
+                arrays = tuple(a.to(self.device, non_blocking=True) for a in host)
+                ready = torch.cuda.Event()
+                ready.record(self._stream)
+            ready.synchronize()  # this thread only: the staging time ends here
+            t2 = time.perf_counter()
+        self.stage_log.append(dict(items=len(idx), bytes=nbytes, host_s=t1 - t0,
+                                   copy_s=t2 - t1))
+        if self.verbose:
+            print(f"Slab of {len(idx)} items staged ({nbytes / 1e6:.0f} MB): host "
+                  f"{t1 - t0:.2f} s, copy {t2 - t1:.3f} s")
+        return arrays, ready
+
+    def _gather(self, arrays, positions):
+        sel = torch.from_numpy(positions.astype(np.int64)).to(self.device)
+        return self.dequantize(tuple(a.index_select(0, sel) for a in arrays))
+
+    def __iter__(self):
+        plan = self.plan(self.epoch)
+        self.epoch += 1
+        if not plan:  # fewer items than a batch
+            return
+        bs, n_batches = self.batch_size, self.items_per_slab // self.batch_size
+        pool = ThreadPoolExecutor(max_workers=1, thread_name_prefix="slab-prefetch")
+        pending = pool.submit(self._stage, plan[0][0])
+        arrays = ()
+        try:
+            for s, (_, orders) in enumerate(plan):
+                arrays, ready = pending.result()
+                pending = pool.submit(self._stage, plan[s + 1][0]) if s + 1 < len(plan) else None
+                if ready is not None:
+                    stream = torch.cuda.current_stream(self.device)
+                    stream.wait_event(ready)
+                    for a in arrays:
+                        a.record_stream(stream)
+                for order in orders:
+                    for b in range(n_batches):
+                        yield self._gather(arrays, order[b * bs:(b + 1) * bs])
+                arrays = ()
+        finally:
+            # on abandonment too: drop the current slab, cancel or wait out the
+            # prefetch and drop what it staged, join the thread
+            arrays = ()
+            pool.shutdown(wait=True, cancel_futures=True)
+            pending = None

@@ -9,9 +9,11 @@ The flags and their defaults are those of the JAX package's
 takes ``cuda`` (the default; the run exits 1 when no card is visible) or
 ``cpu``. Training runs on one device: ``--data_parallel`` above 1 and a
 ``--partitioning`` other than ``dp`` raise. ``--device_data on`` stages the
-whole cache on the device once; ``slab`` (and ``auto`` when the cache does
-not fit) is not ported yet and exits with a message naming
-``--device_data off``.
+whole cache on the device once; ``slab`` (and ``auto`` on the card when the
+staged cache would reach ``STAGE_LIMIT_BYTES``) rotates slabs of
+``--slab_gb`` through the device (``data/pipeline.SlabRotatingLoader``),
+with the validation split staged whole; ``off`` streams batches from the
+host.
 
 Exit codes: 0 done, 1 error, 66 stall watchdog, 67 planned RSS recycle
 (rerun with ``--resume auto`` to continue).
@@ -105,10 +107,17 @@ def build_parser() -> argparse.ArgumentParser:
     e.add_argument("--device_data", "--device-data", type=str, default="auto",
                    choices=["auto", "on", "off", "slab"],
                    help="stage the dataset on the device once and gather batches there. "
-                        "auto = on a card when the data fits; 'slab' is not ported yet")
-    e.add_argument("--slab_gb", "--slab-gb", type=float, default=3.5, help=argparse.SUPPRESS)
+                        "auto = on a card: whole when the staged data stays under "
+                        f"{STAGE_LIMIT_BYTES / 1e9:.0f} GB, slab rotation when it does not; "
+                        "'slab' forces rotation; 'off' streams batches from the host")
+    e.add_argument("--slab_gb", "--slab-gb", type=float, default=3.5,
+                   help="HBM budget per slab for slab-rotation feeding "
+                        "(double-buffered: peak data HBM = 2 slabs). Used "
+                        "when the cache outgrows whole-cache staging")
     e.add_argument("--slab_passes", "--slab-passes", type=int, default=1,
-                   help=argparse.SUPPRESS)
+                   help="passes over each staged slab before rotating (>1 "
+                        "amortizes slow-link staging at a sampling-"
+                        "correlation cost)")
     e.add_argument("--rss_watermark_gb", "--rss-watermark-gb", type=float, default=0.0,
                    help="checkpoint and exit 67 when host RSS crosses this at an epoch "
                         "boundary (0 = off)")
@@ -161,7 +170,11 @@ def main(argv=None) -> int:
         load_metadata,
         metadata_path,
     )
-    from music_transcription_tpu_torch.data.pipeline import DeviceStagedLoader, Loader
+    from music_transcription_tpu_torch.data.pipeline import (
+        DeviceStagedLoader,
+        Loader,
+        SlabRotatingLoader,
+    )
     from music_transcription_tpu_torch.train.loop import (
         HostMemoryRecycle,
         install_graceful_sigterm,
@@ -220,25 +233,29 @@ def main(argv=None) -> int:
     on_card = args.device == "cuda"
     use_staged = args.device_data == "on" or (args.device_data == "auto" and on_card
                                                and est_bytes < STAGE_LIMIT_BYTES)
-    if not use_staged and (args.device_data == "slab"
-                           or (args.device_data == "auto" and on_card)):
-        print(f"Error: the cache ({est_bytes / 1e9:.1f} GB staged) needs slab-rotation feeding, "
-              f"which the PyTorch port does not have yet; pass --device_data off to stream "
-              f"batches from the host")
-        return 1
+    use_slab = not use_staged and (args.device_data == "slab"
+                                   or (args.device_data == "auto" and on_card))
+    staged_kw = dict(bf16_fields=(0,), u8_fields=(1,)) if compact else {}
     if use_staged:
-        staged_kw = dict(bf16_fields=(0,), u8_fields=(1,)) if compact else {}
         train_loader = DeviceStagedLoader(
             train_set, args.batch_size, device=args.device, shuffle=True, seed=args.seed,
             num_workers=args.num_workers, drop_last=True, pad_to=pad_to, verbose=True,
             **staged_kw)
+    elif use_slab:
+        train_loader = SlabRotatingLoader(
+            train_set, args.batch_size, device=args.device, seed=args.seed,
+            num_workers=args.num_workers, pad_to=pad_to, slab_bytes=args.slab_gb * 1e9,
+            passes_per_slab=args.slab_passes, verbose=True, **staged_kw)
+    else:
+        train_loader = Loader(train_set, args.batch_size, shuffle=True, seed=args.seed,
+                              num_workers=args.num_workers, drop_last=True, pad_to=pad_to)
+    if use_staged or use_slab:
+        # the validation split is small beside the train split: staged whole
         val_loader = DeviceStagedLoader(
             val_set, args.batch_size, device=args.device,
             num_workers=max(1, args.num_workers // 2), pad_to=pad_to, pad_last_batch=True,
             verbose=True, **staged_kw)
     else:
-        train_loader = Loader(train_set, args.batch_size, shuffle=True, seed=args.seed,
-                              num_workers=args.num_workers, drop_last=True, pad_to=pad_to)
         # validation keeps the tail batch, padded with rows of length 0
         val_loader = Loader(val_set, args.batch_size, num_workers=max(1, args.num_workers // 2),
                             pad_to=pad_to, pad_last_batch=True)

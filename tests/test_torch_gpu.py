@@ -524,3 +524,98 @@ def test_transcribe_audio_on_card(cuda, tmp_path):
                            verbose=False)
     assert LK.lstm_recurrence.launches == before + 2  # one forward: rnn_main + rnn_local
     load_midi(out)
+
+
+def test_preprocess_device_path_on_card_matches_host(cuda, tmp_path):
+    """The mel of a cache built on the card (torch.stft there, batches of 3
+    padded to the chunk, tails floored over their retained frames) within
+    6e-2 dB of the numpy host path's, the rolls and metadata identical."""
+    from chip_smoke import write_maestro_tree
+    from music_transcription_tpu_torch.data import cache as C
+    from music_transcription_tpu_torch.data.preprocess import preprocess_split
+
+    root = tmp_path / "raw"
+    write_maestro_tree(root, 3, [("train", 7.0), ("train", 5.0)])
+    acfg = AudioConfig(n_mels=64, chunk_length=2.0)
+    common = dict(root_dir=root, split="train", audio_cfg=acfg, chunk_length=2.0,
+                  device_batch=3, verbose=False)
+    card = preprocess_split(cache_dir=tmp_path / "card", device="cuda", **common)
+    preprocess_split(cache_dir=tmp_path / "host", device="cpu", **common)
+    assert card == {"total": 7, "processed": 7, "skipped": 0, "failed": 0}
+    assert C.load_metadata(tmp_path / "card", "train") == C.load_metadata(tmp_path / "host", "train")
+    for i in range(7):
+        a, b = C.load_chunk(tmp_path / "card" / "train", i), C.load_chunk(tmp_path / "host" / "train", i)
+        assert a["mel"].shape == b["mel"].shape
+        assert float(np.abs(a["mel"] - b["mel"]).max()) < 6e-2
+        np.testing.assert_array_equal(a["roll"], b["roll"])
+
+
+def _slab_cache(root, n=21, n_mels=40, t=60):
+    from music_transcription_tpu_torch.data import cache as C
+
+    rng = np.random.default_rng(4)
+    for i in range(n):
+        C.save_chunk(root / "train", i, {
+            "mel": (rng.standard_normal((n_mels, t - i % 3)) * 10 - 40).astype(np.float32),
+            "roll": (rng.random((88, t - i % 3)) > 0.8).astype(np.uint8)})
+    C.save_metadata(root, "train", {"num_chunks": n, "chunk_length": 1.0, "overlap": 0.0,
+                                    "n_mels": n_mels, "sr": 16000, "hop_length": 512})
+    return C.CachedMaestroDataset(root, "train", verbose=False)
+
+
+def test_slab_epoch_on_card_equals_items_loaded_on_the_host(cuda, tmp_path):
+    """Slabs staged from pinned memory on a side stream: every batch of 2
+    epochs (2 passes a slab) equals its items collated on the host, the mel
+    rounded to bf16, bit for bit."""
+    from music_transcription_tpu_torch.data.pipeline import SlabRotatingLoader, collate_mel
+
+    data = _slab_cache(tmp_path)
+    # 10,756 bytes an item staged (bf16 mel, uint8 roll, lengths): 3 slabs of 6
+    loader = SlabRotatingLoader(data, 3, device=cuda, pad_to=64, slab_bytes=8 * 10756,
+                                passes_per_slab=2, seed=7, num_workers=2, bf16_fields=(0,),
+                                u8_fields=(1,))
+    assert loader.n_slabs == 3 and loader.items_per_slab == 6
+    for epoch in range(2):
+        expected = [slab[order[b * 3:(b + 1) * 3]] for slab, orders in loader.plan(epoch)
+                    for order in orders for b in range(2)]
+        batches = list(loader)
+        assert len(batches) == len(expected) == 12
+        for batch, idx in zip(batches, expected, strict=True):
+            mel, roll, lengths = collate_mel([data[int(i)] for i in idx], pad_to=64)
+            want = (torch.from_numpy(mel).to(torch.bfloat16).float(), torch.from_numpy(roll),
+                    torch.from_numpy(lengths))
+            for got, ref in zip(batch, want, strict=True):
+                assert got.device.type == "cuda" and got.dtype == ref.dtype
+                assert torch.equal(got.cpu(), ref)
+    assert len(loader.stage_log) == 6 and all(s["copy_s"] > 0 for s in loader.stage_log)
+
+
+def test_slab_prefetched_on_card_is_freed_on_an_early_break(cuda, tmp_path):
+    """memory_allocated: after the first batch the current and the prefetched
+    slab are held; after a break both are back with the allocator."""
+    import threading
+    import time
+
+    from music_transcription_tpu_torch.data.pipeline import SlabRotatingLoader
+
+    data = _slab_cache(tmp_path, n=40, n_mels=256, t=500)
+    loader = SlabRotatingLoader(data, 4, device=cuda, pad_to=512, slab_bytes=4e6, seed=1,
+                                num_workers=2, bf16_fields=(0,), u8_fields=(1,))
+    assert (loader.n_slabs, loader.items_per_slab) == (4, 8)
+    slab_bytes = loader.items_per_slab * loader.item_bytes
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(cuda)
+    it = iter(loader)
+    batch = next(it)
+    deadline = time.monotonic() + 60
+    while len(loader.stage_log) < 2 and time.monotonic() < deadline:
+        time.sleep(0.01)
+    assert len(loader.stage_log) == 2
+    assert torch.cuda.memory_allocated(cuda) - base >= 2 * slab_bytes
+    del batch
+    it.close()
+    torch.cuda.synchronize()
+    probe = torch.empty(1, device=cuda)  # the allocator settles the frees recorded on the stream
+    assert torch.cuda.memory_allocated(cuda) - base <= 512
+    del probe
+    assert not [t for t in threading.enumerate() if t.name.startswith("slab-prefetch")]

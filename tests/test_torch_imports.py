@@ -29,7 +29,8 @@ def _port_modules():
 
 def test_importing_the_port_loads_no_jax():
     modules = _port_modules()
-    for name in ("ops.lstm_kernel", "ops.attention_kernel", "ops.conv_kernel", "eval", "evaluate"):
+    for name in ("ops.lstm_kernel", "ops.attention_kernel", "ops.conv_kernel", "eval", "evaluate",
+                 "native", "preprocess", "data.preprocess", "models.remi_tokenizer"):
         assert f"music_transcription_tpu_torch.{name}" in modules
     code = (
         "import importlib, json, sys\n"
