@@ -99,6 +99,19 @@ Phases, in order; any failure exits non-zero:
      with a tuned threshold (K1 4 and K3 1 per batch of 8), and phase 6's
      model_best at --window 120 on a seeded raw MAESTRO-layout tree written
      here, where "auto" must take K3;
+  8b. the AST tier's inference path at full width (ModelConfig(model_type=
+     "ast"), 19,269,632 parameters, seeded weights, .pth + .json) on the
+     phase-3 WAV (4 chunks, 1024 tokens each): transcribe_audio greedy, then
+     Transcriber greedy, beam 4 and constrained, each a (88, 4 x 937) roll and
+     a MIDI written and read back; warm greedy and beam-4 requests timed, ms
+     per decode step, greedy repeated with identical tokens, the peak device
+     memory, one greedy request profiled (device activity only); one 30 s
+     chunk on the card against the CPU in fp32 and bf16 (memory and 256
+     teacher-forced logits within AST_REL_TOL, 256 greedy tokens identical up
+     to a near-tie); python -m music_transcription_tpu_torch.evaluate_ast
+     on phase 8's raw tree (--constrained --beam 2 --frame_f1, and
+     --teacher_forced): finite EVAL_AST_* lines. No hand-written kernel
+     (K1-K6) may launch in the phase;
   9. print the kernels line (JSON: launches on the main path, error against
      the plain version, times, bound, and for K1, K2a and K2b the sequential
      floor; a failed check has already exited),
@@ -940,23 +953,30 @@ def conv_front_end(torch, ck, model, rows) -> dict:
 
 
 def device_time_by_kernel(prof, wall_s: float, top: int = 12):
-    """Print a profile's device busy time, idle share and top kernels."""
+    """Print a profile's device busy time, idle share and top kernels, summed
+    from the trace's raw device events (kernels, copies, fills): the
+    profiler's own tables build a Python object an event, some 100 s for the
+    10^5-10^6 launches of an AST request."""
     from torch.autograd import DeviceType
 
-    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    busy_us = sum(e.self_device_time_total for e in kernels)
+    by_name = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            ns, count = by_name.get(e.name(), (0, 0))
+            by_name[e.name()] = (ns + e.duration_ns(), count + 1)
+    busy_us = sum(ns for ns, _ in by_name.values()) / 1e3
     wall_us = wall_s * 1e6
     print(f"      device busy {busy_us / 1e3:.2f} ms of {wall_us / 1e3:.2f} ms "
-          f"(idle share {1 - busy_us / wall_us:.3f})")
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]:
-        print(f"      {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<4d} {e.key[:90]}")
+          f"(idle share {1 - busy_us / wall_us:.3f}), "
+          f"{sum(c for _, c in by_name.values())} device events")
+    for name, (ns, count) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]:
+        print(f"      {ns / 1e6:9.3f} ms  x{count:<4d} {name[:90]}")
 
 
-def warm_request_ms(torch, server, y) -> float:
-    """One request on a warm server (after one untimed), host clock around
-    work that ends in a synchronize. A collection first, so that the reading
-    holds no full collection of garbage earlier work left."""
-    server.transcribe_array(y)
+def timed_request_ms(torch, server, y) -> float:
+    """One request on a server already warm, host clock around work that
+    ends in a synchronize. A collection first, so that the reading holds no
+    full collection of garbage earlier work left."""
     torch.cuda.synchronize()
     gc.collect()
     t0 = time.perf_counter()
@@ -965,9 +985,17 @@ def warm_request_ms(torch, server, y) -> float:
     return (time.perf_counter() - t0) * 1e3
 
 
-def profile_request(torch, server, y):
+def warm_request_ms(torch, server, y) -> float:
+    """One request after one untimed (``timed_request_ms``)."""
+    server.transcribe_array(y)
+    return timed_request_ms(torch, server, y)
+
+
+def profile_request(torch, server, y, cpu_ops: bool = True):
     """Where a warm request's time goes: host stages (clock around work that
-    ends in a synchronize) and device time by kernel (torch.profiler)."""
+    ends in a synchronize) and device time by kernel (torch.profiler; without
+    ``cpu_ops`` the device's activity alone, for a request of some 10^5
+    launches)."""
     from torch.profiler import ProfilerActivity, profile
 
     from music_transcription_tpu_torch.data.midi import pianoroll_to_notes
@@ -975,11 +1003,13 @@ def profile_request(torch, server, y):
 
     acfg = server.loaded.audio_cfg
     gc.collect()  # as warm_request_ms
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CPU] * cpu_ops + [ProfilerActivity.CUDA]
+    with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         chunks = server.split(y)
         t1 = time.perf_counter()
-        roll = transcribe_chunks(server.loaded, chunks, server.threshold)
+        roll = transcribe_chunks(server.loaded, chunks, server.threshold,
+                                 constrained=server.constrained, beam=server.beam)
         torch.cuda.synchronize()
         t2 = time.perf_counter()
         notes = pianoroll_to_notes(roll, fs=acfg.frame_rate)
@@ -1069,14 +1099,15 @@ def write_maestro_tree(root, seed: int, pieces) -> None:
         writer.writerows(rows)
 
 
-def run_evaluate(argv) -> dict:
-    """``python -m music_transcription_tpu_torch.evaluate`` in this process
-    (so that its launches are counted): its EVAL_* lines, or raises."""
-    from music_transcription_tpu_torch import evaluate
+def run_evaluate(argv, cli: str = "evaluate") -> dict:
+    """``python -m music_transcription_tpu_torch.evaluate`` (or ``cli``, e.g.
+    ``evaluate_ast``) in this process (so that its launches are counted): its
+    EVAL_* lines, or raises."""
+    import importlib
 
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
-        rc = evaluate.main(argv)
+        rc = importlib.import_module(f"music_transcription_tpu_torch.{cli}").main(argv)
     if rc != 0:
         raise AssertionError(f"evaluate {argv} exited {rc}:\n{out.getvalue()[-3000:]}")
     return {line.split("=")[0]: float(line.split("=")[1]) for line in out.getvalue().splitlines()
@@ -1534,6 +1565,172 @@ def eval_phase(torch, lk, ak, flash_best, xla_best):
     return launches
 
 
+# Card against CPU for the AST tier at full width, over the CPU's largest
+# value (encoder memory, teacher-forced logits): the serving check's bounds
+# (phase 3). Greedy tokens agree up to the first step where the CPU logits'
+# top-2 margin falls below the logit tolerance.
+AST_REL_TOL = {"float32": 1e-3, "bfloat16": 1e-1}
+AST_CHECK_STEPS = 256
+
+
+def ast_card_vs_cpu(torch, model, wave):
+    """One 30 s chunk at B=1 on the card and on the CPU, fp32 and bf16:
+    memory, teacher-forced logits over AST_CHECK_STEPS targets, and as many
+    greedy tokens."""
+    from music_transcription_tpu_torch.models.transcription import TranscriptionModel
+
+    rng = np.random.default_rng(SEED + 21)
+    tg = torch.from_numpy(rng.integers(3, model.config.remi_vocab_size, (1, AST_CHECK_STEPS)))
+    tg[:, 0] = 0
+    for dtype in ("float32", "bfloat16"):
+        cfg = dataclasses.replace(model.config, compute_dtype=dtype)
+        cpu_m, card_m = TranscriptionModel(cfg).eval(), TranscriptionModel(cfg).eval()
+        cpu_m.load_state_dict(model.state_dict())
+        card_m.load_state_dict(model.state_dict())
+        card_m.cuda()
+        tol = AST_REL_TOL[dtype]
+        with torch.inference_mode():
+            errs = {}
+            for name, fn in (("memory", lambda m, w: m.model.memory(w).float()),
+                             ("teacher-forced logits", lambda m, w: m(w, targets=tg.to(w.device)))):
+                ref, got = fn(cpu_m, wave), fn(card_m, wave.cuda()).cpu()
+                scale = float(ref.abs().max())
+                errs[name] = (float((got - ref).abs().max()), scale)
+                if not (got.shape == ref.shape and bool(torch.isfinite(got).all())
+                        and errs[name][0] <= tol * scale):
+                    raise AssertionError(f"AST {dtype} {name} disagrees with the CPU: {errs[name]}")
+            logit_tol = tol * errs["teacher-forced logits"][1]
+            ref_ids = cpu_m(wave, generate_max_len=AST_CHECK_STEPS)[0]
+            got_ids = card_m(wave.cuda(), generate_max_len=AST_CHECK_STEPS)[0].cpu()
+            diff = (got_ids != ref_ids).nonzero()
+            agreed = AST_CHECK_STEPS if len(diff) == 0 else int(diff[0])
+            margin = None
+            if agreed < AST_CHECK_STEPS:
+                seq = torch.cat([torch.zeros(1, dtype=torch.long), ref_ids[:agreed]])[None]
+                logits = cpu_m(wave, targets=seq)[0, agreed].double()
+                if agreed > 0:
+                    logits[0] = -1e9  # the SOS mask
+                top2 = logits.sort().values[-2:]
+                margin = float(top2[1] - top2[0])
+                if margin >= logit_tol:
+                    raise AssertionError(f"AST {dtype} greedy departs from the CPU at step "
+                                         f"{agreed} with a top-2 margin {margin} >= {logit_tol}")
+        print(f"    {dtype}: card vs CPU memory max_abs_err {errs['memory'][0]:.3e} "
+              f"(tol {tol} x {errs['memory'][1]:.3e}), teacher-forced logits "
+              f"{errs['teacher-forced logits'][0]:.3e} (tol {tol} x "
+              f"{errs['teacher-forced logits'][1]:.3e}); greedy: {agreed} of "
+              f"{AST_CHECK_STEPS} steps agree"
+              + ("" if margin is None else f", then a near-tie (top-2 margin {margin:.3e})"))
+
+
+def ast_phase(torch, counters, wav30, card):
+    """Phase 8b: the AST tier's inference path at full width on the card,
+    through no hand-written kernel."""
+    from music_transcription_tpu_torch.config import AudioConfig, ModelConfig, config_to_dict
+    from music_transcription_tpu_torch.data.audio import load_audio
+    from music_transcription_tpu_torch.data.midi import load_midi, notes_to_midi, save_midi
+    from music_transcription_tpu_torch.data.midi import pianoroll_to_notes
+    from music_transcription_tpu_torch.models.transcription import TranscriptionModel
+    from music_transcription_tpu_torch.transcribe import (
+        Transcriber,
+        transcribe_audio,
+        transcribe_chunks,
+    )
+
+    torch.manual_seed(SEED + 20)
+    mcfg, acfg = ModelConfig(model_type="ast"), AudioConfig()
+    model = TranscriptionModel(mcfg).eval()
+    n_params = sum(p.numel() for p in model.parameters())
+    pth, mid = os.path.join(WORK, "ast.pth"), os.path.join(WORK, "ast.mid")
+    torch.save(model.model.state_dict(), pth)
+    with open(os.path.join(WORK, "ast.json"), "w") as f:
+        json.dump({"model": config_to_dict(mcfg), "audio": config_to_dict(acfg)}, f)
+    y, _ = load_audio(wav30, sr=acfg.sample_rate)
+    frames = 4 * acfg.roll_frames_per_chunk
+
+    def launches():
+        return {c.__name__: c.launches for c in counters}
+
+    def midi_notes(path) -> int:
+        # a MIDI file of no notes reads back with no instrument
+        return sum(len(inst.notes) for inst in load_midi(path).instruments)
+
+    for c in counters:
+        c.launches = 0
+    gc.collect()  # a peak counts no garbage of earlier phases
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    t_phase = t0 = time.perf_counter()
+    transcribe_audio(wav30, pth, mid, verbose=False, device="cuda")
+    torch.cuda.synchronize()
+    print(f"[8b] AST route: {n_params:,} params, 4 chunks of 30 s, {mcfg.max_output_len} "
+          f"tokens a chunk; transcribe_audio (greedy, first request) wall "
+          f"{(time.perf_counter() - t0) * 1e3:.1f} ms, "
+          f"{midi_notes(mid)} notes")
+    servers, request_ms = {}, {}
+    for name, kw in (("greedy", {}), ("beam 4", {"beam": 4}), ("constrained", {"constrained": True})):
+        servers[name] = server = Transcriber(pth, device="cuda", **kw)
+        roll = transcribe_chunks(server.loaded, server.split(y), constrained=server.constrained,
+                                 beam=server.beam)
+        notes = pianoroll_to_notes(roll, fs=acfg.frame_rate)
+        save_midi(notes_to_midi(notes), mid)
+        n_notes = midi_notes(mid)
+        if (roll.shape != (88, frames) or not np.isin(roll, (0.0, 1.0)).all()
+                or n_notes != len(notes)):
+            raise AssertionError(f"AST {name}: roll of shape {roll.shape}, not (88, {frames})")
+        if name != "constrained":
+            request_ms[name] = timed_request_ms(torch, server, y)
+        print(f"    {name}: roll {roll.shape}, {n_notes} notes written and read back"
+              + (f"; warm request {request_ms[name]:.1f} ms" if name in request_ms else ""))
+    peak = torch.cuda.max_memory_allocated()
+    # ms per decode step: the generation loop alone, from the 4 chunks' memory
+    gen = servers["greedy"].loaded.model.model
+    with torch.inference_mode():
+        chunks = torch.from_numpy(servers["greedy"].split(y)).cuda()
+        memory = gen.memory(chunks)
+        first = gen.generate(memory, max_len=mcfg.max_output_len)
+        step_ms = {}
+        for name, fn in (("greedy, 4 rows", lambda: gen.generate(memory, max_len=mcfg.max_output_len)),
+                         ("beam 4, 16 rows", lambda: gen.generate_beam(
+                             memory, beam_size=4, max_len=mcfg.max_output_len))):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ids = fn()
+            torch.cuda.synchronize()
+            step_ms[name] = (time.perf_counter() - t0) * 1e3 / mcfg.max_output_len
+            if name.startswith("greedy") and not torch.equal(ids, first):
+                raise AssertionError("greedy generation repeated on the same input differs")
+    print(f"    greedy repeated on the same input: identical tokens; ms per decode step "
+          + ", ".join(f"{k} {v:.3f}" for k, v in step_ms.items())
+          + f"; peak device memory {peak / 2**30:.2f} GiB over the requests "
+          f"({held / 2**30:.2f} GiB held before them)")
+    t0 = time.perf_counter()
+    profile_request(torch, servers["greedy"], y, cpu_ops=False)
+    print(f"    (profiled greedy request, trace processed in {time.perf_counter() - t0:.1f} s)")
+    ast_card_vs_cpu(torch, model, torch.from_numpy(servers["greedy"].split(y)[:1]))
+
+    # evaluate_ast on the card on phase 8's raw tree (2 test pieces of 121 s)
+    root = os.path.join(WORK, "maestro_raw")
+    base = ["--model", pth, "--root_dir", root, "--split", "test", "--headless", "-d", "cuda",
+            "--max_len", str(mcfg.max_output_len)]
+    t0 = time.perf_counter()
+    gen_scores = run_evaluate(base + ["--subset", "4", "--constrained", "--beam", "2",
+                                      "--frame_f1"], cli="evaluate_ast")
+    t1 = time.perf_counter()
+    tf_scores = run_evaluate(base + ["--teacher_forced"], cli="evaluate_ast")
+    print(f"    evaluate_ast --constrained --beam 2 --frame_f1 on 4 chunks: {gen_scores}, wall "
+          f"{(t1 - t0):.1f} s; --teacher_forced on 8 chunks: {tf_scores}, wall "
+          f"{time.perf_counter() - t1:.1f} s")
+    if (set(gen_scores) != {"EVAL_AST_NOTE_F1", "EVAL_AST_FRAME_F1"}
+            or set(tf_scores) != {"EVAL_AST_TF_ACC", "EVAL_AST_TF_PITCH_ACC"}
+            or not all(np.isfinite(v) for v in {**gen_scores, **tf_scores}.values())):
+        raise AssertionError("evaluate_ast printed no finite EVAL_AST_* lines")
+    if any(launches().values()):
+        raise AssertionError(f"the AST route launched a hand-written kernel: {launches()}")
+    print(f"    hand-written kernel launches in the phase: {launches()} on {card}; phase wall "
+          f"{time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     import torch
 
@@ -1681,6 +1878,12 @@ def main() -> int:
 
     # 8. evaluation on the card
     eval_phase(torch, lk, ak, flash_best, xla_best)
+
+    # 8b. the AST tier's inference path: no hand-written kernel may launch
+    ast_phase(torch, (lk.lstm_recurrence, lk.lstm_recurrence_fwd, lk.lstm_recurrence_bwd,
+                      ak.flash_attention_clamped, ak.flash_attention_clamped_fwd,
+                      ak.flash_attention_clamped_dq, ak.flash_attention_clamped_dkv,
+                      ck.fused_conv_bn_relu, ck.fused_res_block), wav30, card)
 
     # 9. report
     kernels = [

@@ -1,11 +1,12 @@
 """Inference CLI: transcribe an audio file to MIDI on a CUDA card.
 
     python -m music_transcription_tpu_torch song.wav model.pth [-o out.mid] [-t 0.5]
-        [-w SECONDS] [--overlap SECONDS] [-d cuda|cpu]
+        [-w SECONDS] [--overlap SECONDS] [--beam N] [--constrained] [-d cuda|cpu]
 
 ``model.pth`` is a reference-format state_dict; an ``X.json`` sidecar beside
 ``X.pth`` carries the model and audio config (else the shipped
-cnn_rnn_large / n_mels=320 defaults apply). The flags and messages are
+cnn_rnn_large / n_mels=320 defaults apply); an AST sidecar selects the
+token route, where ``--beam`` and ``--constrained`` apply. The flags and messages are
 those of the JAX package's ``main.py``; ``-d`` takes ``cuda`` (the default)
 or ``cpu``.
 """
@@ -45,11 +46,15 @@ def main():
     )
     parser.add_argument(
         "--beam", type=int, default=1,
-        help="AST checkpoints only (the AST tier is not ported yet).",
+        help="AST checkpoints only: beam size for token generation (default "
+             "1 = greedy). Vectorized beam search with GNMT length "
+             "normalization; composes with --constrained.",
     )
     parser.add_argument(
         "--constrained", action="store_true",
-        help="AST checkpoints only (the AST tier is not ported yet).",
+        help="AST checkpoints only: grammar-constrained decoding (logits "
+             "masked by the tokenizer's transition table, so generation "
+             "can only emit sequences the encoder could produce).",
     )
     args = parser.parse_args()
     if args.overlap and args.window:

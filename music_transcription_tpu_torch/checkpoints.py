@@ -30,6 +30,12 @@ copy of the one in the JAX package's ``export_torch_state_dict``:
   l{k}_wi_fwd|bwd (I,4H)                -> weight_ih_l{k}[_reverse] (4H,I)
   l{k}_wh_fwd|bwd (H,4H)                -> weight_hh_l{k}[_reverse] (4H,H)
   l{k}_b_fwd|bwd combined bias          -> bias_ih (the combined bias), bias_hh = 0
+
+The AST tier has no ``.pth`` export in the JAX package, so its state_dict
+names are the port's own: the flax tree's paths joined by dots
+(``dec0.self_attn.q``, ``enc0.LayerNorm_0``, ``frame_head``, ...), with
+Dense ``kernel`` (I,O) -> ``weight`` (O,I), ``bias`` -> ``bias``, LayerNorm
+``scale`` -> ``weight`` and Embed ``embedding`` -> ``weight``.
 """
 
 from __future__ import annotations
@@ -82,10 +88,26 @@ def res_block_state_dict_from_jax(block: dict) -> dict[str, torch.Tensor]:
     return {k: torch.from_numpy(np.array(v)) for k, v in arrays.items()}
 
 
+def _put_flax_tree(out: dict, prefix: str, tree) -> None:
+    """A flax params tree by its own paths (the AST mapping above)."""
+    for key, node in tree.items():
+        if hasattr(node, "items"):
+            _put_flax_tree(out, f"{prefix}{key}.", node)
+        elif key == "kernel":
+            out[f"{prefix}weight"] = np.asarray(node).T
+        elif key in ("scale", "embedding"):
+            out[f"{prefix}weight"] = np.asarray(node)
+        elif key == "bias":
+            out[f"{prefix}bias"] = np.asarray(node)
+        else:
+            raise ValueError(f"no mapping for the flax leaf {prefix}{key}")
+
+
 def state_dict_from_jax(variables: dict, cfg: ModelConfig) -> dict[str, torch.Tensor]:
     """JAX variables tree (numpy leaves) -> the port module's state_dict
     (keys without the ``model.`` prefix). Without ``batch_stats`` the
-    BatchNorm running statistics are left out."""
+    BatchNorm running statistics are left out. For ``model_type="ast"`` the
+    tree may be an ``ASTTranscriber``'s or an ``ASTEncoderPretrainer``'s."""
     p = variables["params"]
     s = variables.get("batch_stats")
     out: dict[str, np.ndarray] = {}
@@ -138,6 +160,8 @@ def state_dict_from_jax(variables: dict, cfg: ModelConfig) -> dict[str, torch.Te
                 put_dense(head, p[head])
         else:
             put_dense("fc", p["fc"])
+    elif cfg.is_ast:
+        _put_flax_tree(out, "", p)
     else:
         raise ValueError(f"No weight mapping for model type {cfg.model_type}")
     return {k: torch.from_numpy(np.array(v)) for k, v in out.items()}

@@ -72,7 +72,7 @@ class ModelConfig:
     use_attention: bool = True
     use_onset_offset_heads: bool = True
     num_attention_heads: int = 8
-    # AST tier fields: kept so sidecars round-trip; the tier is not ported.
+    # AST tier fields (models/transformer.py): vocabulary, decoder, mel-patch encoder.
     remi_vocab_size: int = 512
     tokenizer: str = "remi"
     decoder_layers: int = 4

@@ -275,7 +275,7 @@ def main(argv=None) -> int:
     # the sidecar is read directly: CLI overrides would mask its model_type
     if _is_ast_checkpoint(args.model) or (model_cfg is not None and model_cfg.is_ast):
         print("Error: this is an AST (token-route) checkpoint; framewise evaluation "
-              "needs frame logits.")
+              "needs frame logits: use python -m music_transcription_tpu_torch.evaluate_ast.")
         return 1
     try:
         loaded = load_model(args.model, model_cfg=model_cfg, device=args.device)

@@ -10,6 +10,11 @@ floor, sigmoid > threshold, rolls concatenated along time (or stitched from
 overlapping windows), transition decode at fs = sr / hop = 31.25 fps with
 velocity 100.
 
+AST checkpoints take the token route: every chunk's tokens are generated
+on the device (greedy, ``beam`` search, grammar-``constrained``), decoded to
+a roll of ``roll_frames_per_chunk`` frames on the host by the checkpoint's
+tokenizer, and the rolls concatenated.
+
 Entry points default to ``device="cuda"`` and raise ``RuntimeError`` when no
 card is visible, unless the caller asks for ``device="cpu"``.
 """
@@ -37,6 +42,14 @@ CONVERT_HINT = (
     "from music_transcription_tpu.train.checkpoints import load_checkpoint, save_torch_checkpoint; "
     "d,o=sys.argv[1:]; c=json.load(open(d+'/config.json')); "
     "save_torch_checkpoint(o, load_checkpoint(d), ModelConfig(**c['model'])); "
+    "json.dump(c, open(o[:-4]+'.json','w'))\" CKPT_DIR model.pth; "
+    "an AST checkpoint (which save_torch_checkpoint refuses) through this "
+    "package's map, on a machine with both packages: python -c \"import json,sys,torch; "
+    "from music_transcription_tpu.train.checkpoints import load_checkpoint; "
+    "from music_transcription_tpu_torch.config import ModelConfig; "
+    "from music_transcription_tpu_torch.checkpoints import state_dict_from_jax; "
+    "d,o=sys.argv[1:]; c=json.load(open(d+'/config.json')); "
+    "torch.save(state_dict_from_jax(load_checkpoint(d), ModelConfig(**c['model'])), o); "
     "json.dump(c, open(o[:-4]+'.json','w'))\" CKPT_DIR model.pth"
 )
 
@@ -107,15 +120,37 @@ def stitch_rolls(rolls: np.ndarray, hop_frames: int) -> np.ndarray:
     return out
 
 
+def _token_rolls(loaded: LoadedModel, chunks: np.ndarray, constrained: bool,
+                 beam: int) -> np.ndarray:
+    """AST: (N, chunk_samples) -> (N, 88, roll_frames_per_chunk) rolls, each
+    decoded from ``max_output_len`` generated tokens and padded or cut to
+    the chunk's frames."""
+    max_t = loaded.audio_cfg.roll_frames_per_chunk
+    device = next(loaded.model.parameters()).device
+    with torch.inference_mode():
+        y = torch.from_numpy(np.ascontiguousarray(chunks, dtype=np.float32)).to(device)
+        rolls = loaded.model.predict(
+            y, max_T=max_t, generate_max_len=loaded.model.config.max_output_len,
+            constrained=constrained, **({"beam_size": beam} if beam > 1 else {})).numpy()
+    out = np.zeros((rolls.shape[0], 88, max_t), np.float32)
+    out[:, :, : rolls.shape[2]] = rolls[:, :, :max_t]
+    return out
+
+
 def transcribe_chunks(loaded: LoadedModel, chunks: np.ndarray, threshold: float = 0.5,
-                      hop_frames: int | None = None) -> np.ndarray:
+                      hop_frames: int | None = None, constrained: bool = False,
+                      beam: int = 1) -> np.ndarray:
     """(num_chunks, chunk_samples) -> (88, frames) binary roll.
 
     The chunk count is padded to the next power of two, as in the JAX
     package, so the same request sees the same batch (and so the same
     attention route) in both. With ``hop_frames`` the per-chunk rolls are
-    stitched (``stitch_rolls``), else concatenated.
+    stitched (``stitch_rolls``), else concatenated. AST checkpoints take the
+    token route (no padding of the chunk count, ``threshold`` unused), with
+    ``constrained`` and ``beam``.
     """
+    if loaded.model.config.is_ast:
+        return np.concatenate(list(_token_rolls(loaded, chunks, constrained, beam)), axis=1)
     n = chunks.shape[0]
     bucket = 1
     while bucket < n:
@@ -142,28 +177,39 @@ class Transcriber:
                  constrained: bool = False, beam: int = 1, device="cuda"):
         loaded = load_model(checkpoint_path, model_cfg=model_cfg, audio_cfg=audio_cfg,
                             device=device)
+        is_ast = loaded.model.config.is_ast
         if window is not None:
+            if is_ast:
+                raise ValueError(
+                    "--window applies to CNN-RNN checkpoints; the AST tier "
+                    "generates per trained chunk length")
             # Long-window mode: one forward over a larger T (--window 120 ->
             # T=3751 at the shipped geometry); the weights apply unchanged.
             loaded = LoadedModel(model=loaded.model, audio_cfg=dataclasses.replace(
                 loaded.audio_cfg, chunk_length=float(window)))
         # "auto" keeps the materialized-scores attention at the 30 s window
         # and switches to the flash kernel for long windows.
-        if loaded.model.config.attention_backend != "pallas":
+        if not is_ast and loaded.model.config.attention_backend != "pallas":
             loaded.model.set_attention_backend("auto")
         self.loaded = loaded
         self.threshold = threshold
-        if constrained:
+        if constrained and not is_ast:
             raise ValueError(
                 "constrained decoding applies to AST checkpoints (token "
                 "grammar masking); the CNN-RNN route thresholds frame probs")
-        if beam > 1:
+        if beam > 1 and not is_ast:
             raise ValueError(
                 "beam search applies to AST checkpoints (token decoding); "
                 "the CNN-RNN route has no token hypotheses to rank")
+        self.constrained = constrained
+        self.beam = beam
         self.hop_samples = None
         self.hop_frames = None
         if overlap and overlap > 0.0:
+            if is_ast:
+                raise ValueError(
+                    "overlap applies to CNN-RNN checkpoints (frame grid "
+                    "stitching); the AST token route has no frame alignment")
             acfg = loaded.audio_cfg
             if not overlap < acfg.chunk_length:
                 raise ValueError(
@@ -186,7 +232,7 @@ class Transcriber:
         roll = transcribe_chunks(
             self.loaded, self.split(y),
             threshold=self.threshold if threshold is None else threshold,
-            hop_frames=self.hop_frames,
+            hop_frames=self.hop_frames, constrained=self.constrained, beam=self.beam,
         )
         return midi_io.pianoroll_to_notes(roll, fs=self.loaded.audio_cfg.frame_rate)
 
@@ -236,7 +282,8 @@ def transcribe_audio(
         + " (batched on device)")
 
     combined = transcribe_chunks(server.loaded, chunks, threshold=threshold,
-                                 hop_frames=server.hop_frames)
+                                 hop_frames=server.hop_frames, constrained=constrained,
+                                 beam=beam)
 
     log("Converting to MIDI...")
     notes = midi_io.pianoroll_to_notes(combined, fs=acfg.frame_rate)

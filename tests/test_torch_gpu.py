@@ -619,3 +619,106 @@ def test_slab_prefetched_on_card_is_freed_on_an_early_break(cuda, tmp_path):
     assert torch.cuda.memory_allocated(cuda) - base <= 512
     del probe
     assert not [t for t in threading.enumerate() if t.name.startswith("slab-prefetch")]
+
+
+# ---------------------------------------------------------------------------
+# AST tier (no hand-written kernel): generation on the card against the CPU
+# ---------------------------------------------------------------------------
+
+AST_SMALL = dict(model_type="ast", remi_vocab_size=512, decoder_layers=2, decoder_dim=64,
+                 decoder_heads=4, max_output_len=96, encoder_layers=2, encoder_dim=64,
+                 encoder_heads=4, encoder_n_mels=64)
+# card against CPU over the largest CPU logit: fp32 summation order (cuBLAS,
+# no TF32); bf16 one bf16 ulp (2^-8) where a value rounds the other way
+AST_REL_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+
+
+def _ast_pair(dtype: str, cuda):
+    torch.manual_seed(0)
+    cpu = TranscriptionModel(ModelConfig(compute_dtype=dtype, **AST_SMALL)).eval()
+    card = TranscriptionModel(ModelConfig(compute_dtype=dtype, **AST_SMALL)).eval()
+    card.load_state_dict(cpu.state_dict())
+    wave = torch.from_numpy((0.3 * np.random.default_rng(7).standard_normal((2, 24000)))
+                            .astype(np.float32))
+    return cpu, card.to(cuda), wave
+
+
+def _near_tie_steps(cpu, wave, got, ref, tol):
+    """Steps on which card and CPU tokens agree; each row's first departure
+    must sit where the CPU's ranked logits (teacher-forced on the CPU's
+    prefix, SOS masked) have a top-2 margin below ``tol``."""
+    agreed = 0
+    for row in range(ref.shape[0]):
+        diff = (got[row] != ref[row]).nonzero()
+        if len(diff) == 0:
+            agreed += ref.shape[1]
+            continue
+        step = int(diff[0])
+        seq = torch.cat([torch.zeros(1, dtype=torch.long), ref[row, :step]])[None]
+        with torch.inference_mode():
+            logits = cpu(wave[row:row + 1], targets=seq)[0, step].double()
+            if step > 0:
+                logits[0] = -1e9
+            top2 = logits.sort().values[-2:]
+        assert float(top2[1] - top2[0]) < tol, (row, step, float(top2[1] - top2[0]), tol)
+        agreed += step
+    return agreed
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ast_on_card_matches_cpu(cuda, dtype):
+    """Teacher-forced logits within AST_REL_TOL of the CPU's; 96 greedy tokens
+    identical up to a near-tie."""
+    cpu, card, wave = _ast_pair(dtype, cuda)
+    tg = torch.from_numpy(np.random.default_rng(8).integers(3, 512, (2, 64)))
+    tg[:, 0] = 0
+    with torch.inference_mode():
+        ref, got = cpu(wave, targets=tg), card(wave.to(cuda), targets=tg.to(cuda)).cpu()
+        tol = AST_REL_TOL[dtype] * float(ref.abs().max())
+        assert float((got - ref).abs().max()) <= tol
+        ref_ids = cpu(wave, generate_max_len=96)
+        got_ids = card(wave.to(cuda), generate_max_len=96).cpu()
+    assert _near_tie_steps(cpu, wave, got_ids, ref_ids, tol) >= 96
+
+
+def test_ast_beam_on_card_matches_cpu(cuda):
+    """Beam search reindexes its caches and buffers by a stable sort's
+    parents: on the card as on the CPU (fp32), with and without the grammar
+    mask, and the sort keeps index order among ties there too."""
+    from music_transcription_tpu_torch.models.remi_tokenizer import REMITokenizer
+    from music_transcription_tpu_torch.models.transformer import _stable_top_k
+
+    cpu, card, wave = _ast_pair("float32", cuda)
+    mask = torch.from_numpy(REMITokenizer().transition_mask())
+    for allowed in (None, mask):
+        kw = dict(generate_max_len=96, beam_size=4)
+        with torch.inference_mode():
+            ref = cpu(wave, allowed_next=allowed, **kw)
+            got = card(wave.to(cuda), allowed_next=None if allowed is None else allowed.to(cuda),
+                       **kw).cpu()
+        assert torch.equal(got, ref)
+    ties = torch.tensor([[0.0, 1.0, 1.0, -1e9, 1.0, -1e9, -1e9] * 300])
+    assert torch.equal(_stable_top_k(ties.to(cuda), 700)[1].cpu(), _stable_top_k(ties, 700)[1])
+
+
+def test_ast_generation_makes_no_host_sync(cuda):
+    """generate and generate_beam read nothing back to the host inside their
+    loops: they run under torch.cuda.set_sync_debug_mode("error")."""
+    from music_transcription_tpu_torch.models.remi_tokenizer import REMITokenizer
+
+    _, card, wave = _ast_pair("bfloat16", cuda)
+    allowed = torch.from_numpy(REMITokenizer().transition_mask()).to(cuda)
+    with torch.inference_mode():
+        memory = card.model.memory(wave.to(cuda))
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            outs = [card.model.generate(memory, max_len=32),
+                    card.model.generate(memory, max_len=32, repetition_penalty=1.0,
+                                        allowed_next=allowed),
+                    card.model.generate(memory, max_len=32, do_sample=True, top_k=8),
+                    card.model.generate_beam(memory, beam_size=4, max_len=32,
+                                             allowed_next=allowed)]
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    assert all(o.shape == (2, 32) and o.device.type == "cuda" for o in outs)
