@@ -112,6 +112,22 @@ Phases, in order; any failure exits non-zero:
      on phase 8's raw tree (--constrained --beam 2 --frame_f1, and
      --teacher_forced): finite EVAL_AST_* lines. No hand-written kernel
      (K1-K6) may launch in the phase;
+  8c. AST training at full width through python -m
+     music_transcription_tpu_torch.train_ast on a seeded raw tree (2 train
+     pieces of 120 s: 24 chunks of 10 s, 6 steps of 4; 1 validation piece of
+     60 s): pretraining at the default encoder geometry for 2 epochs with
+     --device_data on --compact_data, then the token model for 2 epochs from
+     its model_best with --freeze_encoder, scheduled sampling 0.5 ramped over
+     2 epochs, pitch weight 3, note-F1 selection with --save_best_every 1 and
+     --device_data off. Every logged loss finite; model_final's encoder bit
+     for bit the pretrained one and its other tensors moved; model_best
+     through transcribe.load_model and evaluate_ast on the card (4 chunks,
+     256 tokens). One fp32 token step (B=2, 256 tokens, pitch weight 3) on
+     the card against the CPU within AST_STEP_TOL, and at scheduled sampling
+     p = 1 when the first pass's 2 x 255 argmax tokens agree; the median warm
+     pretrain, token and scheduled-sampling steps (the token steps under
+     set_sync_debug_mode("error") until their loss read), the peak device
+     memory, one token step profiled. No hand-written kernel may launch;
   9. print the kernels line (JSON: launches on the main path, error against
      the plain version, times, bound, and for K1, K2a and K2b the sequential
      floor; a failed check has already exited),
@@ -952,6 +968,26 @@ def conv_front_end(torch, ck, model, rows) -> dict:
     return launches
 
 
+def device_busy_union_ms(prof) -> float:
+    """The device's busy time in a profile (ms): the union of its device
+    events' intervals, so that a range annotated on the device (the
+    optimizer's ``Optimizer.step#...``) counts the kernels under it once."""
+    from torch.autograd import DeviceType
+
+    spans = sorted((e.start_ns(), e.start_ns() + e.duration_ns())
+                   for e in prof.profiler.kineto_results.events()
+                   if e.device_type() == DeviceType.CUDA)
+    busy, end = 0, None
+    for a, b in spans:
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    return busy / 1e6
+
+
 def device_time_by_kernel(prof, wall_s: float, top: int = 12):
     """Print a profile's device busy time, idle share and top kernels, summed
     from the trace's raw device events (kernels, copies, fills): the
@@ -1731,6 +1767,311 @@ def ast_phase(torch, counters, wav30, card):
           f"{time.perf_counter() - t_phase:.1f} s")
 
 
+# Card against CPU for one fp32 AST token step at full width (B=2, 10 s, 256
+# tokens, dropout 0, pitch_loss_weight 3): the loss relative to the CPU's, and
+# each class of gradients over its class's largest CPU gradient. fp32
+# summation order only (cuBLAS without TF32 and cuFFT against the CPU's):
+# phase 6's 1e-4 for the loss, the serving check's 1e-3 for the gradients.
+# tests/test_torch_train_ast_step.py shows every bound rejecting each faulty
+# step: the targets unshifted, the causal mask dropped, the class weights
+# divided by the count of positions in place of their sum.
+AST_STEP_TOL = {"loss": 1e-4, "dense kernels": 1e-3, "biases": 1e-3, "LayerNorm": 1e-3,
+                "embeddings": 1e-3}
+
+
+def ast_grad_classes(torch, module) -> dict:
+    """{parameter name: its AST_STEP_TOL class}."""
+    out = {}
+    for mn, mod in module.named_modules():
+        for pn, _ in mod.named_parameters(recurse=False):
+            name = f"{mn}.{pn}" if mn else pn
+            if isinstance(mod, torch.nn.LayerNorm):
+                out[name] = "LayerNorm"
+            elif isinstance(mod, torch.nn.Embedding):
+                out[name] = "embeddings"
+            else:
+                out[name] = "biases" if pn == "bias" else "dense kernels"
+    return out
+
+
+def ast_step_errors(classes: dict, ref_loss: float, got_loss: float, ref_grads: dict,
+                    got_grads: dict) -> dict:
+    """{"loss": (relative error, ""), class: (worst |got - ref| over the
+    class's largest |ref|, its parameter)} for AST_STEP_TOL. Gradients are
+    CPU tensors by parameter name."""
+    scale = {}
+    for name, g in ref_grads.items():
+        scale[classes[name]] = max(scale.get(classes[name], 0.0), float(g.abs().max()))
+    out = {"loss": (abs(got_loss - ref_loss) / abs(ref_loss), "")}
+    for name, g in ref_grads.items():
+        err = float((got_grads[name] - g).abs().max()) / scale[classes[name]]
+        if err >= out.get(classes[name], (-1.0, ""))[0]:
+            out[classes[name]] = (err, name)
+    return out
+
+
+def step_grads(torch, module) -> dict:
+    return {k: (p.grad.detach().cpu() if p.grad is not None else torch.zeros_like(p).cpu())
+            for k, p in module.named_parameters()}
+
+
+def run_train_ast(argv) -> str:
+    """``python -m music_transcription_tpu_torch.train_ast`` in this process
+    (so that its launches are counted): its output, or raises. The CLI's
+    SIGTERM handler is taken back afterwards."""
+    import signal
+
+    from music_transcription_tpu_torch import train_ast
+
+    saved = signal.getsignal(signal.SIGTERM)
+    out = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(out):
+            rc = train_ast.main(argv)
+    finally:
+        signal.signal(signal.SIGTERM, saved)
+    if rc != 0:
+        raise AssertionError(f"train_ast {argv} exited {rc}:\n{out.getvalue()[-3000:]}")
+    return out.getvalue()
+
+
+def log_values(path) -> list[float]:
+    with open(path) as f:
+        return [float(v) for v in re.findall(r"=(-?[\d.]+|nan|inf)", f.read())]
+
+
+def ast_step_card_vs_cpu(torch, wave):
+    """One fp32 token step of the full-width AST model on the card and on
+    the CPU from the same weights (plain, then scheduled sampling at p = 1
+    when the first pass's argmax agrees on every position), held to
+    AST_STEP_TOL."""
+    from music_transcription_tpu_torch.config import ModelConfig
+    from music_transcription_tpu_torch.models.remi_tokenizer import REMITokenizer
+    from music_transcription_tpu_torch.models.transcription import TranscriptionModel
+    from music_transcription_tpu_torch.train import ast_step
+
+    cfg = ModelConfig(model_type="ast", compute_dtype="float32", dropout=0.0)
+    torch.manual_seed(SEED + 31)
+    base = TranscriptionModel(cfg)
+    for blk in base.model.enc_blocks:
+        blk.dropout = 0.0  # the encoder's fixed 0.1 would draw other bits on each device
+    rng = np.random.default_rng(SEED + 32)
+    tokens = torch.from_numpy(rng.integers(3, cfg.remi_vocab_size, (2, 256)))
+    tokens[:, 0] = 0
+    cw = torch.from_numpy(ast_step.pitch_class_weights(REMITokenizer(), 512, 3.0))
+    classes = ast_grad_classes(torch, base.model)
+    card = copy.deepcopy(base).cuda()
+    inp = tokens[:, :-1]
+    with torch.no_grad():
+        argmax = [m.eval()(w, targets=inp.to(w.device)).argmax(-1).cpu()
+                  for m, w in ((base, wave), (card, wave.cuda()))]
+    agree = int((argmax[0] == argmax[1]).sum())
+    print(f"    scheduled sampling's first pass, fp32, card vs CPU: {agree} of "
+          f"{argmax[0].numel()} argmax tokens agree")
+    del card
+    for label, ss_p in (("plain", None), ("scheduled sampling p=1", 1.0)):
+        if ss_p is not None and agree < argmax[0].numel():
+            print(f"    {label}: not held (a near-tie flipped an argmax)")
+            continue
+        runs = []
+        for dev in ("cpu", "cuda"):
+            m = copy.deepcopy(base).to(dev)
+            opt = ast_step.make_adam(m.parameters(), 1e-4)
+            loss = float(ast_step.token_step(m, opt, wave.to(dev), tokens.to(dev), ss_p=ss_p,
+                                             class_weights=cw.to(dev)))
+            runs.append((loss, step_grads(torch, m.model)))
+            del m, opt
+        errs = ast_step_errors(classes, runs[0][0], runs[1][0], runs[0][1], runs[1][1])
+        ok = all(errs[k][0] <= tol for k, tol in AST_STEP_TOL.items())
+        print(f"    fp32 token step ({label}, B=2, 10 s, 256 tokens, pitch weight 3), card vs "
+              f"CPU: loss {runs[1][0]:.6f} vs {runs[0][0]:.6f}; worst error by class (tol): "
+              + ", ".join(f"{k} {errs[k][0]:.3e}{' at ' + errs[k][1] if errs[k][1] else ''} "
+                          f"({tol:g})" for k, tol in AST_STEP_TOL.items())
+              + f" {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"AST token step ({label}) disagrees with the CPU: {errs}")
+
+
+def time_ast_steps(torch, wave, roll, lengths, tokens, card):
+    """Median warm step (ms, host clock to the loss read) of the pretrain
+    step, the token step and the token step with scheduled sampling at full
+    width (batch 4, 10 s, 256 tokens, the CLI's defaults: dropout 0.2, bf16
+    token model, fp32 pretrainer); the token steps under
+    set_sync_debug_mode("error") until their loss is read. Then the peak
+    device memory and one token step profiled."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from music_transcription_tpu_torch.config import ModelConfig
+    from music_transcription_tpu_torch.models.remi_tokenizer import REMITokenizer
+    from music_transcription_tpu_torch.models.transcription import TranscriptionModel
+    from music_transcription_tpu_torch.models.transformer import ASTEncoderPretrainer
+    from music_transcription_tpu_torch.train import ast_step
+
+    dev = torch.device("cuda")
+    wave, roll, lengths, tokens = (x.to(dev) for x in (wave, roll, lengths, tokens))
+    torch.manual_seed(SEED + 33)
+    pre = ASTEncoderPretrainer(dropout=0.2).to(dev)
+    tok = TranscriptionModel(ModelConfig(model_type="ast")).to(dev)
+    pre_opt, tok_opt = ast_step.make_adam(pre.parameters(), 1e-4), ast_step.make_adam(
+        tok.parameters(), 1e-4)
+    cw = torch.from_numpy(ast_step.pitch_class_weights(REMITokenizer(), 512, 3.0)).to(dev)
+
+    def pretrain(s):
+        gen, _ = ast_step.step_generators(SEED + 1, s, dev)
+        return ast_step.pretrain_step(pre, pre_opt, wave, roll, lengths, generator=gen)
+
+    def token(s, ss_p=None):
+        gen, ss_gen = ast_step.step_generators(SEED + 1, s, dev)
+        return ast_step.token_step(tok, tok_opt, wave, tokens, generator=gen, ss_p=ss_p,
+                                   ss_generator=ss_gen, class_weights=cw)
+
+    gc.collect()  # a peak counts no garbage of earlier phases
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    ms = {}
+    for name, fn, no_sync in (("pretrain step (fp32)", pretrain, False),
+                              ("token step", token, True),
+                              ("token step, scheduled sampling p=0.5",
+                               lambda s: token(s, 0.5), True)):
+        for s in range(2):
+            float(fn(s))
+        times = []
+        for s in range(2, 9):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if no_sync:
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                loss = fn(s)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            value = float(loss)
+            times.append((time.perf_counter() - t0) * 1e3)
+            if not np.isfinite(value):
+                raise AssertionError(f"{name}: loss {value}")
+        ms[name] = float(np.median(times))
+        print(f"    warm {name} (batch 4, 10 s{', 256 tokens' if 'token' in name else ''}): "
+              f"median {ms[name]:.2f} ms of {[round(t, 2) for t in times]}"
+              + ("; no host sync before the loss read" if no_sync else ""))
+    peak = torch.cuda.max_memory_allocated()
+    print(f"    peak device memory over the three: {peak / 2**30:.3f} GiB ({held / 2**30:.3f} "
+          f"GiB held before them, the two models and their Adam states among it)")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        float(token(9))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    print(f"    one token step under torch.profiler ({wall * 1e3:.2f} ms wall) on {card}:")
+    device_time_by_kernel(prof, wall, top=10)
+    busy = device_busy_union_ms(prof)
+    print(f"      the union of the device intervals (Adam's annotated range over its kernels "
+          f"counted once): busy {busy:.2f} ms, idle share {1 - busy / (wall * 1e3):.3f}")
+    del pre, tok, pre_opt, tok_opt
+    return ms, peak
+
+
+def ast_train_phase(torch, counters, card):
+    """Phase 8c: AST training at full width on the card through the CLI
+    (pretraining, the frozen transplant, token training with scheduled
+    sampling, pitch weights and note-F1 selection), evaluate_ast on its
+    model_best, a step on the card against the CPU and the steps' times,
+    through no hand-written kernel."""
+    from music_transcription_tpu_torch.config import AudioConfig, ModelConfig, config_from_dict
+    from music_transcription_tpu_torch.data.maestro import MaestroDataset
+    from music_transcription_tpu_torch.data.pipeline import collate_tokens, collate_wave_roll
+    from music_transcription_tpu_torch.models.remi_tokenizer import REMITokenizer
+    from music_transcription_tpu_torch.models.transcription import TranscriptionModel
+    from music_transcription_tpu_torch.models.transformer import encoder_state_dict
+    from music_transcription_tpu_torch.transcribe import load_model
+
+    root = os.path.join(WORK, "maestro_ast")
+    pre_dir, tok_dir = os.path.join(WORK, "ast_pretrain"), os.path.join(WORK, "ast_tokens")
+    for d in (root, pre_dir, tok_dir):
+        shutil.rmtree(d, ignore_errors=True)
+    # 2 train pieces of 120 s (24 chunks of 10 s: 6 steps of 4) and 1 validation piece of 60 s
+    write_maestro_tree(root, SEED + 30, [("train", 120.0), ("train", 120.0),
+                                         ("validation", 60.0)])
+
+    def launches():
+        return {c.__name__: c.launches for c in counters}
+
+    for c in counters:
+        c.launches = 0
+    t_phase = t0 = time.perf_counter()
+    run_train_ast(["--root_dir", root, "--pretrain_frames", "--epochs", "2", "--val_split",
+                   "validation", "--device_data", "on", "--compact_data", "--run_dir", pre_dir])
+    t1 = time.perf_counter()
+    out = run_train_ast(["--root_dir", root, "--epochs", "2", "--encoder_init",
+                         os.path.join(pre_dir, "model_best.pth"), "--freeze_encoder",
+                         "--scheduled_sampling", "0.5", "--ss_ramp_epochs", "2",
+                         "--pitch_loss_weight", "3", "--val_split", "validation",
+                         "--val_note_f1_every", "1", "--val_note_f1_batches", "1",
+                         "--best_metric", "note_f1", "--save_best_every", "1",
+                         "--device_data", "off", "--run_dir", tok_dir])
+    t2 = time.perf_counter()
+    logs = {}
+    for name, d in (("pretraining", pre_dir), ("token model", tok_dir)):
+        with open(os.path.join(d, "training_log.txt")) as f:
+            logs[name] = f.read().splitlines()
+        values = log_values(os.path.join(d, "training_log.txt"))
+        if len(logs[name]) != 2 or not values or not all(np.isfinite(values)):
+            raise AssertionError(f"AST {name}: log {logs[name]}")
+    print(f"[8c] AST training at full width through the CLI on {card}: pretraining "
+          f"(--device_data on --compact_data, 2 epochs of 6 steps) wall {t1 - t0:.1f} s; "
+          f"the token model (--freeze_encoder, scheduled sampling, pitch weight 3, note-F1 "
+          f"selection, --device_data off) wall {t2 - t1:.1f} s")
+    for name, lines in logs.items():
+        for line in lines:
+            print(f"    {name}: {line}")
+    if "Initialized encoder from" not in out or "Best val_note_f1" not in out:
+        raise AssertionError(f"AST token run: {out[-2000:]}")
+
+    pre = torch.load(os.path.join(pre_dir, "model_best.pth"))
+    final = torch.load(os.path.join(tok_dir, "model_final.pth"))
+    with open(os.path.join(tok_dir, "model_final.json")) as f:
+        mcfg = config_from_dict(ModelConfig, json.load(f)["model"])
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)  # the CLI's --seed: the token model's initial weights
+        init = TranscriptionModel(mcfg).model.state_dict()
+    enc = encoder_state_dict(final)
+    dec = [k for k in final if k not in enc and not k.endswith("k.bias")]
+    moved = sum(not torch.equal(final[k], init[k]) for k in dec)
+    if not (enc and all(torch.equal(v, pre[k]) for k, v in enc.items()) and moved == len(dec)):
+        raise AssertionError(f"AST frozen transplant: {moved} of {len(dec)} decoder tensors moved")
+    print(f"    model_final: {len(enc)} encoder tensors bit-identical to the pretrained "
+          f"model_best; {moved} of {len(dec)} other tensors moved from the seeded init (the "
+          f"attention key biases, whose exact gradient is 0, left out)")
+    best = os.path.join(tok_dir, "model_best.pth")
+    loaded = load_model(best, device="cuda")
+    if not loaded.model.config.is_ast or next(loaded.model.parameters()).device.type != "cuda":
+        raise AssertionError("model_best did not load as an AST model on the card")
+    t0 = time.perf_counter()
+    scores = run_evaluate(["--model", best, "--root_dir", root, "--split", "validation",
+                           "--subset", "4", "--max_len", "256", "--headless", "-d", "cuda"],
+                          cli="evaluate_ast")
+    print(f"    model_best through transcribe.load_model; evaluate_ast on the card, 4 chunks, "
+          f"256 tokens: {scores}, wall {time.perf_counter() - t0:.1f} s")
+    if set(scores) != {"EVAL_AST_NOTE_F1"} or not 0.0 <= scores["EVAL_AST_NOTE_F1"] <= 1.0:
+        raise AssertionError("evaluate_ast printed no EVAL_AST_NOTE_F1 line")
+
+    acfg = AudioConfig(chunk_length=10.0)
+    ds = MaestroDataset(root, split="train", chunk_length=10.0, return_waveform=True,
+                        audio_cfg=acfg)
+    items = [ds[i] for i in range(4)]
+    tk = REMITokenizer()
+    wave, tokens = collate_tokens([(w, tk.encode_from_pianoroll(r, max_len=256))
+                                   for w, r in items], pad_to=acfg.chunk_samples)
+    _, roll, lengths = collate_wave_roll(items, pad_to=acfg.chunk_samples,
+                                         roll_pad_to=acfg.roll_frames_per_chunk)
+    ast_step_card_vs_cpu(torch, torch.from_numpy(wave[:2]))
+    time_ast_steps(torch, *(torch.from_numpy(a) for a in (wave, roll, lengths, tokens)), card)
+    if any(launches().values()):
+        raise AssertionError(f"AST training launched a hand-written kernel: {launches()}")
+    print(f"    hand-written kernel launches in the phase: {launches()}; phase wall "
+          f"{time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     import torch
 
@@ -1879,11 +2220,14 @@ def main() -> int:
     # 8. evaluation on the card
     eval_phase(torch, lk, ak, flash_best, xla_best)
 
-    # 8b. the AST tier's inference path: no hand-written kernel may launch
-    ast_phase(torch, (lk.lstm_recurrence, lk.lstm_recurrence_fwd, lk.lstm_recurrence_bwd,
-                      ak.flash_attention_clamped, ak.flash_attention_clamped_fwd,
-                      ak.flash_attention_clamped_dq, ak.flash_attention_clamped_dkv,
-                      ck.fused_conv_bn_relu, ck.fused_res_block), wav30, card)
+    # 8b. the AST tier's inference path, 8c. its training: no hand-written
+    # kernel may launch
+    counters = (lk.lstm_recurrence, lk.lstm_recurrence_fwd, lk.lstm_recurrence_bwd,
+                ak.flash_attention_clamped, ak.flash_attention_clamped_fwd,
+                ak.flash_attention_clamped_dq, ak.flash_attention_clamped_dkv,
+                ck.fused_conv_bn_relu, ck.fused_res_block)
+    ast_phase(torch, counters, wav30, card)
+    ast_train_phase(torch, counters, card)
 
     # 9. report
     kernels = [

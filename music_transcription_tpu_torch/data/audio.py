@@ -17,7 +17,6 @@ import math
 import struct
 
 import numpy as np
-from scipy import signal
 
 from music_transcription_tpu_torch import native
 
@@ -194,6 +193,8 @@ def resample(y: np.ndarray, orig_sr: int, target_sr: int) -> np.ndarray:
     """Polyphase anti-aliased resampling along the last axis."""
     if orig_sr == target_sr:
         return y
+    from scipy import signal  # imported here: some 3 s that a CLI reading 16 kHz audio never pays
+
     g = math.gcd(int(orig_sr), int(target_sr))
     up, down = target_sr // g, orig_sr // g
     return signal.resample_poly(y, up, down, axis=-1, window=("kaiser", _KAISER_BETA)).astype(

@@ -88,10 +88,14 @@ def load_chunk(split_dir, idx: int) -> dict:
 
 class CachedMaestroDataset:
     """Items: (waveform, tokens) for tokenized caches, (waveform, roll) for
-    waveform caches, (mel (n_mels, T), roll (88, T)) for mel caches."""
+    waveform caches, (mel (n_mels, T), roll (88, T)) for mel caches.
+    ``prefer_roll`` reads (waveform, roll) from a tokenized cache too, whose
+    chunks also store the roll: encoder pretraining reads its frame targets
+    from the cache the decoder trains on."""
 
     def __init__(self, cache_dir, split: str = "train", verbose: bool = True,
-                 subset_size: int | None = None):
+                 subset_size: int | None = None, prefer_roll: bool = False):
+        self.prefer_roll = prefer_roll
         self.cache_dir = str(cache_dir)
         self.split = split
         self.split_cache_dir = os.path.join(self.cache_dir, split)
@@ -127,7 +131,11 @@ class CachedMaestroDataset:
         if self._indices is not None:
             idx = self._indices[idx]
         data = load_chunk(self.split_cache_dir, idx)
-        if "tokens" in data:
+        if self.prefer_roll and "roll" not in data:
+            raise KeyError(f"chunk {idx} of {self.split_cache_dir} stores no 'roll'; prefer_roll "
+                           f"needs a cache written by the repo's preprocessing, which stores "
+                           f"rolls beside tokens")
+        if "tokens" in data and not self.prefer_roll:
             return data["waveform"], data["tokens"]
         if "waveform" in data:
             return data["waveform"], data["roll"]

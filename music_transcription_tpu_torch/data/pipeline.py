@@ -3,11 +3,14 @@ package's ``data/pipeline.py``.
 
   * ``collate_mel``: pad mel / roll to the batch's longest T (or ``pad_to``)
     and return (mel (B, 1, M, T), roll (B, 88, T), lengths (B,)) as numpy
+  * ``collate_tokens`` / ``collate_wave_roll``: the AST tier's batches,
+    (wave (B, N), tokens (B, L)) and (wave (B, N), roll (B, 88, T), lengths)
   * ``Loader``: epoch iteration with a thread pool decoding items ahead;
     its shuffle is ``np.random.default_rng(seed + epoch)``, so it yields the
     JAX package's batches in the JAX package's order
-  * ``DeviceStagedLoader``: the whole dataset staged on the card once
-    (mel as bf16 and the binary roll as uint8 under bf16 compute), batches
+  * ``DeviceStagedLoader``: the whole dataset (or its first ``limit``
+    items) staged on the card once (mel as bf16 and the binary roll as uint8
+    under bf16 compute, waves as int16 PCM with ``compact_fields``), batches
     gathered there by index, so a step moves one index vector to the card
   * ``SlabRotatingLoader``: for caches larger than the staging limit, each
     epoch's permutation cut into equal slabs, one slab staged at a time
@@ -55,6 +58,34 @@ def collate_mel(items: list, pad_to: int | None = None):
         roll[i, :, :tr] = r[:, :tr]
         roll[i, :, tr:] = 0.0
     return mel, roll, np.minimum(lengths, max_t)
+
+
+def collate_tokens(items: list, pad_to: int | None = None):
+    """[(waveform (n_i,), tokens (L,))] -> (wave (B, N) float32, tokens (B, L)
+    int64): waves zero-padded or cut to ``pad_to`` (default the longest)."""
+    n = max(w.shape[-1] for w, _ in items) if pad_to is None else int(pad_to)
+    wave = np.zeros((len(items), n), np.float32)
+    for i, (w, _) in enumerate(items):
+        t = min(w.shape[-1], n)
+        wave[i, :t] = w[:t]
+    return wave, np.stack([np.asarray(t, np.int64) for _, t in items])
+
+
+def collate_wave_roll(items: list, pad_to: int | None = None, roll_pad_to: int | None = None):
+    """[(waveform (n_i,), roll (88, T_i))] -> (wave (B, N) float32, roll (B, 88,
+    T) float32, lengths (B,) int32) for encoder pretraining: waves padded or
+    cut to ``pad_to``, rolls to ``roll_pad_to`` (defaults: the longest)."""
+    n = max(w.shape[-1] for w, _ in items) if pad_to is None else int(pad_to)
+    lengths = np.array([r.shape[-1] for _, r in items], np.int32)
+    max_t = int(roll_pad_to) if roll_pad_to else int(lengths.max())
+    wave = np.zeros((len(items), n), np.float32)
+    roll = np.zeros((len(items), NUM_KEYS, max_t), np.float32)
+    for i, (w, r) in enumerate(items):
+        t = min(w.shape[-1], n)
+        wave[i, :t] = w[:t]
+        tr = min(r.shape[-1], max_t)
+        roll[i, :, :tr] = r[:, :tr]
+    return wave, roll, np.minimum(lengths, max_t)
 
 
 class Loader:
@@ -152,14 +183,14 @@ def collate_subset(dataset, collate, indices, *, pad_to: int | None = None,
 
 
 def stage_to_device(dataset, collate, *, device, pad_to: int | None = None,
-                    num_workers: int = 4, verbose: bool = False,
+                    limit: int | None = None, num_workers: int = 4, verbose: bool = False,
                     compact_fields: tuple[int, ...] = (), bf16_fields: tuple[int, ...] = (),
                     u8_fields: tuple[int, ...] = (), indices=None):
-    """Collate the dataset (or the items at ``indices``) into one batch per
-    field, in the dtypes of ``collate_subset``, and put it on ``device``.
-    Returns (tensors, n_items)."""
+    """Collate the dataset (its first ``limit`` items, or the items at
+    ``indices``) into one batch per field, in the dtypes of
+    ``collate_subset``, and put it on ``device``. Returns (tensors, n_items)."""
     if indices is None:
-        indices = range(len(dataset))
+        indices = range(len(dataset) if limit is None else min(limit, len(dataset)))
     host = collate_subset(dataset, collate, indices, pad_to=pad_to, num_workers=num_workers,
                           compact_fields=compact_fields, bf16_fields=bf16_fields,
                           u8_fields=u8_fields)
@@ -201,22 +232,26 @@ def epoch_index_batches(n: int, batch_size: int, *, shuffle: bool = True, seed: 
 
 
 class DeviceStagedLoader:
-    """Loader-compatible iteration over a dataset staged on ``device``:
-    batches are gathered there, and compact fields widened back to float32,
-    so they come out as the streaming Loader's would. With
-    ``pad_last_batch`` the tail batch is padded to full size with rows of
-    length 0 (the last collate field must be the lengths)."""
+    """Loader-compatible iteration over a dataset (its first ``limit``
+    items) staged on ``device``: batches are gathered there, and compact
+    fields widened back to float32, so they come out as the streaming
+    Loader's would. With ``pad_last_batch`` the tail batch is padded to full
+    size with rows of length 0 (the last collate field must be the
+    lengths)."""
 
     def __init__(self, dataset, batch_size: int, *, device, collate=collate_mel,
                  pad_to: int | None = None, shuffle: bool = False, seed: int = 0,
                  num_workers: int = 4, drop_last: bool = False, pad_last_batch: bool = False,
-                 verbose: bool = False,
-                 bf16_fields: tuple[int, ...] = (), u8_fields: tuple[int, ...] = ()):
+                 verbose: bool = False, limit: int | None = None,
+                 compact_fields: tuple[int, ...] = (), bf16_fields: tuple[int, ...] = (),
+                 u8_fields: tuple[int, ...] = ()):
         self.device = torch.device(device)
+        fields = dict(compact_fields=tuple(compact_fields), bf16_fields=tuple(bf16_fields),
+                      u8_fields=tuple(u8_fields))
         self.arrays, self.n = stage_to_device(
-            dataset, collate, device=self.device, pad_to=pad_to, num_workers=num_workers,
-            verbose=verbose, bf16_fields=bf16_fields, u8_fields=u8_fields)
-        self.dequantize = _make_dequantizer(bf16_fields=bf16_fields, u8_fields=u8_fields)
+            dataset, collate, device=self.device, pad_to=pad_to, limit=limit,
+            num_workers=num_workers, verbose=verbose, **fields)
+        self.dequantize = _make_dequantizer(**fields)
         self.batch_size = batch_size
         self.shuffle, self.seed = shuffle, seed
         self.drop_last = drop_last

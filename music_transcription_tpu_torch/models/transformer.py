@@ -194,11 +194,31 @@ class EncoderLayer(nn.Module):
         return x + _drop(self, h, generator)
 
 
+ENCODER_PARAM_KEYS = ("patch_embed", "enc_pos", "enc_norm")  # + the enc{i} blocks
+
+
+def encoder_subtree(key: str) -> str | None:
+    """The encoder subtree a state_dict key belongs to (``patch_embed``,
+    ``enc_pos``, ``enc{i}``, ``enc_norm``), or None: ``enc_to_dec``, the
+    decoder and ``frame_head`` are not the encoder's."""
+    head = key.split(".", 1)[0]
+    if head in ENCODER_PARAM_KEYS or (head.startswith("enc") and head[3:].isdigit()):
+        return head
+    return None
+
+
+def encoder_state_dict(state: dict) -> dict:
+    """The encoder's entries of an ``ASTTranscriber``'s or
+    ``ASTEncoderPretrainer``'s state_dict: the unit a pretrained encoder
+    transplants as (the JAX package's ``encoder_param_subtrees``)."""
+    return {k: v for k, v in state.items() if encoder_subtree(k) is not None}
+
+
 class MelPatchEncoder(nn.Module):
     """The mel-patch encoder's parameters and body, under the same names in
     ASTTranscriber and ASTEncoderPretrainer (``patch_embed``, ``enc_pos``,
     ``enc{i}``, ``enc_norm``), so a pretrained encoder transplants as a
-    state_dict subset."""
+    state_dict subset (``encoder_state_dict``)."""
 
     encoder_layers = 0  # no encoder (the transcriber's mock path)
 

@@ -125,25 +125,32 @@ def _host_constants(key: tuple) -> tuple[np.ndarray, np.ndarray]:
     return win, np.ascontiguousarray(fb.T)
 
 
+@lru_cache(maxsize=8)
+def _device_constants(key: tuple, device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    """``_host_constants`` on ``device``, copied there once: a training step
+    that computes its mel copies nothing from the host. Made outside
+    inference mode, so a first call under it caches ordinary tensors."""
+    with torch.inference_mode(False):
+        return tuple(torch.from_numpy(a).to(device) for a in _host_constants(key))
+
+
 def log_mel_batch(y: torch.Tensor, cfg: AudioConfig, apply_floor: bool = True) -> torch.Tensor:
     """(B, n_samples) audio -> (B, n_mels, T) float32 log-mel, on y's device.
 
     The top_db floor uses the per-sample max (one floor per chunk).
     ``apply_floor=False`` returns the unclamped dB values.
     """
-    win, fb_t = _host_constants((cfg.sample_rate, cfg.n_fft, cfg.effective_win_length,
-                                 cfg.n_mels, cfg.fmin, cfg.effective_fmax))
-    dev = y.device
+    win, fb_t = _device_constants((cfg.sample_rate, cfg.n_fft, cfg.effective_win_length,
+                                   cfg.n_mels, cfg.fmin, cfg.effective_fmax), y.device)
     with full_fp32():
         z = torch.stft(
             y.to(torch.float32), n_fft=cfg.n_fft, hop_length=cfg.hop_length,
-            window=torch.from_numpy(win).to(dev), center=True, pad_mode="constant",
-            return_complex=True,
+            window=win, center=True, pad_mode="constant", return_complex=True,
         )  # (B, n_bins, T)
         spec = z.real * z.real + z.imag * z.imag
         if cfg.power != 2.0:
             spec = spec ** (cfg.power / 2.0)
-        mel = torch.matmul(spec.transpose(1, 2), torch.from_numpy(fb_t).to(dev))  # (B, T, n_mels)
+        mel = torch.matmul(spec.transpose(1, 2), fb_t)  # (B, T, n_mels)
     log_spec = 10.0 * torch.log10(torch.clamp(mel, min=cfg.amin))
     if apply_floor:
         floor = log_spec.amax(dim=(-2, -1), keepdim=True) - cfg.top_db

@@ -3,6 +3,9 @@ the JAX package from a seed and carried into the port with
 ``state_dict_from_jax``, seeded waves and targets, and the near-tie rule for
 bf16 tokens."""
 
+import importlib.util
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -24,6 +27,24 @@ SMALL = dict(model_type="ast", remi_vocab_size=512, decoder_layers=2, decoder_di
 # fp32 bit, so a bf16 cast downstream rounds some values to the neighbouring
 # bf16 value (one bf16 ulp is 2^-8 relative)
 REL_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
+
+# One Adam step of the AST training steps, port against JAX in fp32
+# (tests/test_torch_train_ast_step.py, tests/test_torch_train_ast_encoder.py):
+#   * LOSS_RTOL: |port - JAX| over |JAX| of the loss (fp32 summation order);
+#   * GRAD_TOL: every gradient element within GRAD_TOL of the model's largest;
+#   * the update bound (``update_ratio``): Adam's first step moves a parameter
+#     by lr g / (|g| + eps), so a gradient error d (GRAD_TOL of the largest)
+#     moves it by at most lr eps d / (|g| - d + eps)^2 where |g| > d, and by
+#     up to 2 lr where it does not (the attention key biases, whose exact
+#     gradient is 0: softmax does not see a shift of a whole row). optax
+#     rounds its bias corrections 1 - beta^t in fp32 (0.999 is 0.99900001
+#     there: 6.4e-6 in the square root of 1 - beta2), torch in double:
+#     UPDATE_RTOL of lr. Four float32 spacings of the parameter cover the
+#     roundings of the sum.
+LR, EPS = 1e-4, 1e-8
+LOSS_RTOL = 1e-5
+GRAD_TOL = 1e-5
+UPDATE_RTOL = 2e-5
 
 _CACHE = {}
 
@@ -103,3 +124,37 @@ def agree_up_to_near_tie(pm, wave, got: np.ndarray, ref: np.ndarray, tol: float,
             f"{top2[1] - top2[0]:.4g} >= {tol:.4g}")
         agreed += step
     return agreed
+
+
+def jax_train_ast_script():
+    """The JAX package's ``scripts/train_ast.py`` as a module (its
+    ``build_parser``, ``main`` and ``transplant_encoder``), loaded once."""
+    if "train_ast" not in _CACHE:
+        path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                            "scripts", "train_ast.py")
+        spec = importlib.util.spec_from_file_location("jax_train_ast", path)
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        _CACHE["train_ast"] = mod
+    return _CACHE["train_ast"]
+
+
+def grad_err(grads: dict, ref: dict) -> float:
+    """The largest gradient error over the model's largest gradient."""
+    g_max = max(float(v.abs().max()) for v in ref.values())
+    return max(float((grads[k] - ref[k]).abs().max()) for k in grads) / g_max
+
+
+def update_ratio(module, before: dict, ref_grads: dict, ref_params: dict) -> float:
+    """The largest |port - JAX| of ``module``'s parameters after one Adam
+    step over its update bound (above)."""
+    g_max = max(float(v.abs().max()) for v in ref_grads.values())
+    d = GRAD_TOL * g_max
+    worst = 0.0
+    for k, p in module.named_parameters():
+        g = ref_grads[k].double().abs()
+        bound = torch.where(g > d, LR * (UPDATE_RTOL + EPS * d / (g - d + EPS) ** 2), 2 * LR)
+        scale = torch.maximum(ref_params[k].abs(), before[k].abs()).numpy()
+        bound = bound + 4 * torch.from_numpy(np.spacing(scale)).double()
+        worst = max(worst, float(((p.detach() - ref_params[k]).abs() / bound).max()))
+    return worst

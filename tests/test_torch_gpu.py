@@ -722,3 +722,87 @@ def test_ast_generation_makes_no_host_sync(cuda):
         finally:
             torch.cuda.set_sync_debug_mode("default")
     assert all(o.shape == (2, 32) and o.device.type == "cuda" for o in outs)
+
+
+# ---------------------------------------------------------------------------
+# AST training (no hand-written kernel): the token step on the card
+# ---------------------------------------------------------------------------
+
+def _ast_train_inputs(cuda, batch=2, seconds=1.5, n_tok=48):
+    rng = np.random.default_rng(11)
+    wave = torch.from_numpy((0.3 * rng.standard_normal((batch, int(16000 * seconds))))
+                            .astype(np.float32)).to(cuda)
+    tokens = torch.from_numpy(rng.integers(3, 512, (batch, n_tok))).to(cuda)
+    tokens[:, 0].fill_(0)
+    return wave, tokens
+
+
+def test_ast_token_step_makes_no_host_sync(cuda):
+    """A warm token step (dropout 0.2, scheduled sampling 0.5, pitch weights,
+    bf16) runs under torch.cuda.set_sync_debug_mode("error") until its loss
+    is read: nothing in it copies a Python number to the card or reads one
+    back."""
+    from music_transcription_tpu_torch.models.remi_tokenizer import REMITokenizer
+    from music_transcription_tpu_torch.train import ast_step
+
+    torch.manual_seed(0)
+    model = TranscriptionModel(ModelConfig(dropout=0.2, **AST_SMALL)).to(cuda)
+    opt = ast_step.make_adam(model.parameters(), 1e-4)
+    wave, tokens = _ast_train_inputs(cuda)
+    cw = torch.from_numpy(ast_step.pitch_class_weights(REMITokenizer(), 512, 3.0)).to(cuda)
+
+    def step(s):
+        gen, ss_gen = ast_step.step_generators(1, s, cuda)
+        return ast_step.token_step(model, opt, wave, tokens, generator=gen, ss_p=0.5,
+                                   ss_generator=ss_gen, class_weights=cw)
+
+    first = float(step(0))  # builds the mel constants and the library plans
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        losses = [step(s) for s in (1, 2)]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert all(np.isfinite(v) for v in [first] + [float(x) for x in losses])
+
+
+def test_ast_frozen_encoder_is_bit_identical_after_3_steps(cuda):
+    from music_transcription_tpu_torch.models.transformer import encoder_state_dict
+    from music_transcription_tpu_torch.train import ast_step
+
+    torch.manual_seed(1)
+    model = TranscriptionModel(ModelConfig(freeze_encoder=True, **AST_SMALL)).to(cuda)
+    before = {k: v.clone() for k, v in model.model.state_dict().items()}
+    opt = ast_step.make_adam(model.parameters(), 1e-3)
+    wave, tokens = _ast_train_inputs(cuda)
+    for s in range(3):
+        gen, _ = ast_step.step_generators(1, s, cuda)
+        ast_step.token_step(model, opt, wave, tokens, generator=gen)
+    after = model.model.state_dict()
+    enc = encoder_state_dict(after)
+    assert enc and all(torch.equal(v, before[k]) for k, v in enc.items())
+    assert not torch.equal(after["output_fc.weight"], before["output_fc.weight"])
+
+
+def test_ast_staged_compact_batches_equal_the_streamed_ones(cuda):
+    """DeviceStagedLoader(compact_fields=(0,), limit) on the card against the
+    streaming Loader: PCM16 waves come back bit for bit after the int16
+    gather and dequantization, tokens equal, in the same order."""
+    from music_transcription_tpu_torch.data.pipeline import (
+        DeviceStagedLoader,
+        Loader,
+        collate_tokens,
+    )
+
+    rng = np.random.default_rng(12)
+    items = [(rng.integers(-32768, 32768, 16000 + 1000 * i).astype(np.float32) / 32768,
+              rng.integers(0, 512, 32)) for i in range(7)]
+    kw = dict(shuffle=True, seed=2, drop_last=True, collate=collate_tokens, pad_to=18000)
+    staged = DeviceStagedLoader(items, 2, device=cuda, limit=6, compact_fields=(0,), **kw)
+    streamed = Loader(items[:6], 2, num_workers=0, **kw)
+    assert staged.arrays[0].dtype == torch.int16 and staged.n == 6
+    for _ in range(2):
+        for (w, t), (sw, st) in zip(staged, streamed):
+            assert w.device.type == "cuda" and w.dtype == torch.float32
+            assert torch.equal(w.cpu(), torch.from_numpy(sw))
+            assert torch.equal(t.cpu(), torch.from_numpy(st))

@@ -31,7 +31,8 @@ def test_importing_the_port_loads_no_jax():
     modules = _port_modules()
     for name in ("ops.lstm_kernel", "ops.attention_kernel", "ops.conv_kernel", "eval", "evaluate",
                  "native", "preprocess", "data.preprocess", "models.remi_tokenizer",
-                 "models.event_tokenizer", "models.transformer", "evaluate_ast"):
+                 "models.event_tokenizer", "models.transformer", "evaluate_ast", "train_ast",
+                 "train.ast_step"):
         assert f"music_transcription_tpu_torch.{name}" in modules
     code = (
         "import importlib, json, sys\n"
