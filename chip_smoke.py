@@ -128,7 +128,32 @@ Phases, in order; any failure exits non-zero:
      pretrain, token and scheduled-sampling steps (the token steps under
      set_sync_debug_mode("error") until their loss read), the peak device
      memory, one token step profiled. No hand-written kernel may launch;
-  9. print the kernels line (JSON: launches on the main path, error against
+  9. data-parallel training at world 2 on the one card (the ranks share it
+     over gloo, time-sliced), each rank a process of torchrun's (this script
+     with a private argument, so that it reads its own kernel counters):
+     9a. the default model through the training CLI (2 epochs of 2 steps of
+     24 rows, 12 a rank, streamed from phase 6's cache): both ranks exit 0
+     with the same finite losses, none skipped, K2a and K2b up by 4 a step
+     and K1 by 4 a validation batch in each rank, rank 0 alone writes the
+     run; its model_best serves phase 3's WAV here; --resume auto at world
+     2 continues from model_epoch_2;
+     9b. one fp32 step at dropout 0 from seeded weights on a global batch of
+     24 at T=188 (rank 1's rows shorter), attention "xla" and "pallas",
+     against the same step in this one process: the loss within 1e-4
+     relative, the parameters within the CPU tests' bounds (2 lr; all but 1
+     in 200 within 1e-2 lr), the running statistics within 1e-4;
+     9c. K2a and K2b at a rank's 2B = 24 and K3 with lse, K4a and K4b at its
+     B x heads = 96 against their plain versions (phase 5's tolerances, 5
+     launches bit-identical);
+     9d. zero1 at world 2, 2 steps, against dp; its consolidated checkpoint
+     resumes here with the Adam moments the ranks' shards held, bit for bit;
+     9e. fsdp at world 1 over NCCL in this process (parallel/partitioning;
+     the loop refuses one rank): one step against the plain one, its
+     sharded bytes, its full state loaded into a one-device model;
+     then warm world-2 bf16 steps of the default model (12 rows a rank,
+     T=938) timed beside phase 6's step, with the gradient all-reduce timed
+     apart and one step profiled in rank 0;
+ 10. print the kernels line (JSON: launches on the main path, error against
      the plain version, times, bound, and for K1, K2a and K2b the sequential
      floor; a failed check has already exited),
      the card's name and power limit, and as the last line
@@ -2072,6 +2097,579 @@ def ast_train_phase(torch, counters, card):
           f"{time.perf_counter() - t_phase:.1f} s")
 
 
+# Phase 9: data-parallel training. The ranks are processes of their own,
+# started by torchrun with a private argument (RANK_MODES): each runs its
+# part in-process, so that it reads its own kernel counters, and writes its
+# result to <spec>_rank<r>.json beside its spec for the parent to read.
+RANK_MODES = ("--rank-cli", "--rank-steps")
+DP_WORLD = 2
+DP_T = 188  # frames of the card-vs-one-process steps (6 s): their fp32 memory stays small
+
+
+def counters_of(lk, ak) -> dict:
+    return {"lstm_recurrence": lk.lstm_recurrence, "lstm_recurrence_fwd": lk.lstm_recurrence_fwd,
+            "lstm_recurrence_bwd": lk.lstm_recurrence_bwd,
+            "flash_attention_clamped": ak.flash_attention_clamped,
+            "flash_attention_clamped_fwd": ak.flash_attention_clamped_fwd,
+            "flash_attention_clamped_dq": ak.flash_attention_clamped_dq,
+            "flash_attention_clamped_dkv": ak.flash_attention_clamped_dkv}
+
+
+def reset_counts(counters: dict) -> None:
+    for c in counters.values():
+        c.launches = 0
+
+
+def read_counts(counters: dict) -> dict:
+    return {name: c.launches for name, c in counters.items()}
+
+
+def torchrun(mode: str, spec: dict, name: str, timeout: float = 300) -> list[dict]:
+    """``torchrun --standalone --nproc_per_node DP_WORLD chip_smoke.py mode``
+    on ``spec``: each rank's result, by rank. The whole output goes to
+    WORK/<name>.log; a failure raises with its end. The launch is a process
+    group of its own, killed whole if it outlives ``timeout``."""
+    import signal
+
+    spec_path = os.path.join(WORK, f"{name}.json")
+    with open(spec_path, "w") as f:
+        json.dump(spec, f)
+    for rank in range(DP_WORLD):  # each rank writes its result here
+        with contextlib.suppress(FileNotFoundError):
+            os.remove(os.path.join(WORK, f"{name}_rank{rank}.json"))
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", str(DP_WORLD), os.path.abspath(__file__), mode, spec_path]
+    proc = subprocess.Popen(cmd, cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True, start_new_session=True)
+    try:
+        out, _ = proc.communicate(timeout=timeout)
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.communicate()
+    with open(os.path.join(WORK, f"{name}.log"), "w") as f:
+        f.write(out)
+    results = []
+    for rank in range(DP_WORLD):
+        path = os.path.join(WORK, f"{name}_rank{rank}.json")
+        if os.path.exists(path):
+            with open(path) as f:
+                results.append(json.load(f))
+    if proc.returncode != 0 or len(results) != DP_WORLD:
+        raise AssertionError(f"torchrun {mode} exited {proc.returncode} with {len(results)} "
+                             f"rank results:\n{out[-6000:]}")
+    return results
+
+
+def rank_cli(torch, spec: dict, rank: int) -> dict:
+    """9a in a rank: the training CLI's main in this process, its train
+    steps recorded, the kernel counters read here."""
+    from music_transcription_tpu_torch.ops import attention_kernel as ak
+    from music_transcription_tpu_torch.ops import lstm_kernel as lk
+    from music_transcription_tpu_torch.train import __main__ as train_cli
+
+    counters = counters_of(lk, ak)
+    with recorded_steps() as steps:
+        reset_counts(counters)
+        t0 = time.perf_counter()
+        rc = train_cli.main(spec["argv"][str(rank)])
+        wall = time.perf_counter() - t0
+        launches = read_counts(counters)
+    return dict(rank=rank, rc=rc, wall_s=wall, launches=launches,
+                losses=[m["loss"] for m in steps], skipped=[m["skipped"] for m in steps],
+                ms=[m["ms"] for m in steps])
+
+
+def _fresh_state(torch, cfg, weights, device):
+    from music_transcription_tpu_torch.config import TrainConfig
+    from music_transcription_tpu_torch.models.transcription import TranscriptionModel
+    from music_transcription_tpu_torch.parallel.train_step import TrainState
+    from music_transcription_tpu_torch.train.optim import make_optimizer
+
+    model = TranscriptionModel(cfg)
+    model.model.load_state_dict(torch.load(weights), strict=True)
+    model.to(device)
+    return TrainState(model, make_optimizer(model.parameters(), TrainConfig()))
+
+
+def rank_steps(torch, spec: dict, rank: int) -> dict:
+    """9b-9d in a rank, at world 2 on the card: fp32 steps at dropout 0 from
+    ``spec``'s weights on its global batch (this rank's rows) under dp (2
+    steps, attention "xla"), zero1 (2 steps) and dp with attention "pallas"
+    (1 step); rank 0 writes the states after the first step and the
+    checkpoints after the last. Then warm bf16 steps of the default model at
+    T=938 (12 rows a rank), timed, the gradient all-reduce timed apart, and
+    one step profiled in rank 0."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from music_transcription_tpu_torch import checkpoints as ckpt_lib
+    from music_transcription_tpu_torch.config import ModelConfig, TrainConfig
+    from music_transcription_tpu_torch.models.cnn_rnn import CNNRNNLarge
+    from music_transcription_tpu_torch.ops import attention_kernel as ak
+    from music_transcription_tpu_torch.ops import lstm_kernel as lk
+    from music_transcription_tpu_torch.parallel import partitioning as part
+    from music_transcription_tpu_torch.parallel import train_step as ts
+    from music_transcription_tpu_torch.parallel.distributed import (
+        backend,
+        maybe_initialize_distributed,
+        rank_device,
+        shutdown,
+    )
+    from music_transcription_tpu_torch.parallel.mesh import make_mesh, shard_batch
+
+    maybe_initialize_distributed("cuda")
+    device = rank_device("cuda")
+    mesh = make_mesh(DP_WORLD, "cuda")
+    counters = counters_of(lk, ak)
+    out = dict(rank=rank, rc=0, backend=backend(), device=str(device), runs={})
+    batch = tuple(a.to(device) for a in shard_batch(torch.load(spec["batch"]), mesh))
+    saved_rates = CNNRNNLarge.CHANNEL_DROPOUT
+    CNNRNNLarge.CHANNEL_DROPOUT = (0.0, 0.0, 0.0)
+    try:
+        for name, attention, how, steps in (("dp", "xla", "dp", 2), ("zero1", "xla", "zero1", 2),
+                                            ("pallas", "pallas", "dp", 1)):
+            cfg = ModelConfig(compute_dtype="float32", dropout=0.0, lstm_backend="pallas",
+                              attention_backend=attention)
+            state = ts.data_parallel(_fresh_state(torch, cfg, spec["weights"], device), mesh)
+            if how != "dp":
+                state = part.shard_state(state, mesh, shard_params=how == "fsdp")
+            reset_counts(counters)
+            metrics = []
+            for i in range(steps):
+                metrics.append(ts.train_step(state, batch, 1, max_grad_norm=1.0))
+                if i == 0:
+                    first = part.full_model_state_dict(state)
+                    if rank == 0:
+                        torch.save({k: v.cpu() for k, v in first.items()},
+                                   os.path.join(spec["out"], f"{name}_step1.pt"))
+            launches = read_counts(counters)
+            if how == "zero1":  # the Adam moments this rank holds, by parameter index
+                index = {id(p): i for i, p in enumerate(state.model.parameters())}
+                torch.save({index[id(p)]: {k: v.detach().cpu() for k, v in s.items()}
+                            for p, s in state.optimizer.optim.state.items()},
+                           os.path.join(spec["out"], f"zero1_shard_rank{rank}.pt"))
+            model_sd = part.full_model_state_dict(state)
+            optim_sd = part.full_optimizer_state_dict(state)
+            if rank == 0:
+                ckpt_lib.save_training_checkpoint(os.path.join(spec["out"], f"{name}.pt"),
+                                                  model_sd, optim_sd, state.step, 1, {})
+            out["runs"][name] = dict(metrics=metrics, launches=launches,
+                                     bytes=part.sharded_param_bytes(state))
+            del state, model_sd, optim_sd, first
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        CNNRNNLarge.CHANNEL_DROPOUT = saved_rates
+
+    # warm bf16 steps of the default model, 12 rows a rank at T=938
+    big = tuple(a.to(device) for a in shard_batch(torch.load(spec["time_batch"]), mesh))
+    state = ts.data_parallel(ts.init_train_state(ModelConfig(lstm_backend="pallas"), TrainConfig(),
+                                                 device), mesh)
+    reduce_ms, real_sum = [], ts._sum_gradients
+
+    def timed_sum(params, group):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        real_sum(params, group)
+        torch.cuda.synchronize()
+        reduce_ms.append((time.perf_counter() - t0) * 1e3)
+
+    ts._sum_gradients = timed_sum
+    try:
+        ts.train_step(state, big, SEED + 1, max_grad_norm=1.0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times, reduce_ms[:] = [], []
+        for _ in range(4):
+            t0 = time.perf_counter()
+            ts.train_step(state, big, SEED + 1, max_grad_norm=1.0)
+            times.append((time.perf_counter() - t0) * 1e3)
+        out.update(step_ms=times, reduce_ms=list(reduce_ms),
+                   peak_gib=torch.cuda.max_memory_allocated(device) / 2**30)
+        if rank == 0:
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                ts.train_step(state, big, SEED + 1, max_grad_norm=1.0)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            print(f"    [rank 0] one world-{DP_WORLD} train step under torch.profiler "
+                  f"({wall * 1e3:.1f} ms):")
+            device_time_by_kernel(prof, wall, top=10)
+            comm = sorted(((e.key, e.cpu_time_total / 1e3) for e in prof.key_averages()
+                           if "allreduce" in e.key.replace("_", "").lower()
+                           or "all_reduce" in e.key), key=lambda kv: -kv[1])
+            print("    [rank 0] collective ops (host ms): "
+                  + ", ".join(f"{k} {v:.1f}" for k, v in comm[:4]))
+        else:
+            ts.train_step(state, big, SEED + 1, max_grad_norm=1.0)
+    finally:
+        ts._sum_gradients = real_sum
+    del state, big
+    shutdown()
+    return out
+
+
+def rank_main(argv) -> int:
+    """A rank of phase 9 (started by torchrun): ``argv`` = mode, spec path."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device visible", file=sys.stderr)
+        return 1
+    sys.path.insert(0, REPO)
+    mode, spec_path = argv
+    with open(spec_path) as f:
+        spec = json.load(f)
+    rank = int(os.environ["RANK"])
+    result = (rank_cli if mode == "--rank-cli" else rank_steps)(torch, spec, rank)
+    with open(spec_path.removesuffix(".json") + f"_rank{rank}.json", "w") as f:
+        json.dump(result, f)
+    return result["rc"]
+
+
+def _state_errors(torch, got: dict, ref: dict, lr: float) -> dict:
+    """The CPU tests' bounds, read off: the largest parameter difference in
+    units of lr, the share of parameter elements more than 1e-2 lr apart,
+    and the largest running-statistics difference over its tensor's largest
+    magnitude."""
+    worst = stats = 0.0
+    loose = total = 0
+    for key, want in ref.items():
+        if key.endswith("num_batches_tracked") or "bias_hh" in key:
+            continue
+        diff = (got[key].float().cpu() - want.float().cpu()).abs()
+        if "running" in key:
+            stats = max(stats, float(diff.max()) / float(want.abs().max()))
+            continue
+        worst = max(worst, float(diff.max()) / lr)
+        loose += int((diff > 1e-2 * lr).sum())
+        total += diff.numel()
+    return dict(max_lr=worst, loose_share=loose / total, stats_rel=stats)
+
+
+def _within(errs: dict) -> bool:
+    return errs["max_lr"] <= 2.0 and errs["loose_share"] <= 5e-3 and errs["stats_rel"] <= 1e-4
+
+
+def _fmt(errs: dict) -> str:
+    return (f"params max {errs['max_lr']:.3f} lr (tol 2), share beyond 1e-2 lr "
+            f"{errs['loose_share']:.2e} (tol 5e-3), running stats {errs['stats_rel']:.2e} "
+            f"(tol 1e-4)")
+
+
+def check_rank_kernels(torch, lk, ak, rows):
+    """9c: K2a and K2b at a rank's 2B = 24 (12 rows), T=938, H=512 and 256,
+    and K3 with lse, K4a and K4b at its B x heads = 96, bf16 and fp32,
+    against their plain versions with phase 5's tolerances, each launched
+    REPEATS times with bit-identical outputs."""
+    from music_transcription_tpu_torch.ops.precision import full_fp32
+
+    rng = np.random.default_rng(SEED + 9)
+    for two_b, t, hidden in ((24, 938, 512), (24, 938, 256)):
+        xw = torch.from_numpy(rng.standard_normal((two_b, t, 4 * hidden)).astype(np.float32)).cuda()
+        k = 1.0 / np.sqrt(hidden)
+        wh = torch.from_numpy(rng.uniform(-k, k, (2, hidden, 4 * hidden)).astype(np.float32)).cuda()
+        dh = torch.from_numpy(rng.standard_normal((two_b, t, hidden)).astype(np.float32)).cuda()
+        h, c = lk.lstm_recurrence_fwd(xw, wh)
+        ref_h, ref_c = lk.lstm_recurrence_fwd_plain(xw, wh)
+        dxw = lk.lstm_recurrence_bwd(xw, wh, ref_h, ref_c, dh)
+        ref_dxw = lk.lstm_recurrence_bwd_plain(xw, wh, ref_h, ref_c, dh)
+        dwh = lk.recurrent_weight_grad(ref_h, dxw)
+        ref_dwh = lk.recurrent_weight_grad(ref_h, ref_dxw)
+        torch.cuda.synchronize()
+        fwd_err = max(float((h - ref_h).abs().max()), float((c - ref_c).abs().max()))
+        dxw_err, dwh_err = float((dxw - ref_dxw).abs().max()), float((dwh - ref_dwh).abs().max())
+        dxw_tol, dwh_tol = 1e-4 * float(ref_dxw.abs().max()), 1e-4 * float(ref_dwh.abs().max())
+        same_fwd = repeats_identical(torch, lambda: lk.lstm_recurrence_fwd(xw, wh), (h, c))
+        same_bwd = repeats_identical(
+            torch, lambda: lk.lstm_recurrence_bwd(xw, wh, ref_h, ref_c, dh), dxw)
+        fwd_ms = cuda_ms(lambda: lk.lstm_recurrence_fwd(xw, wh), reps=5)
+        bwd_ms = cuda_ms(lambda: lk.lstm_recurrence_bwd(xw, wh, h, c, dh), reps=5)
+        ok = (fwd_err <= 1e-4 and dxw_err <= dxw_tol and dwh_err <= dwh_tol and same_fwd
+              and same_bwd and bool(torch.isfinite(h).all() and torch.isfinite(dxw).all()))
+        rows.append(f"K2a/K2b 2B={two_b} T={t} H={hidden}: h/c max_abs_err {fwd_err:.3e} (tol "
+                    f"1e-4), dxw {dxw_err:.3e} (tol {dxw_tol:.3e}), dW_hh {dwh_err:.3e} (tol "
+                    f"{dwh_tol:.3e}); {REPEATS} launches bit-identical: {same_fwd} / {same_bwd}; "
+                    f"ms K2a {fwd_ms:.4f} K2b {bwd_ms:.4f} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(rows[-1])
+        del xw, wh, dh, h, c, ref_h, ref_c, dxw, ref_dxw
+    b, t, nh, d = 12, 938, 8, 192
+    scale, clip = d**-0.5, 10.0
+    q32, k32, v32, do32 = (torch.from_numpy(m * rng.standard_normal((b, t, nh, d))
+                                            .astype(np.float32)).cuda()
+                           for m in (6.0, 1.0, 1.0, 1.0))
+    for dtype in ("bfloat16", "float32"):
+        q, k, v, do = (x.to(getattr(torch, dtype)) for x in (q32, k32, v32, do32))
+        with full_fp32():
+            o, lse = ak.flash_attention_clamped_fwd(q, k, v, scale, clip)
+            ref_o, ref_lse = ak.attention_clamped_fwd_plain(q, k, v, scale, clip)
+            ref_abs_v = ak.attention_clamped_plain(q, k, v.abs(), scale, clip)
+            dq = ak.flash_attention_clamped_dq(q, k, v, ref_o, do, ref_lse, scale, clip)
+            dk, dv = ak.flash_attention_clamped_dkv(q, k, v, ref_o, do, ref_lse, scale, clip)
+            ref = ak.attention_clamped_bwd_plain(q, k, v, ref_o, do, ref_lse, scale, clip)
+            torch.cuda.synchronize()
+            fwd_score = k3_score(o, ref_o, ref_abs_v, dtype)
+            lse_ok = bool(((lse - ref_lse).abs() <= 1e-5 * ref_lse.abs() + 1e-5).all())
+            _, mag = attention_grad_terms(torch, q, k, v, ref_o, do, ref_lse, scale, clip)
+            score = k4_score((dq, dk, dv), ref, mag, dtype)
+            same = (repeats_identical(
+                        torch, lambda: ak.flash_attention_clamped_fwd(q, k, v, scale, clip),
+                        (o, lse))
+                    and repeats_identical(torch, lambda: ak.flash_attention_clamped_dq(
+                        q, k, v, ref_o, do, ref_lse, scale, clip), dq)
+                    and repeats_identical(torch, lambda: ak.flash_attention_clamped_dkv(
+                        q, k, v, ref_o, do, ref_lse, scale, clip), (dk, dv)))
+            fwd_ms = cuda_ms(lambda: ak.flash_attention_clamped_fwd(q, k, v, scale, clip), reps=5)
+            dq_ms = cuda_ms(lambda: ak.flash_attention_clamped_dq(q, k, v, ref_o, do, ref_lse,
+                                                                  scale, clip), reps=5)
+            dkv_ms = cuda_ms(lambda: ak.flash_attention_clamped_dkv(q, k, v, ref_o, do, ref_lse,
+                                                                    scale, clip), reps=5)
+        ok = fwd_score <= 1.0 and lse_ok and score <= 1.0 and same
+        rows.append(f"K3+lse/K4a/K4b {dtype} B x heads={b * nh} T={t} D={d}: o worst "
+                    f"|err|/K3_TOL {fwd_score:.3f}, lse within 1e-5: {lse_ok}; dq/dk/dv worst "
+                    f"|err|/K4_TOL {score:.3f}; {REPEATS} launches bit-identical: {same}; ms "
+                    f"K3+lse {fwd_ms:.4f} K4a {dq_ms:.4f} K4b {dkv_ms:.4f} "
+                    f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(rows[-1])
+        del q, k, v, do, o, lse, ref_o, ref_lse, ref_abs_v, dq, dk, dv, ref, mag
+
+
+def dp_phase(torch, lk, ak, wav30, card, phase6_ms):
+    """Phase 9: data-parallel training at world 2 on the one card."""
+    import torch.distributed as dist
+
+    from music_transcription_tpu_torch import checkpoints as ckpt_lib
+    from music_transcription_tpu_torch.config import AudioConfig, ModelConfig
+    from music_transcription_tpu_torch.data.cache import HybridMaestroDataset
+    from music_transcription_tpu_torch.data.midi import load_midi
+    from music_transcription_tpu_torch.data.pipeline import collate_mel
+    from music_transcription_tpu_torch.models.cnn_rnn import CNNRNNLarge
+    from music_transcription_tpu_torch.models.transcription import TranscriptionModel
+    from music_transcription_tpu_torch.parallel import partitioning as part
+    from music_transcription_tpu_torch.parallel import train_step as ts
+    from music_transcription_tpu_torch.parallel.mesh import make_mesh
+    from music_transcription_tpu_torch.transcribe import transcribe_audio
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()  # the ranks share the card with this process
+    acfg = AudioConfig()
+    cache_dir = os.path.join(WORK, "train_cache")  # phase 6's
+    run_dir, rank1_dir = os.path.join(WORK, "dp_run"), os.path.join(WORK, "dp_run_rank1")
+    for d in (run_dir, rank1_dir):
+        shutil.rmtree(d, ignore_errors=True)
+
+    # 9a: dp through the CLI at world 2; rank 1 is given a run directory of
+    # its own, where it must write nothing
+    def argv(run, *extra):
+        return ["--cache_dir", cache_dir, "--root_dir", os.path.join(WORK, "no_raw_audio"),
+                "--run_dir", run, "--save_every", "1", "--num_workers", "4",
+                "--seed", str(SEED), *extra]
+
+    results = torchrun("--rank-cli", {"argv": {"0": argv(run_dir, "--epochs", "2"),
+                                                "1": argv(rank1_dir, "--epochs", "2")}},
+                       "dp_cli", timeout=400)
+    with open(os.path.join(WORK, "dp_cli.log")) as f:
+        backend_line = next((ln.strip() for ln in f if ln.startswith("distributed: rank 0")), "")
+    print(f"[9] data-parallel training at world {DP_WORLD} on {card}: {backend_line}")
+    for r in results:
+        print(f"    9a rank {r['rank']}: CLI rc {r['rc']}, wall {r['wall_s']:.1f} s, step losses "
+              f"{[round(v, 5) for v in r['losses']]}, skipped {sum(r['skipped'])}, step ms "
+              f"{[round(v, 1) for v in r['ms']]}, launches {r['launches']}")
+    with open(os.path.join(run_dir, "training_log.txt")) as f:
+        log = [line.split() for line in f if line.strip()]
+    epoch_losses = [float(r[k].split("=")[1]) for r in log for k in (2, 3)]
+    with open(os.path.join(run_dir, "parameters.json")) as f:
+        devices = json.load(f)["devices"]
+    n_steps, n_val = 4, 2  # 2 epochs of 2 steps; 1 validation batch of 12 rows an epoch
+    for r in results:
+        if (r["rc"] != 0 or len(r["losses"]) != n_steps or any(r["skipped"])
+                or not all(np.isfinite(v) for v in r["losses"] + epoch_losses)):
+            raise AssertionError(f"9a: rank {r['rank']}'s training failed: {r}")
+        if (r["launches"]["lstm_recurrence_fwd"] != 4 * n_steps
+                or r["launches"]["lstm_recurrence_bwd"] != 4 * n_steps
+                or r["launches"]["lstm_recurrence"] != 4 * n_val):
+            raise AssertionError(f"9a: rank {r['rank']} missed a kernel: {r['launches']}")
+    if results[0]["losses"] != results[1]["losses"]:
+        raise AssertionError("9a: the ranks saw different losses")
+    if os.path.exists(rank1_dir) or len(devices) != DP_WORLD:
+        raise AssertionError(f"9a: rank 1 wrote {rank1_dir}, or the manifest lists {devices}")
+    print(f"    epoch train/val losses {epoch_losses}; manifest devices {devices}; rank 1 wrote "
+          f"nothing")
+    best = os.path.join(run_dir, "checkpoints", "model_best.pth")
+    mid = os.path.join(WORK, "request_dp.mid")
+    k1 = lk.lstm_recurrence.launches
+    transcribe_audio(wav30, best, mid, verbose=False, device="cuda")
+    n_notes = len(load_midi(mid).instruments[0].notes)
+    print(f"    the world-2 model_best.pth served the 118 s WAV here: {n_notes} notes, K1 "
+          f"launches {lk.lstm_recurrence.launches - k1}")
+    if lk.lstm_recurrence.launches - k1 != 4:
+        raise AssertionError("9a: model_best did not serve through K1")
+    results = torchrun("--rank-cli", {"argv": {str(r): argv(run_dir, "--epochs", "3", "--resume",
+                                                           "auto") for r in range(DP_WORLD)}},
+                       "dp_resume", timeout=300)
+    with open(os.path.join(run_dir, "training_log.txt")) as f:
+        epochs = [int(line.split()[1]) for line in f if line.strip()]
+    final_step = torch.load(os.path.join(run_dir, "checkpoints", "model_final.pt"))["step"]
+    print(f"    --resume auto at world 2: rc {[r['rc'] for r in results]}, epochs logged {epochs}, "
+          f"final step {final_step}, losses {[round(v, 5) for v in results[0]['losses']]}")
+    if any(r["rc"] for r in results) or epochs != [1, 2, 3] or final_step != 6 \
+            or results[0]["losses"] != results[1]["losses"]:
+        raise AssertionError("9a: --resume auto at world 2 did not continue from model_epoch_2")
+
+    # 9b-9d in the ranks: fp32 steps at dropout 0 from seeded weights on a
+    # global batch of 24 at T=DP_T, rank 1's rows shorter (the weighting)
+    out_dir = os.path.join(WORK, "dp_steps")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    train_set = HybridMaestroDataset(cache_dir, cache_dir, "train", chunk_length=30.0,
+                                     verbose=False)
+    mel, roll, lengths = (torch.from_numpy(a) for a in
+                          collate_mel([train_set[i] for i in range(24)],
+                                      pad_to=acfg.mel_frames_per_chunk))
+    torch.save((mel, roll, lengths), os.path.join(out_dir, "time_batch.pt"))
+    short = torch.tensor([DP_T] * 12 + list(range(DP_T - 11 * 8, DP_T + 1, 8)), dtype=torch.int32)
+    batch = (mel[..., :DP_T].clone(), roll[..., :DP_T].clone(), short)
+    torch.save(batch, os.path.join(out_dir, "batch.pt"))
+    fp32 = dict(compute_dtype="float32", dropout=0.0, lstm_backend="pallas")
+    torch.manual_seed(SEED + 9)
+    weights = os.path.join(out_dir, "weights.pth")
+    torch.save(TranscriptionModel(ModelConfig(**fp32)).model.state_dict(), weights)
+    results = torchrun("--rank-steps",
+                       {"weights": weights, "batch": os.path.join(out_dir, "batch.pt"),
+                        "time_batch": os.path.join(out_dir, "time_batch.pt"), "out": out_dir},
+                       "dp_steps", timeout=400)
+    with open(os.path.join(WORK, "dp_steps.log")) as f:
+        for line in f:
+            if line.startswith("    [rank 0]") or line.startswith("      "):
+                print(line.rstrip())
+    r0 = results[0]
+    for r in results:
+        print(f"    rank {r['rank']} on {r['device']} ({r['backend']}): "
+              + "; ".join(f"{n} losses {[round(m['loss'], 6) for m in v['metrics']]} launches "
+                          f"{ {k: c for k, c in v['launches'].items() if c} } bytes {v['bytes']}"
+                          for n, v in r["runs"].items()))
+        if any(m["skipped"] or not np.isfinite(m["loss"]) for v in r["runs"].values()
+               for m in v["metrics"]):
+            raise AssertionError(f"9b: rank {r['rank']} skipped a step")
+    if [m["loss"] for v in results[0]["runs"].values() for m in v["metrics"]] != \
+            [m["loss"] for v in results[1]["runs"].values() for m in v["metrics"]]:
+        raise AssertionError("9b: the ranks saw different losses")
+    for name, fwd, extra in (("dp", 8, {}), ("zero1", 8, {}),
+                             ("pallas", 4, {"flash_attention_clamped_fwd": 1,
+                                            "flash_attention_clamped_dq": 1,
+                                            "flash_attention_clamped_dkv": 1})):
+        got = r0["runs"][name]["launches"]
+        if got["lstm_recurrence_fwd"] != fwd or got["lstm_recurrence_bwd"] != fwd or any(
+                got[k] != v for k, v in extra.items()):
+            raise AssertionError(f"9b: {name} steps missed a kernel: {got}")
+
+    # 9b here: the same first step in this one process, the whole batch
+    rows, one = [], {}
+    CNNRNNLarge.CHANNEL_DROPOUT, saved_rates = (0.0, 0.0, 0.0), CNNRNNLarge.CHANNEL_DROPOUT
+    try:
+        full = tuple(a.cuda() for a in batch)
+        for name, attention in (("dp", "xla"), ("pallas", "pallas")):
+            cfg = ModelConfig(**fp32, attention_backend=attention)
+            state = _fresh_state(torch, cfg, weights, "cuda")
+            m = ts.train_step(state, full, 1, max_grad_norm=1.0)
+            one[name] = (m, {k: v.cpu() for k, v in state.model.model.state_dict().items()})
+            got = r0["runs"][name]["metrics"][0]
+            loss_err = abs(got["loss"] - m["loss"]) / abs(m["loss"])
+            errs = _state_errors(torch, torch.load(os.path.join(out_dir, f"{name}_step1.pt")),
+                                 one[name][1], 1e-4)
+            ok = loss_err <= 1e-4 and _within(errs)
+            rows.append(f"9b world-2 fp32 step (attention {attention!r}, 2 x 12 rows, T={DP_T}) vs "
+                        f"one process: loss rel err {loss_err:.3e} (tol 1e-4), {_fmt(errs)} "
+                        f"{'ok' if ok else 'FAIL'}")
+            print("    " + rows[-1])
+            if not ok:
+                raise AssertionError(rows[-1])
+            del state
+
+        # 9d: zero1 against dp after 2 steps; its consolidated checkpoint
+        # resumes in this one-device process holding the moments the ranks'
+        # shards held, bit for bit
+        dp_ck = torch.load(os.path.join(out_dir, "dp.pt"), weights_only=False)
+        z_path = os.path.join(out_dir, "zero1.pt")
+        errs = _state_errors(torch, torch.load(z_path, weights_only=False)["model_state"],
+                             dp_ck["model_state"], 1e-4)
+        state = _fresh_state(torch, ModelConfig(**fp32), weights, "cuda")
+        step = ckpt_lib.load_training_checkpoint(z_path, state.model.model, state.optimizer)
+        shards = [torch.load(os.path.join(out_dir, f"zero1_shard_rank{r}.pt"))
+                  for r in range(DP_WORLD)]
+        params = list(state.model.parameters())
+        owned = sorted(i for s in shards for i in s)
+        same = owned == list(range(len(params))) and all(
+            torch.equal(state.optimizer.state[params[i]][k].cpu(), v)
+            for s in shards for i, moments in s.items() for k, v in moments.items())
+        dp_adam = dp_ck["optimizer_state"]["state"]
+        vs_dp = max(float((state.optimizer.state[p][k].cpu() - dp_adam[i][k].cpu()).abs().max())
+                    / float(dp_adam[i][k].abs().max())
+                    for i, p in enumerate(params) for k in ("exp_avg", "exp_avg_sq"))
+        ok = _within(errs) and step == 2 and same
+        rows.append(f"9d zero1 at world 2 (2 steps; per rank {r0['runs']['zero1']['bytes']}, "
+                    f"dp's {r0['runs']['dp']['bytes']}) vs dp: {_fmt(errs)}; its checkpoint "
+                    f"resumed here at step {step} with every rank's moments bit for bit "
+                    f"({[len(s) for s in shards]} parameters a rank): {same}; the moments against "
+                    f"the separate dp run's, max over tensors of |diff| / max: {vs_dp:.2e} "
+                    f"{'ok' if ok else 'FAIL'}")
+        print("    " + rows[-1])
+        if not ok:
+            raise AssertionError(rows[-1])
+        del state
+
+        # 9e: fsdp at world 1 over NCCL, through parallel/partitioning
+        store = os.path.join(out_dir, "fsdp_store")
+        dist.init_process_group("nccl", init_method=f"file://{store}", rank=0, world_size=1)
+        try:
+            mesh = make_mesh(1, "cuda")
+            state = part.shard_state(ts.data_parallel(
+                _fresh_state(torch, ModelConfig(**fp32), weights, "cuda"), mesh), mesh,
+                shard_params=True)
+            m = ts.train_step(state, full, 1, max_grad_norm=1.0)
+            sizes = part.sharded_param_bytes(state)
+            sd = part.full_model_state_dict(state)
+            ref_m, ref_sd = one["dp"]
+            errs = _state_errors(torch, sd, ref_sd, 1e-4)
+            loss_err = abs(m["loss"] - ref_m["loss"]) / abs(ref_m["loss"])
+            plain = TranscriptionModel(ModelConfig(**fp32))
+            plain.model.load_state_dict(sd, strict=True)
+            same = all(torch.equal(v, sd[k].cpu()) for k, v in plain.model.state_dict().items())
+            ok = loss_err <= 1e-4 and _within(errs) and same
+            rows.append(f"9e fsdp at world 1 over {dist.get_backend()} (sharded_param_bytes "
+                        f"{sizes}) vs the plain step: loss rel err {loss_err:.3e} (tol 1e-4), "
+                        f"{_fmt(errs)}; its full state loads into a one-device model: {same} "
+                        f"{'ok' if ok else 'FAIL'}")
+            print("    " + rows[-1])
+            if not ok:
+                raise AssertionError(rows[-1])
+            del state, sd
+        finally:
+            dist.destroy_process_group()
+    finally:
+        CNNRNNLarge.CHANNEL_DROPOUT = saved_rates
+
+    # 9c: the kernels at a rank's shapes
+    check_rank_kernels(torch, lk, ak, rows)
+    for r in rows[-4:]:
+        print("    9c " + r)
+
+    # timing: warm world-2 bf16 steps (both ranks on the one card)
+    for r in results:
+        print(f"    warm world-{DP_WORLD} train step, rank {r['rank']} (12 rows, T=938, bf16, "
+              f"attention 'xla'): {[round(v, 1) for v in r['step_ms']]} ms (median "
+              f"{float(np.median(r['step_ms'])):.1f}); gradient all-reduce "
+              f"{[round(v, 1) for v in r['reduce_ms']]} ms (median share "
+              f"{float(np.median(np.array(r['reduce_ms']) / np.array(r['step_ms']))):.3f}); "
+              f"peak {r['peak_gib']:.2f} GiB")
+    ms = float(np.median(results[0]["step_ms"]))
+    print(f"    beside phase 6's one-process step of 24 rows: {phase6_ms:.1f} ms; ratio "
+          f"{ms / phase6_ms:.3f}; {card}; phase wall {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     import torch
 
@@ -2229,7 +2827,10 @@ def main() -> int:
     ast_phase(torch, counters, wav30, card)
     ast_train_phase(torch, counters, card)
 
-    # 9. report
+    # 9. data-parallel training at world 2 on the one card
+    dp_phase(torch, lk, ak, wav30, card, xla_ms)
+
+    # 10. report
     kernels = [
         dict(name="lstm_recurrence", route="cuda",
              source="music_transcription_tpu_torch/csrc/lstm_recurrence.cu",
@@ -2277,4 +2878,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) > 1 and sys.argv[1] in RANK_MODES:
+        sys.exit(rank_main(sys.argv[1:]))
     sys.exit(main())

@@ -13,7 +13,9 @@ config, as ``transcribe.load_model`` reads it):
   * ``model_epoch_N.pt`` / ``model_final.pt``: everything a resume needs:
     the model state_dict (under ``model_state``, so ``load_torch_checkpoint``
     and ``transcribe.load_model`` read it too), the optimizer state_dict, the
-    step and the dropout seed. The dropout generator of a step is derived
+    step and the dropout seed. A data-parallel run writes the same files
+    from rank 0, its sharded state gathered, so they resume at any world
+    size. The dropout generator of a step is derived
     from (dropout seed, step), so the two are its whole state.
 
 ``state_dict_from_jax`` carries the JAX package's weights across: it takes
@@ -212,10 +214,12 @@ def write_sidecar(path, sidecar: dict) -> None:
         json.dump(sidecar, f)
 
 
-def save_training_checkpoint(path, module: nn.Module, optimizer, step: int,
+def save_training_checkpoint(path, model_state: dict, optimizer_state: dict, step: int,
                              dropout_seed: int, sidecar: dict) -> str:
-    """Everything a resume needs, in one ``.pt``, and its sidecar."""
-    torch.save({"model_state": module.state_dict(), "optimizer_state": optimizer.state_dict(),
+    """Everything a resume needs, in one ``.pt``, and its sidecar: the
+    module's state_dict and plain Adam's optimizer state_dict, whole (a
+    sharded run gathers them first: ``parallel/partitioning.py``)."""
+    torch.save({"model_state": model_state, "optimizer_state": optimizer_state,
                 "step": step, "dropout_seed": dropout_seed}, path)
     write_sidecar(path, sidecar)
     return str(path)

@@ -144,8 +144,10 @@ class TrainConfig:
     early_stop_patience: int = 0
     seed: int = 0
     max_nan_batches: int = 10  # abort after this many NaN/Inf losses
-    # Parallelism and state partitioning: the port trains on one device
-    # (None or 1, "dp"); the rest is Queue 1 slice 5 of ROADMAP.md.
+    # Parallelism and state partitioning: data_parallel is the number of
+    # ranks torchrun launched (None: all of them); partitioning "dp",
+    # "zero1" or "fsdp" on their 1-D mesh (train/loop.resolve_mesh).
+    # model_parallel > 1 and "tp" are ROADMAP.md Queue 1 slice 5b.
     data_parallel: int | None = None
     partitioning: str = "dp"
     model_parallel: int = 1

@@ -16,10 +16,14 @@ package's ``data/pipeline.py``.
     epoch's permutation cut into equal slabs, one slab staged at a time
     while the next stages behind it; the JAX package's batches in its order
   * ``epoch_index_batches``: the index batches of one epoch over a staged set
+  * ``device_prefetch``: a loader's batches moved to the rank's device by a
+    producer thread, ``depth`` batches ahead, through pinned memory
 """
 
 from __future__ import annotations
 
+import queue
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -421,3 +425,98 @@ class SlabRotatingLoader:
             arrays = ()
             pool.shutdown(wait=True, cancel_futures=True)
             pending = None
+
+
+def device_prefetch(iterator, device, depth: int = 2, pad_to_mesh: bool = False, world: int = 1):
+    """The batches of ``iterator`` (tuples of numpy arrays or tensors) as
+    tensors on ``device``, moved by a producer thread that keeps ``depth``
+    batches in flight; the counterpart of the JAX package's
+    ``device_prefetch``. On a card a host batch is pinned and copied on a
+    side stream; the consumer's stream waits for the copy's event, and the
+    tensors are marked as used by it (``record_stream``). A batch already on
+    ``device`` (a staged loader's) passes as it is.
+
+    ``pad_to_mesh`` pads a tail batch with zero rows (length 0, which the
+    masked loss leaves out of both its sum and its denominator) to the
+    first batch's size: for evaluation, which keeps the tail (training
+    drops it, since BatchNorm's batch statistics are not neutral to
+    padding). Under ``world`` > 1 each rank feeds its own rows and the
+    Loader's ``pad_last_batch`` aligns the sizes on every rank, as in JAX,
+    so ``pad_to_mesh`` does nothing there.
+
+    When the consumer abandons the iteration (an early break, an exception
+    in the loop), the producer notices, stops, and the queue is emptied.
+    """
+    device = torch.device(device)
+    stream = torch.cuda.Stream(device) if device.type == "cuda" else None
+    first_n: list[int] = []
+
+    def pad(tensors):
+        n = tensors[0].shape[0]
+        if not first_n:
+            first_n.append(n)
+        if n >= first_n[0]:
+            return tensors
+        return [torch.cat([t, t.new_zeros((first_n[0] - n,) + t.shape[1:])]) for t in tensors]
+
+    def put(batch):
+        tensors = [torch.as_tensor(a) for a in batch]
+        if pad_to_mesh and world == 1:
+            tensors = pad(tensors)
+        if stream is None or all(t.device == device for t in tensors):
+            return tuple(t.to(device) for t in tensors), None
+        with torch.cuda.stream(stream):
+            out = tuple(t if t.device == device else t.pin_memory().to(device, non_blocking=True)
+                        for t in tensors)
+            ready = torch.cuda.Event()
+            ready.record(stream)
+        return out, ready
+
+    q: queue.Queue = queue.Queue(maxsize=depth)
+    done = object()
+    err: list[BaseException] = []
+    stop = threading.Event()
+
+    def blocking_put(item) -> bool:
+        while not stop.is_set():
+            try:
+                q.put(item, timeout=0.2)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def producer():
+        try:
+            for batch in iterator:
+                if not blocking_put(put(batch)):
+                    return
+        except BaseException as e:  # handed to the consumer, which raises it
+            err.append(e)
+        finally:
+            blocking_put(done)
+
+    thread = threading.Thread(target=producer, daemon=True, name="device-prefetch")
+    thread.start()
+    try:
+        while True:
+            item = q.get()
+            if item is done:
+                if err:
+                    raise err[0]
+                return
+            batch, ready = item
+            if ready is not None:
+                current = torch.cuda.current_stream(device)
+                current.wait_event(ready)
+                for t in batch:
+                    t.record_stream(current)
+            yield batch
+    finally:
+        # the consumer finished or abandoned the iteration: release the producer
+        stop.set()
+        try:
+            while True:
+                q.get_nowait()
+        except queue.Empty:
+            pass

@@ -58,6 +58,7 @@ from music_transcription_tpu_torch.ops.attention_kernel import (
 )
 from music_transcription_tpu_torch.ops.dropout import channel_dropout, dropout
 from music_transcription_tpu_torch.ops.lstm import bilstm_stack
+from music_transcription_tpu_torch.parallel.distributed import all_reduce_sum
 
 # flax BatchNorm(momentum=0.9): running = 0.9 * running + (1 - 0.9) * batch
 BN_MOMENTUM = 0.9
@@ -71,11 +72,18 @@ def _conv(x: torch.Tensor, conv: nn.Conv2d, dt: torch.dtype) -> torch.Tensor:
 def _bn(x: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
     """BatchNorm in fp32, in flax's order of operations: running statistics
     in eval mode; in training the batch statistics, with the running ones
-    updated in place."""
+    updated in place. Under sync-BN (``set_sync_batch_norm``) the batch
+    statistics are the mean over the ranks of each rank's [E[x], E[x^2]],
+    as flax's ``axis_name`` takes them (``pmean`` of both), through an
+    all-reduce whose backward carries every rank's gradient back."""
     x = x.float()
     if bn.training:
         mean = x.mean(dim=(0, 2, 3))
-        var = torch.clamp((x * x).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+        mean_sq = (x * x).mean(dim=(0, 2, 3))
+        group = getattr(bn, "sync_group", None)
+        if group is not None:
+            mean, mean_sq = all_reduce_sum(torch.stack([mean, mean_sq]), group) / group.size()
+        var = torch.clamp(mean_sq - mean * mean, min=0.0)
         with torch.no_grad():
             bn.running_mean.mul_(BN_MOMENTUM).add_(mean, alpha=1.0 - BN_MOMENTUM)
             bn.running_var.mul_(BN_MOMENTUM).add_(var, alpha=1.0 - BN_MOMENTUM)
@@ -83,6 +91,16 @@ def _bn(x: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
         mean, var = bn.running_mean, bn.running_var
     mul = torch.rsqrt(var + bn.eps) * bn.weight
     return (x - mean.view(1, -1, 1, 1)) * mul.view(1, -1, 1, 1) + bn.bias.view(1, -1, 1, 1)
+
+
+def set_sync_batch_norm(module: nn.Module, group) -> None:
+    """Take every BatchNorm2d of ``module``'s training batch statistics over
+    the ranks of ``group`` (None: this rank's batch alone), the counterpart
+    of the JAX model's ``bn_axis_name``. The running statistics then update
+    alike on every rank."""
+    for m in module.modules():
+        if isinstance(m, nn.BatchNorm2d):
+            m.sync_group = group
 
 
 def _dense(x: torch.Tensor, lin: nn.Linear, dt: torch.dtype) -> torch.Tensor:

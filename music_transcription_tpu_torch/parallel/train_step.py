@@ -1,5 +1,6 @@
-"""Train and eval steps on one device, a port of the JAX package's
-``parallel/train_step.py`` (``make_train_step``, ``make_eval_step``).
+"""Train and eval steps, a port of the JAX package's
+``parallel/train_step.py`` (``make_train_step``, ``make_eval_step``, and
+the data-parallel ``make_train_step_shardmap`` / ``make_eval_step_shardmap``).
 
 A train step: the training forward (bf16 convolutions and dense layers, fp32
 recurrence, as ``compute_dtype`` says; no autocast; fp32 without TF32), the
@@ -15,6 +16,22 @@ reads two scalars back to the host once per step.
 Dropout masks come from a ``torch.Generator`` seeded from
 (dropout_seed, step), the counterpart of ``jax.random.fold_in(rng, step)``:
 the same run draws the same masks, and a resumed run continues the stream.
+
+Data parallel (``TrainState.group`` set by ``data_parallel``: one process a
+rank, each with its rows of the global batch): BatchNorm takes its batch
+statistics over the ranks (sync-BN), each rank's dropout generator is
+seeded from (dropout_seed, step, rank), the counterpart of folding in
+``axis_index``, and the loss and gradients are frame-weighted: with a rank's
+masked loss L_r over its d_r = sum(clip(lengths, 0, T)) valid frames, the
+global loss and gradient are sum_r d_r (.)_r / sum_r d_r, the masked loss of
+the global batch. A plain average (DDP's) would weight a shard of short
+tail chunks as much as a full one. Each rank backpropagates
+(d_r / sum_r d_r) L_r, the denominator from an all-reduce of the d_r; the
+gradients are then summed over the ranks (one all-reduce of a flat buffer;
+under FSDP its reduce-scatter, which averages, so FSDP's ranks scale by the
+world size first), and the weighted losses in one more. The guard, the
+clip and the Adam update act on the reduced gradient, which is the same on
+every rank, so every rank takes the same decision.
 """
 
 from __future__ import annotations
@@ -23,21 +40,30 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch._utils import _flatten_dense_tensors, _unflatten_dense_tensors
 
 from music_transcription_tpu_torch.config import ModelConfig, TrainConfig
+from music_transcription_tpu_torch.models.cnn_rnn import set_sync_batch_norm
 from music_transcription_tpu_torch.models.transcription import TranscriptionModel
 from music_transcription_tpu_torch.ops.precision import full_fp32
+from music_transcription_tpu_torch.parallel.mesh import replicate
 from music_transcription_tpu_torch.train.optim import clip_gradients, make_optimizer
 
 
 @dataclass
 class TrainState:
     """What a train step changes: the model (parameters and BatchNorm
-    running statistics), the optimizer and the step count."""
+    running statistics), the optimizer and the step count. ``group`` is the
+    data axis's process group (None: one process); ``partitioning`` says
+    how the state lies over it ("dp" replicated, "zero1" the Adam moments
+    sharded, "fsdp" parameters, gradients and moments sharded)."""
 
     model: TranscriptionModel
     optimizer: torch.optim.Optimizer
     step: int = 0
+    group: object = None
+    partitioning: str = "dp"
 
 
 def init_train_state(model_cfg: ModelConfig, train_cfg: TrainConfig, device) -> TrainState:
@@ -50,9 +76,21 @@ def init_train_state(model_cfg: ModelConfig, train_cfg: TrainConfig, device) -> 
     return TrainState(model, make_optimizer(model.parameters(), train_cfg))
 
 
-def dropout_generator(dropout_seed: int, step: int, device) -> torch.Generator:
-    """The generator of step ``step``'s dropout masks."""
-    seed = int(np.random.SeedSequence([dropout_seed, step]).generate_state(1, np.uint64)[0])
+def data_parallel(state: TrainState, mesh) -> TrainState:
+    """``state`` replicated over the data axis ``mesh``: rank 0's parameters
+    and buffers broadcast to every rank, BatchNorm synced over the ranks."""
+    replicate(state.model, mesh)
+    state.group = mesh.get_group()
+    set_sync_batch_norm(state.model, state.group)
+    return state
+
+
+def dropout_generator(dropout_seed: int, step: int, device, rank: int | None = None
+                      ) -> torch.Generator:
+    """The generator of step ``step``'s dropout masks (of ``rank``'s rows
+    under data parallelism)."""
+    entropy = [dropout_seed, step] if rank is None else [dropout_seed, step, rank]
+    seed = int(np.random.SeedSequence(entropy).generate_state(1, np.uint64)[0])
     return torch.Generator(device=device).manual_seed(seed & (2**63 - 1))
 
 
@@ -61,21 +99,59 @@ def _running_stats(model: torch.nn.Module) -> list[torch.Tensor]:
             for b in (m.running_mean, m.running_var)]
 
 
+def valid_frames(roll: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+    """d = sum(clip(lengths, 0, T)), a rank's share of the masked loss's
+    denominator (fp32, on the batch's device)."""
+    return lengths.clamp(0, roll.shape[-1]).sum().float()
+
+
+@torch.no_grad()
+def _sum_gradients(params, group) -> None:
+    """Every gradient summed over the ranks, through one all-reduce of a
+    flat buffer. A parameter without a gradient counts as a zero one, so
+    that every rank reduces the same buffer."""
+    params = list(params)
+    for p in params:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+    grads = [p.grad for p in params]
+    flat = _flatten_dense_tensors(grads)
+    dist.all_reduce(flat, group=group)
+    for g, reduced in zip(grads, _unflatten_dense_tensors(flat, grads)):
+        g.copy_(reduced)
+
+
 def train_step(state: TrainState, batch, dropout_seed: int, *, max_grad_norm: float) -> dict:
     """One guarded update. ``batch`` = (mel (B, 1, M, T), roll (B, 88, T),
-    lengths (B,)) on the model's device. Returns {"loss", "grad_norm",
-    "skipped"} as floats."""
-    model, optimizer = state.model, state.optimizer
+    lengths (B,)) on the model's device: under data parallelism this rank's
+    rows. Returns {"loss", "grad_norm", "skipped"} as floats, the global
+    ones, the same on every rank."""
+    model, optimizer, group = state.model, state.optimizer, state.group
     mel, roll, lengths = batch
     model.train()
     stats = _running_stats(model)
     saved = [s.clone() for s in stats]
     optimizer.zero_grad(set_to_none=True)
+    rank = None if group is None else group.rank()
     out = model(mel, return_all_heads=model.multi_head,
-                generator=dropout_generator(dropout_seed, state.step, mel.device))
+                generator=dropout_generator(dropout_seed, state.step, mel.device, rank))
     loss = model.loss(out, roll, lengths)
-    with full_fp32():  # fp32 gradients in fp32, not TF32, as the forward
-        loss.backward()
+    if group is None:
+        with full_fp32():  # fp32 gradients in fp32, not TF32, as the forward
+            loss.backward()
+    else:
+        frames = valid_frames(roll, lengths)
+        total = frames.clone()
+        dist.all_reduce(total, group=group)
+        weight = frames / total.clamp(min=1.0)
+        # FSDP's reduce-scatter averages over the ranks; the others sum
+        scale = group.size() if state.partitioning == "fsdp" else 1
+        with full_fp32():
+            (loss * (weight * scale)).backward()
+        if state.partitioning != "fsdp":
+            _sum_gradients(model.parameters(), group)
+        loss = loss.detach().float() * weight
+        dist.all_reduce(loss, group=group)
     grad_norm = clip_gradients(model.parameters(), max_grad_norm)
     loss_v, norm_v = (float(x) for x in torch.stack([loss.detach().float(), grad_norm.float()]).cpu())
     finite = bool(np.isfinite(loss_v) and np.isfinite(norm_v))
@@ -90,9 +166,17 @@ def train_step(state: TrainState, batch, dropout_seed: int, *, max_grad_norm: fl
 
 
 @torch.no_grad()
-def eval_step(model: TranscriptionModel, batch) -> torch.Tensor:
+def eval_step(model: TranscriptionModel, batch, group=None) -> torch.Tensor:
     """The validation loss of one batch: the inference forward (running
-    statistics, no dropout) and the same loss as training."""
+    statistics, no dropout) and the same loss as training. With a ``group``
+    it is the frame-weighted loss of the global batch: a rank whose rows
+    are all padding (lengths 0) weighs nothing."""
     mel, roll, lengths = batch
     model.eval()
-    return model.loss(model(mel, return_all_heads=model.multi_head), roll, lengths)
+    loss = model.loss(model(mel, return_all_heads=model.multi_head), roll, lengths)
+    if group is None:
+        return loss
+    frames = valid_frames(roll, lengths)
+    sums = torch.stack([loss.float() * frames, frames])
+    dist.all_reduce(sums, group=group)
+    return sums[0] / sums[1].clamp(min=1e-9)

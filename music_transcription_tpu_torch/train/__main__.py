@@ -4,15 +4,29 @@
         --cache_dir cached --model_type cnn_rnn_large --n_mels 320 --epochs 100 \\
         --batch_size 24 [-d cuda|cpu]
 
+Data-parallel training runs one process a rank, launched by torchrun:
+
+    torchrun --standalone --nproc_per_node N -m music_transcription_tpu_torch.train \
+        <the flags above> [--partitioning dp|zero1|fsdp]
+
 The flags and their defaults are those of the JAX package's
 ``scripts/train_cnn.py``, so a command line moves between the two. ``--device``
 takes ``cuda`` (the default; the run exits 1 when no card is visible) or
-``cpu``. Training runs on one device: ``--data_parallel`` above 1 and a
-``--partitioning`` other than ``dp`` raise. ``--device_data on`` stages the
-whole cache on the device once; ``slab`` (and ``auto`` on the card when the
-staged cache would reach ``STAGE_LIMIT_BYTES``) rotates slabs of
+``cpu``. Under torchrun each rank joins the process group
+(``parallel/distributed.py``: NCCL with a card a rank, gloo when ranks share
+a card or run on the CPU), takes its round-robin share of each split
+(``ProcessShard``) and loads ``batch_size`` / N rows a step; ``--batch_size``
+stays the global batch. ``--data_parallel`` is the number of ranks, and any
+other value raises (the JAX package takes a subset of its devices; here that
+would leave ranks idle). ``--partitioning zero1`` shards Adam's moments,
+``fsdp`` the parameters and gradients too (both on one node, with more than
+one rank); ``tp`` and ``--model_parallel`` above 1 are not ported
+(ROADMAP.md Queue 1 slice 5b). ``--device_data on`` stages the whole cache
+(a rank's shard) on the device once; ``slab`` (and ``auto`` on one card when
+the staged cache would reach ``STAGE_LIMIT_BYTES``) rotates slabs of
 ``--slab_gb`` through the device (``data/pipeline.SlabRotatingLoader``),
-with the validation split staged whole; ``off`` streams batches from the
+with the validation split staged whole; ``off`` (and ``auto`` under
+torchrun, as the JAX package streams on a mesh) streams batches from the
 host.
 
 Exit codes: 0 done, 1 error, 66 stall watchdog, 67 planned RSS recycle
@@ -81,10 +95,11 @@ def build_parser() -> argparse.ArgumentParser:
     e.add_argument("--device", "-d", type=str, default="cuda", choices=["cuda", "cpu"],
                    help="device to train on (default: cuda; fails when no GPU is visible)")
     e.add_argument("--data_parallel", type=int, default=None,
-                   help="data-parallel devices; the port trains on one")
+                   help="data-parallel ranks: the number torchrun launched (the default)")
     e.add_argument("--partitioning", type=str, default="dp",
                    choices=["dp", "zero1", "fsdp", "tp"],
-                   help="train-state placement; the port has dp on one device")
+                   help="train-state placement over the ranks: dp replicated, zero1 Adam "
+                        "moments sharded, fsdp parameters too (tp: not ported)")
     e.add_argument("--model_parallel", type=int, default=1)
     e.add_argument("--resume", type=str, default=None,
                    help="checkpoint to resume from (.pt full state, .pth weights), or "
@@ -154,6 +169,23 @@ def main(argv=None) -> int:
               "Pass -d cpu to train on the CPU.")
         return 1
 
+    from music_transcription_tpu_torch.parallel.distributed import (
+        maybe_initialize_distributed,
+        rank_device,
+        shutdown,
+    )
+    from music_transcription_tpu_torch.train.loop import install_graceful_sigterm
+
+    install_graceful_sigterm()  # `kill <pid>` flushes model_best as Ctrl-C does
+    # before the first device use: under torchrun, join the ranks' group
+    multi = maybe_initialize_distributed(args.device)
+    try:
+        return _train(args, multi, rank_device(args.device))
+    finally:
+        shutdown()  # a rank that stops holds no other rank in a collective
+
+
+def _train(args, multi: bool, device) -> int:
     from music_transcription_tpu_torch.checkpoints import (
         epoch_from_checkpoint_name,
         latest_resumable_checkpoint,
@@ -175,14 +207,9 @@ def main(argv=None) -> int:
         Loader,
         SlabRotatingLoader,
     )
-    from music_transcription_tpu_torch.train.loop import (
-        HostMemoryRecycle,
-        install_graceful_sigterm,
-        train_model,
-    )
+    from music_transcription_tpu_torch.parallel.distributed import ProcessShard, local_batch_size
+    from music_transcription_tpu_torch.train.loop import HostMemoryRecycle, train_model
     from music_transcription_tpu_torch.train.watchdog import RECYCLE_EXIT_CODE
-
-    install_graceful_sigterm()  # `kill <pid>` flushes model_best as Ctrl-C does
 
     lstm_backend = args.lstm_backend
     if lstm_backend == "auto":
@@ -223,6 +250,10 @@ def main(argv=None) -> int:
     val_set = HybridMaestroDataset(split="validation", overlap=0.0, **common)
     print(f"Train set size: {len(train_set)} chunks")
     print(f"Validation set size: {len(val_set)} chunks")
+    loader_batch = args.batch_size  # the global batch; each rank loads its share
+    if multi:
+        train_set, val_set = ProcessShard(train_set), ProcessShard(val_set)
+        loader_batch = local_batch_size(args.batch_size)
 
     pad_to = audio_cfg.mel_frames_per_chunk  # fixed-shape batches
     # Under bf16 compute the mel is staged as bf16 (the first convolution
@@ -230,34 +261,34 @@ def main(argv=None) -> int:
     compact = args.compute_dtype == "bfloat16"
     per_frame = (args.n_mels * 2 + 88) if compact else 4 * (args.n_mels + 88)
     est_bytes = (len(train_set) + len(val_set)) * pad_to * per_frame
-    on_card = args.device == "cuda"
-    use_staged = args.device_data == "on" or (args.device_data == "auto" and on_card
+    one_card = args.device == "cuda" and not multi  # auto streams under torchrun
+    use_staged = args.device_data == "on" or (args.device_data == "auto" and one_card
                                                and est_bytes < STAGE_LIMIT_BYTES)
     use_slab = not use_staged and (args.device_data == "slab"
-                                   or (args.device_data == "auto" and on_card))
+                                   or (args.device_data == "auto" and one_card))
     staged_kw = dict(bf16_fields=(0,), u8_fields=(1,)) if compact else {}
     if use_staged:
         train_loader = DeviceStagedLoader(
-            train_set, args.batch_size, device=args.device, shuffle=True, seed=args.seed,
+            train_set, loader_batch, device=device, shuffle=True, seed=args.seed,
             num_workers=args.num_workers, drop_last=True, pad_to=pad_to, verbose=True,
             **staged_kw)
     elif use_slab:
         train_loader = SlabRotatingLoader(
-            train_set, args.batch_size, device=args.device, seed=args.seed,
+            train_set, loader_batch, device=device, seed=args.seed,
             num_workers=args.num_workers, pad_to=pad_to, slab_bytes=args.slab_gb * 1e9,
             passes_per_slab=args.slab_passes, verbose=True, **staged_kw)
     else:
-        train_loader = Loader(train_set, args.batch_size, shuffle=True, seed=args.seed,
+        train_loader = Loader(train_set, loader_batch, shuffle=True, seed=args.seed,
                               num_workers=args.num_workers, drop_last=True, pad_to=pad_to)
     if use_staged or use_slab:
         # the validation split is small beside the train split: staged whole
         val_loader = DeviceStagedLoader(
-            val_set, args.batch_size, device=args.device,
+            val_set, loader_batch, device=device,
             num_workers=max(1, args.num_workers // 2), pad_to=pad_to, pad_last_batch=True,
             verbose=True, **staged_kw)
     else:
         # validation keeps the tail batch, padded with rows of length 0
-        val_loader = Loader(val_set, args.batch_size, num_workers=max(1, args.num_workers // 2),
+        val_loader = Loader(val_set, loader_batch, num_workers=max(1, args.num_workers // 2),
                             pad_to=pad_to, pad_last_batch=True)
     if len(val_loader) == 0:
         val_loader = None
@@ -275,7 +306,7 @@ def main(argv=None) -> int:
     try:
         train_model(model_cfg=model_cfg, train_cfg=train_cfg, audio_cfg=audio_cfg,
                     train_loader=train_loader, val_loader=val_loader, run_dir=args.run_dir,
-                    resume_from=args.resume, start_epoch=start_epoch, device=args.device,
+                    resume_from=args.resume, start_epoch=start_epoch, device=device,
                     profile_steps=args.profile_steps)
     except HostMemoryRecycle as r:
         print(f"\nRecycle requested: {r}")

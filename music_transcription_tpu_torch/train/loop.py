@@ -1,5 +1,8 @@
 """Training loop: epochs, validation, checkpoints, run artifacts. A port of
-the JAX package's ``train/loop.py`` for one device.
+the JAX package's ``train/loop.py``, on one device or data-parallel over
+the ranks of a ``torchrun`` launch (``partitioning`` "dp", "zero1" or
+"fsdp" on a 1-D mesh; ``parallel/``). Every rank runs every step and every
+validation batch; rank 0 alone prints and writes the run's files.
 
   * NaN-skip accounting on the host: the step's guard skips a bad update;
     more than ``max_nan_batches`` skipped batches abort the run
@@ -14,6 +17,7 @@ the JAX package's ``train/loop.py`` for one device.
     ``loss_per_step.png`` when matplotlib imports
   * early stop, the stall watchdog (exit 66) and the RSS recycle (exit 67)
   * ``profile_steps``: the first N train steps under ``torch.profiler``
+  * batches reach the device through ``data/pipeline.device_prefetch``
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from music_transcription_tpu_torch import checkpoints as ckpt_lib
 from music_transcription_tpu_torch.config import (
@@ -32,15 +37,20 @@ from music_transcription_tpu_torch.config import (
     TrainConfig,
     config_to_dict,
 )
+from music_transcription_tpu_torch.data.pipeline import device_prefetch
+from music_transcription_tpu_torch.parallel import partitioning as part
+from music_transcription_tpu_torch.parallel.distributed import local_world_size, rank_and_world
+from music_transcription_tpu_torch.parallel.mesh import make_mesh
 from music_transcription_tpu_torch.parallel.train_step import (
+    data_parallel,
     eval_step,
     init_train_state,
     train_step,
 )
 from music_transcription_tpu_torch.train.watchdog import StallWatchdog, host_rss_gb
 
-NOT_PORTED = ("data-parallel and partitioned training (data_parallel > 1, model_parallel > 1, "
-              "partitioning other than 'dp') is not ported yet: ROADMAP.md Queue 1 slice 5")
+SLICE_5B = ("a 2-D (data, model) mesh (model_parallel > 1) and partitioning='tp' are not "
+            "ported yet: ROADMAP.md Queue 1 slice 5b")
 
 
 class TrainingUnstableError(RuntimeError):
@@ -87,9 +97,8 @@ def train_one_epoch(state, loader, *, dropout_seed: int, max_grad_norm: float,
     total, step_losses = 0.0, []
     nan_count = nan_count_start
     t_start = time.perf_counter()
-    for i, batch in enumerate(loader):
-        metrics = train_step(state, to_device(batch, device), dropout_seed,
-                             max_grad_norm=max_grad_norm)
+    for i, batch in enumerate(device_prefetch(iter(loader), device)):
+        metrics = train_step(state, batch, dropout_seed, max_grad_norm=max_grad_norm)
         if heartbeat is not None:
             heartbeat()
         if metrics["skipped"] > 0:
@@ -108,13 +117,15 @@ def train_one_epoch(state, loader, *, dropout_seed: int, max_grad_norm: float,
     return total / max(1, len(step_losses)), step_losses, nan_count
 
 
-def evaluate(model, loader, *, heartbeat=None) -> float:
+def evaluate(model, loader, *, group=None, heartbeat=None) -> float:
     """Mean validation loss over the loader's batches (padded rows of
-    length 0 are neutral under the masked loss)."""
+    length 0 are neutral under the masked loss; with a data-parallel
+    ``group`` each batch's loss is the global batch's)."""
     device = next(model.parameters()).device
     total, n = 0.0, 0
-    for batch in loader:
-        total += float(eval_step(model, to_device(batch, device)))
+    world = 1 if group is None else group.size()
+    for batch in device_prefetch(iter(loader), device, pad_to_mesh=True, world=world):
+        total += float(eval_step(model, batch, group))
         n += 1
         if heartbeat is not None:
             heartbeat()
@@ -165,58 +176,124 @@ def _profile(state, loader, steps: int, trace_dir: str, *, dropout_seed: int,
     device = next(state.model.parameters()).device
     activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if device.type == "cuda" else [])
     with profile(activities=activities) as prof:
-        for i, batch in enumerate(loader):
-            train_step(state, to_device(batch, device), dropout_seed, max_grad_norm=max_grad_norm)
+        for i, batch in enumerate(device_prefetch(iter(loader), device)):
+            train_step(state, batch, dropout_seed, max_grad_norm=max_grad_norm)
             if i + 1 >= steps:
                 break
-    os.makedirs(trace_dir, exist_ok=True)
-    prof.export_chrome_trace(os.path.join(trace_dir, "trace.json"))
+    if rank_and_world()[0] == 0:  # every rank profiles its steps; rank 0 writes
+        os.makedirs(trace_dir, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(trace_dir, "trace.json"))
     if verbose:
         print(f"Wrote profiler trace ({steps} steps) to {trace_dir}")
+
+
+def _max_over_ranks(value: float, device, group) -> float:
+    t = torch.tensor([value], dtype=torch.float64, device=device)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX, group=group)
+    return float(t)
+
+
+def resolve_mesh(train_cfg: TrainConfig, device):
+    """The data axis of a run, after the JAX package's checks
+    (``train/loop.py``): None on one process, else a 1-D mesh over the
+    ranks. ``data_parallel`` is the world size: a run trains on every rank
+    it launched (torchrun's ``--nproc_per_node``)."""
+    partitioning = train_cfg.partitioning
+    if partitioning not in ("dp", "zero1", "fsdp", "tp"):
+        raise ValueError(f"unknown partitioning {partitioning!r} (dp | zero1 | fsdp | tp)")
+    if (train_cfg.model_parallel or 1) > 1 and partitioning == "dp":
+        raise ValueError("model_parallel > 1 with partitioning='dp' would replicate all work "
+                         "across the model axis; use partitioning='zero1'/'fsdp'/'tp'")
+    if partitioning == "tp" or (train_cfg.model_parallel or 1) > 1:
+        raise NotImplementedError(SLICE_5B)
+    world = rank_and_world()[1]
+    n = train_cfg.data_parallel or world
+    if n != world:
+        raise ValueError(f"data_parallel={n} differs from the {world} rank(s) of this run: "
+                         f"launch {n} ranks with torchrun --nproc_per_node {n}")
+    if partitioning != "dp":
+        if world == 1:
+            raise ValueError("partitioning='zero1'/'fsdp' shards state over a mesh; this run "
+                             "resolved to a single device (nothing to shard over)")
+        if local_world_size() != world:
+            raise ValueError("partitioning='zero1'/'fsdp' is single-node for now: its "
+                             "checkpoints gather the shards through one node's ranks (use "
+                             "partitioning='dp' across nodes)")
+    if world == 1:
+        return None
+    if train_cfg.batch_size % world:
+        raise ValueError(f"batch_size={train_cfg.batch_size} must divide the data axis "
+                         f"({world} shards)")
+    return make_mesh(world, torch.device(device).type)
 
 
 def train_model(*, model_cfg: ModelConfig, train_cfg: TrainConfig, audio_cfg: AudioConfig,
                 train_loader, val_loader=None, run_dir: str = "outputs/run",
                 resume_from: str | None = None, start_epoch: int = 1, device="cuda",
                 verbose: bool = True, profile_steps: int = 0):
-    """The training loop on one device. Returns (state, history)."""
-    if ((train_cfg.data_parallel or 1) > 1 or train_cfg.partitioning != "dp"
-            or (train_cfg.model_parallel or 1) > 1):
-        raise NotImplementedError(NOT_PORTED)
+    """The training loop, on one device or, in each rank of a ``torchrun``
+    launch, on the rank's ``device`` with the rank's loaders (each yields
+    the rank's rows: ``batch_size`` / world of them). Returns (state,
+    history)."""
     device = torch.device(device)
+    mesh = resolve_mesh(train_cfg, device)
+    rank, world = rank_and_world()
+    is_main = rank == 0
+    verbose = verbose and is_main
     ckpt_dir = os.path.join(run_dir, "checkpoints")
-    os.makedirs(ckpt_dir, exist_ok=True)
+    if is_main:
+        os.makedirs(ckpt_dir, exist_ok=True)
     dropout_seed = train_cfg.seed + 1
     state = init_train_state(model_cfg, train_cfg, device)
     if resume_from:
+        # loaded before the state is sharded: every rank reads the same file
         state.step = ckpt_lib.load_training_checkpoint(resume_from, state.model.model,
                                                        state.optimizer)
         if verbose:
             kind = "" if resume_from.endswith(".pt") else " (weights only; fresh optimizer)"
             print(f"Resumed from {resume_from} at step {state.step}{kind}")
+    if mesh is not None:
+        state = data_parallel(state, mesh)
+        if train_cfg.partitioning != "dp":
+            state = part.shard_state(state, mesh,
+                                     shard_params=train_cfg.partitioning == "fsdp")
+        if verbose:
+            print(f"Data-parallel over {world} ranks ({train_cfg.partitioning}, "
+                  f"{dist.get_backend()}): {train_cfg.batch_size // world} rows a rank")
 
+    name = torch.cuda.get_device_name(device) + f" ({device})" if device.type == "cuda" else "cpu"
+    devices = [name]
+    if mesh is not None:
+        devices = [None] * world
+        dist.all_gather_object(devices, name, group=state.group)
     manifest = {
         "model": config_to_dict(model_cfg),
         "train": config_to_dict(train_cfg),
         "audio": config_to_dict(audio_cfg),
-        "devices": [torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"],
+        "devices": devices,
         "start_epoch": start_epoch,
     }
-    with open(os.path.join(run_dir, "parameters.json"), "w") as f:
-        json.dump(manifest, f, indent=2)
-    with open(os.path.join(run_dir, "parameters.txt"), "w") as f:
-        for section, values in manifest.items():
-            if isinstance(values, dict):
-                for k, v in sorted(values.items()):
-                    f.write(f"{section}.{k} = {v}\n")
-            else:
-                f.write(f"{section} = {values}\n")
+    if is_main:
+        with open(os.path.join(run_dir, "parameters.json"), "w") as f:
+            json.dump(manifest, f, indent=2)
+        with open(os.path.join(run_dir, "parameters.txt"), "w") as f:
+            for section, values in manifest.items():
+                if isinstance(values, dict):
+                    for k, v in sorted(values.items()):
+                        f.write(f"{section}.{k} = {v}\n")
+                else:
+                    f.write(f"{section} = {values}\n")
     sidecar = {"model": config_to_dict(model_cfg), "audio": config_to_dict(audio_cfg)}
 
     def save(name: str) -> str:
-        return ckpt_lib.save_training_checkpoint(
-            os.path.join(ckpt_dir, f"{name}.pt"), state.model.model, state.optimizer,
-            state.step, dropout_seed, sidecar)
+        # every rank gathers (ZeRO-1 and FSDP hold shards); rank 0 writes
+        path = os.path.join(ckpt_dir, f"{name}.pt")
+        model_sd = part.full_model_state_dict(state)
+        optim_sd = part.full_optimizer_state_dict(state)
+        if is_main:
+            ckpt_lib.save_training_checkpoint(path, model_sd, optim_sd, state.step,
+                                              dropout_seed, sidecar)
+        return path
 
     log_path = os.path.join(run_dir, "training_log.txt")
     best_val, best_epoch = float("inf"), start_epoch - 1
@@ -225,8 +302,9 @@ def train_model(*, model_cfg: ModelConfig, train_cfg: TrainConfig, audio_cfg: Au
     last_best_flush_epoch = -(10**9)
 
     def flush_best():
+        # no collective: the best state was gathered when it was kept
         nonlocal pending_best, flushed_best_val
-        if pending_best is not None and pending_best_val < flushed_best_val:
+        if is_main and pending_best is not None and pending_best_val < flushed_best_val:
             path = os.path.join(ckpt_dir, "model_best.pth")
             torch.save(pending_best, path)
             ckpt_lib.write_sidecar(path, {**sidecar, "step": pending_step})
@@ -252,7 +330,7 @@ def train_model(*, model_cfg: ModelConfig, train_cfg: TrainConfig, audio_cfg: Au
                 state, train_loader, max_nan=train_cfg.max_nan_batches,
                 nan_count_start=nan_count, verbose=verbose, heartbeat=beat, **step_kw)
             epoch_time = time.perf_counter() - t0
-            val_loss = (evaluate(state.model, val_loader, heartbeat=beat)
+            val_loss = (evaluate(state.model, val_loader, group=state.group, heartbeat=beat)
                         if val_loader is not None else None)
             history["train_loss"].append(train_loss)
             history["step_losses"].append(step_losses)
@@ -263,14 +341,18 @@ def train_model(*, model_cfg: ModelConfig, train_cfg: TrainConfig, audio_cfg: Au
                     f"time={epoch_time:.1f}s")
             if verbose:
                 print(line)
-            with open(log_path, "a") as f:
-                f.write(line + "\n")
+            if is_main:
+                with open(log_path, "a") as f:
+                    f.write(line + "\n")
 
+            # the validation loss is the same on every rank, and so is this
             if val_loss is not None and val_loss < best_val:
                 best_val, best_epoch = val_loss, epoch
-                # an exact copy, on the device, of the inference state
-                pending_best = {k: v.detach().clone()
-                                for k, v in state.model.model.state_dict().items()}
+                # an exact copy of the inference state (on the device unless
+                # FSDP gathered it to the host), on rank 0
+                full = part.full_model_state_dict(state)
+                pending_best = None if full is None else {k: v.detach().clone()
+                                                          for k, v in full.items()}
                 pending_best_val, pending_step = val_loss, state.step
                 if epoch - last_best_flush_epoch >= train_cfg.save_best_every:
                     flush_best()
@@ -278,10 +360,13 @@ def train_model(*, model_cfg: ModelConfig, train_cfg: TrainConfig, audio_cfg: Au
             saved = None
             if train_cfg.save_every and epoch % train_cfg.save_every == 0:
                 saved = save(f"model_epoch_{epoch}")
-            _plot_curves(run_dir, history["train_loss"], history["val_loss"],
-                         history["step_losses"])
+            if is_main:
+                _plot_curves(run_dir, history["train_loss"], history["val_loss"],
+                             history["step_losses"])
             if train_cfg.rss_watermark_gb:
                 rss = host_rss_gb()
+                if mesh is not None:  # the largest rank's: every rank recycles together
+                    rss = float(_max_over_ranks(rss, device, state.group))
                 if rss > train_cfg.rss_watermark_gb:
                     path = saved or save(f"model_epoch_{epoch}")
                     if verbose:

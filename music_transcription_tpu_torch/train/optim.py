@@ -26,6 +26,9 @@ def make_optimizer(params, cfg: TrainConfig) -> torch.optim.Adam:
 
 def clip_gradients(params, max_grad_norm: float) -> torch.Tensor:
     """Clip to the global norm ``max_grad_norm`` (no clip when it is 0) and
-    return the global norm before clipping, as a device tensor."""
+    return the global norm before clipping, as a device tensor. Under FSDP
+    the gradients are sharded DTensors and torch's norm is a DTensor too:
+    the value returned is the full norm, the same on every rank."""
     limit = max_grad_norm if max_grad_norm and max_grad_norm > 0 else float("inf")
-    return torch.nn.utils.clip_grad_norm_(params, limit)
+    norm = torch.nn.utils.clip_grad_norm_(params, limit)
+    return norm.full_tensor() if hasattr(norm, "full_tensor") else norm

@@ -227,6 +227,55 @@ def test_train_step_on_card_matches_cpu(cuda, monkeypatch, attention):
         assert float((other - p.grad).abs().max()) <= tol * float(p.grad.abs().max()), name
 
 
+def test_fsdp_step_at_world_1_over_nccl_matches_the_plain_step(cuda, monkeypatch, tmp_path):
+    """One fp32 step with the state under FSDP (``parallel/partitioning``) in
+    a world-1 NCCL group on the card against the same step without a group:
+    the loss within 1e-4 relative; the parameters within 2 lr and all but
+    1 in 200 within 1e-2 lr; the gathered state loads into a plain model."""
+    import torch.distributed as dist
+
+    from music_transcription_tpu_torch.parallel import partitioning as part
+    from music_transcription_tpu_torch.parallel.mesh import make_mesh
+    from music_transcription_tpu_torch.parallel.train_step import data_parallel
+
+    monkeypatch.setattr(CNNRNNLarge, "CHANNEL_DROPOUT", (0.0, 0.0, 0.0))
+    torch.manual_seed(0)
+    cfg = ModelConfig(n_mels=64, hidden_size=32, num_layers=2, dropout=0.0,
+                      compute_dtype="float32", lstm_backend="pallas")
+    weights = TranscriptionModel(cfg).model.state_dict()
+    rng = np.random.default_rng(4)
+    batch = (torch.from_numpy((rng.standard_normal((4, 1, 64, 63)) * 10).astype(np.float32)),
+             torch.from_numpy((rng.random((4, 88, 63)) > 0.9).astype(np.float32)),
+             torch.tensor([63, 50, 20, 63], dtype=torch.int32))
+    batch = tuple(x.to(cuda) for x in batch)
+
+    def fresh():
+        m = TranscriptionModel(cfg)
+        m.model.load_state_dict(weights)
+        m.to(cuda)
+        return TrainState(m, make_optimizer(m.parameters(), TrainConfig()))
+
+    plain = fresh()
+    ref = train_step(plain, batch, 1, max_grad_norm=1.0)
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path / 'store'}", rank=0,
+                            world_size=1)
+    try:
+        mesh = make_mesh(1, "cuda")
+        state = part.shard_state(data_parallel(fresh(), mesh), mesh, shard_params=True)
+        got = train_step(state, batch, 1, max_grad_norm=1.0)
+        sd = part.full_model_state_dict(state)
+    finally:
+        dist.destroy_process_group()
+    assert got["skipped"] == 0.0 and abs(got["loss"] - ref["loss"]) <= 1e-4 * abs(ref["loss"])
+    lr, loose, total = TrainConfig().learning_rate, 0, 0
+    for name, p in plain.model.model.named_parameters():
+        diff = (sd[name].float().cpu() - p.detach().cpu()).abs()
+        assert float(diff.max()) <= 2 * lr, name
+        loose, total = loose + int((diff > 1e-2 * lr).sum()), total + diff.numel()
+    assert loose <= 5e-3 * total
+    TranscriptionModel(cfg).model.load_state_dict(sd, strict=True)
+
+
 # |got - ref| <= rtol |ref| + ptol (P|V|) element by element, with P|V| the
 # plain version's output for |v|. bf16: both round the output to bf16 and
 # every probability to bf16 at different points (the kernel before dividing

@@ -1,5 +1,6 @@
-"""The PyTorch port and chip_smoke.py import neither JAX, flax, optax nor
-pandas, nor the JAX package: checked in a fresh interpreter (tests/conftest.py imports jax
+"""The PyTorch port, chip_smoke.py and the tests' rank worker
+(tests/_torch_dist_worker.py) import neither JAX, flax, optax nor pandas,
+nor the JAX package: checked in a fresh interpreter (tests/conftest.py imports jax
 into this one) and by scanning the sources' import statements."""
 
 import ast
@@ -32,11 +33,13 @@ def test_importing_the_port_loads_no_jax():
     for name in ("ops.lstm_kernel", "ops.attention_kernel", "ops.conv_kernel", "eval", "evaluate",
                  "native", "preprocess", "data.preprocess", "models.remi_tokenizer",
                  "models.event_tokenizer", "models.transformer", "evaluate_ast", "train_ast",
-                 "train.ast_step"):
+                 "train.ast_step", "parallel.distributed", "parallel.mesh",
+                 "parallel.partitioning"):
         assert f"music_transcription_tpu_torch.{name}" in modules
     code = (
         "import importlib, json, sys\n"
-        f"for name in {modules!r} + ['chip_smoke']:\n"
+        "sys.path.insert(0, 'tests')\n"
+        f"for name in {modules!r} + ['chip_smoke', '_torch_dist_worker']:\n"
         "    importlib.import_module(name)\n"
         "print(json.dumps(sorted(sys.modules)))\n"
     )
@@ -49,7 +52,8 @@ def test_importing_the_port_loads_no_jax():
 
 
 def test_sources_have_no_jax_import():
-    files = [os.path.join(REPO, "chip_smoke.py")]
+    files = [os.path.join(REPO, "chip_smoke.py"),
+             os.path.join(REPO, "tests", "_torch_dist_worker.py")]
     for root, _, names in os.walk(PKG_DIR):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     bad = []

@@ -8,7 +8,8 @@ either flush cadence, also after an abort, and serves through
 ``Transcriber``; ``--resume auto`` continuing from the newest epoch
 checkpoint; training through slab rotation; the abort after too many skipped
 steps; exit 67 at a tiny RSS watermark; exit 66 from the stall watchdog;
-``--background``; the errors for a missing card and data-parallel training.
+``--background``; the errors for a missing card and for the parallel
+settings a one-process run cannot take.
 """
 
 import json
@@ -239,7 +240,19 @@ def test_refusals(cache_dir, tmp_path, in_process):
                                "--run_dir", str(tmp_path / "x")],
                               capture_output=True, text=True, cwd=REPO, timeout=120)
         assert proc.returncode == 1 and "CUDA is not available" in proc.stdout
-    with pytest.raises(NotImplementedError, match="slice 5"):
+    # in a one-process run: more ranks than were launched, and state
+    # sharding with nothing to shard over, as the JAX package says
+    with pytest.raises(ValueError, match="torchrun --nproc_per_node 2"):
         cli.main(_argv(cache_dir, tmp_path / "dp", "--data_parallel", "2"))
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        cli.main(_argv(cache_dir, tmp_path / "z", "--partitioning", "zero1"))
+    for how in ("zero1", "fsdp"):
+        with pytest.raises(ValueError, match="resolved to a single device"):
+            cli.main(_argv(cache_dir, tmp_path / how, "--partitioning", how))
+    # the 2-D mesh and tensor parallelism wait for slice 5b
+    with pytest.raises(NotImplementedError, match="slice 5b"):
+        cli.main(_argv(cache_dir, tmp_path / "tp", "--partitioning", "tp"))
+    with pytest.raises(NotImplementedError, match="slice 5b"):
+        cli.main(_argv(cache_dir, tmp_path / "mp", "--model_parallel", "2",
+                       "--partitioning", "fsdp"))
+    # model_parallel with replicated state only repeats work: JAX's refusal
+    with pytest.raises(ValueError, match="would replicate all work"):
+        cli.main(_argv(cache_dir, tmp_path / "mp_dp", "--model_parallel", "2"))
