@@ -153,7 +153,25 @@ Phases, in order; any failure exits non-zero:
      then warm world-2 bf16 steps of the default model (12 rows a rank,
      T=938) timed beside phase 6's step, with the gradient all-reduce timed
      apart and one step profiled in rank 0;
- 10. print the kernels line (JSON: launches on the main path, error against
+ 10. the rest of parallelism: 10a the default model served by
+     Transcriber(devices=["cuda:0", "cuda:0"]), two replicas on the one card,
+     on the 118 s WAV (4 chunks, 2 a replica), the -w 120 470 s WAV (4
+     windows, 2 a replica: "auto" keeps the plain attention at that batch)
+     and a -w 120 950 s WAV (8 windows, 4 a replica: K3 in each), against
+     one device: logits within the serving check's bf16 bound, rolls equal
+     but at frames whose probability lies within the paths' largest
+     difference of the threshold (counted), K1 4 a replica and K3 as the
+     replica's batch decides, warm requests beside one device's and phase
+     3's; 10b the evaluation CLI at world 2 (torchrun, gloo: the ranks share
+     the card) on phase 6's cache (validation split tuned on the train
+     split) against one process: EVAL_MEAN_F1 within 1e-6, the threshold
+     within 1e-9, no EVAL_ line from rank 1, K1 counted in each rank, both
+     wall times; 10c one fp32 step with tp's placement at world 1 over NCCL
+     on a 1-D and a (1, 1) mesh against the plain step, K2a and K2b on the
+     gathered weights, the gathered state loaded into a one-device model;
+     10d python -m music_transcription_tpu_torch.parallel.dryrun 4 on this
+     machine's CPU (the FSDP2 API of its torch);
+ 11. print the kernels line (JSON: launches on the main path, error against
      the plain version, times, bound, and for K1, K2a and K2b the sequential
      floor; a failed check has already exited),
      the card's name and power limit, and as the last line
@@ -2101,7 +2119,7 @@ def ast_train_phase(torch, counters, card):
 # started by torchrun with a private argument (RANK_MODES): each runs its
 # part in-process, so that it reads its own kernel counters, and writes its
 # result to <spec>_rank<r>.json beside its spec for the parent to read.
-RANK_MODES = ("--rank-cli", "--rank-steps")
+RANK_MODES = ("--rank-cli", "--rank-steps", "--rank-eval")
 DP_WORLD = 2
 DP_T = 188  # frames of the card-vs-one-process steps (6 s): their fp32 memory stays small
 
@@ -2232,7 +2250,7 @@ def rank_steps(torch, spec: dict, rank: int) -> dict:
                               attention_backend=attention)
             state = ts.data_parallel(_fresh_state(torch, cfg, spec["weights"], device), mesh)
             if how != "dp":
-                state = part.shard_state(state, mesh, shard_params=how == "fsdp")
+                state = part.shard_state(state, mesh, strategy=how)
             reset_counts(counters)
             metrics = []
             for i in range(steps):
@@ -2309,8 +2327,27 @@ def rank_steps(torch, spec: dict, rank: int) -> dict:
     return out
 
 
+def rank_eval(torch, spec: dict, rank: int) -> dict:
+    """10b in a rank: the evaluation CLI's main in this process, its output
+    kept, the kernel counters read here."""
+    from music_transcription_tpu_torch import evaluate
+    from music_transcription_tpu_torch.ops import attention_kernel as ak
+    from music_transcription_tpu_torch.ops import lstm_kernel as lk
+
+    counters = counters_of(lk, ak)
+    reset_counts(counters)
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = evaluate.main(spec["argv"])
+    wall = time.perf_counter() - t0
+    return dict(rank=rank, rc=rc, wall_s=wall, launches=read_counts(counters),
+                stdout=out.getvalue()[-20000:])
+
+
 def rank_main(argv) -> int:
-    """A rank of phase 9 (started by torchrun): ``argv`` = mode, spec path."""
+    """A rank of phase 9 or 10 (started by torchrun): ``argv`` = mode, spec
+    path."""
     import torch
 
     if not torch.cuda.is_available():
@@ -2321,7 +2358,8 @@ def rank_main(argv) -> int:
     with open(spec_path) as f:
         spec = json.load(f)
     rank = int(os.environ["RANK"])
-    result = (rank_cli if mode == "--rank-cli" else rank_steps)(torch, spec, rank)
+    run = {"--rank-cli": rank_cli, "--rank-steps": rank_steps, "--rank-eval": rank_eval}[mode]
+    result = run(torch, spec, rank)
     with open(spec_path.removesuffix(".json") + f"_rank{rank}.json", "w") as f:
         json.dump(result, f)
     return result["rc"]
@@ -2628,7 +2666,7 @@ def dp_phase(torch, lk, ak, wav30, card, phase6_ms):
             mesh = make_mesh(1, "cuda")
             state = part.shard_state(ts.data_parallel(
                 _fresh_state(torch, ModelConfig(**fp32), weights, "cuda"), mesh), mesh,
-                shard_params=True)
+                strategy="fsdp")
             m = ts.train_step(state, full, 1, max_grad_norm=1.0)
             sizes = part.sharded_param_bytes(state)
             sd = part.full_model_state_dict(state)
@@ -2668,6 +2706,201 @@ def dp_phase(torch, lk, ak, wav30, card, phase6_ms):
     ms = float(np.median(results[0]["step_ms"]))
     print(f"    beside phase 6's one-process step of 24 rows: {phase6_ms:.1f} ms; ratio "
           f"{ms / phase6_ms:.3f}; {card}; phase wall {time.perf_counter() - t_phase:.1f} s")
+
+
+# Phase 10: the rest of parallelism. Serving across replicas is held against
+# one device on the same card in the same dtype, only the batch split
+# changed: logits within SPLIT_TOL of the largest (on an H100 the split moved
+# them by 3e-3 of it at most in bf16). Since sigmoid' <= 1/4, a probability
+# then moves at most SPLIT_TOL / 4 of the largest logit, and a roll may
+# differ only at a frame whose probability lies that close to the threshold.
+# A replica fed the wrong block (shifted by one chunk) must fail the bound.
+SPLIT_TOL = 1e-2
+EVAL_F1_TOL, EVAL_THRESHOLD_TOL = 1e-6, 1e-9  # tests/test_multihost.py's
+
+
+def replicas_phase(torch, lk, ak, pth, wav30, wav120, card, phase3_ms):
+    """10a: serving through two replicas on the one card against one device."""
+    from music_transcription_tpu_torch.data.audio import load_audio
+    from music_transcription_tpu_torch.transcribe import (
+        Transcriber,
+        replica_forward,
+        transcribe_chunks,
+    )
+
+    def forward(model, mel):
+        return model(mel).float()
+
+    t_phase = time.perf_counter()
+    # 8 windows of 120 s: 4 a replica, which "auto" sends through K3
+    wav950 = os.path.join(WORK, "long8.wav")
+    write_wav(wav950, 950.0, SEED + 10)
+    counters = (lk.lstm_recurrence, ak.flash_attention_clamped)
+    print(f"[10] the rest of parallelism on {card}")
+    for name, wav, window in (("30 s route, 118 s", wav30, None),
+                              ("-w 120, 470 s", wav120, 120.0),
+                              ("-w 120, 950 s", wav950, 120.0)):
+        one = Transcriber(pth, window=window, device="cuda")
+        two = Transcriber(pth, window=window, devices=["cuda:0", "cuda:0"])
+        acfg = one.loaded.audio_cfg
+        y, _ = load_audio(wav, sr=acfg.sample_rate)
+        chunks = one.split(y)
+        n, k = chunks.shape[0], -(-chunks.shape[0] // 2)
+        attention = two.replicas[0].model.attention
+        want_k3 = 2 if attention.route(k, acfg.mel_frames_per_chunk) == "pallas" else 0
+        for c in counters:
+            c.launches = 0
+        notes = two.transcribe_array(y)  # the main path: the entry point, counted
+        launches = [c.launches for c in counters]
+        roll_one = transcribe_chunks(one.loaded, chunks)
+        roll_two = transcribe_chunks(two.loaded, chunks, replicas=two.replicas)
+        logits = [replica_forward(r, chunks, acfg, forward)
+                  for r in ([one.loaded.model], two.replicas)]
+        scale = float(np.abs(logits[0]).max())
+        err = float(np.abs(logits[1] - logits[0]).max())
+        # the fault: the second replica's block starts one chunk early
+        shifted = np.concatenate([chunks[:k], chunks[k - 1:n - 1]])
+        fault = float(np.abs(replica_forward(two.replicas, shifted, acfg, forward)
+                             - logits[0]).max())
+        probs = [1.0 / (1.0 + np.exp(-x.astype(np.float64))) for x in logits]
+        tol_p = SPLIT_TOL * scale / 4
+        near = np.concatenate(list(np.abs(probs[0] - 0.5) <= tol_p), axis=1)
+        differ = roll_one != roll_two
+        ms_one, ms_two = warm_request_ms(torch, one, y), warm_request_ms(torch, two, y)
+        ok = (err <= SPLIT_TOL * scale < fault and not (differ & ~near).any()
+              and launches == [4 * 2, want_k3] and roll_one.shape == roll_two.shape)
+        print(f"    10a {name} ({n} chunks, {k} a replica, attention "
+              f"{attention.route(k, acfg.mel_frames_per_chunk)!r} a replica): two replicas on "
+              f"cuda:0 vs one device: logits max_abs_err {err:.3e} (tol {SPLIT_TOL} x "
+              f"{scale:.3e}; a block shifted by one chunk: {fault:.3e}), probabilities "
+              f"{float(np.abs(probs[1] - probs[0]).max()):.3e} apart at most; "
+              f"{int(differ.sum())} of {differ.size} roll frames differ, {int(near.sum())} "
+              f"frames lie within {tol_p:.3e} of the threshold; {len(notes)} notes; launches K1 "
+              f"{launches[0]} (want 8), K3 {launches[1]} (want {want_k3}); warm request "
+              f"{ms_two:.1f} ms against one device's {ms_one:.1f} ms in this phase (phase 3's: "
+              f"{phase3_ms:.1f} ms) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"10a: the replicas' {name} request disagrees with one device")
+        del one, two
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"    10a wall {time.perf_counter() - t_phase:.1f} s")
+
+
+def eval_ranks_phase(torch, flash_best):
+    """10b: the evaluation CLI at world 2 (gloo: the ranks share the card)
+    against one process, on phase 6's cache (the validation split, tuned on
+    the train split)."""
+    from music_transcription_tpu_torch.ops import attention_kernel as ak
+    from music_transcription_tpu_torch.ops import lstm_kernel as lk
+
+    cache_dir = os.path.join(WORK, "train_cache")
+    argv = ["--model", flash_best, "--cache_dir", cache_dir, "--split", "validation",
+            "--headless", "--tune_threshold", "--tune_split", "train", "--batch_size", "8",
+            "-d", "cuda"]
+    counters = counters_of(lk, ak)
+    reset_counts(counters)
+    t0 = time.perf_counter()
+    ref = run_evaluate(argv)
+    wall_one = time.perf_counter() - t0
+    one = {k: v for k, v in read_counts(counters).items() if v}
+    results = torchrun("--rank-eval", {"argv": argv}, "eval_ranks", timeout=300)
+    got = [{ln.split("=")[0]: float(ln.split("=")[1]) for ln in r["stdout"].splitlines()
+            if ln.startswith("EVAL_")} for r in results]
+    ok = (all(r["rc"] == 0 for r in results) and not got[1] and set(got[0]) == set(ref)
+          and abs(got[0]["EVAL_MEAN_F1"] - ref["EVAL_MEAN_F1"]) <= EVAL_F1_TOL
+          and abs(got[0]["EVAL_BEST_THRESHOLD"] - ref["EVAL_BEST_THRESHOLD"])
+          <= EVAL_THRESHOLD_TOL
+          # 24 validation + 48 train chunks, 12 + 24 a rank: 2 + 3 batches of 8, K1 4 each
+          and all(r["launches"]["lstm_recurrence"] == 4 * 5 for r in results))
+    print(f"    10b evaluate at world 2 (gloo, both ranks on the card): rank 0 {got[0]}, rank 1 "
+          f"printed {len(got[1])} EVAL_ lines; one process {ref} (tol {EVAL_F1_TOL:g} on F1, "
+          f"{EVAL_THRESHOLD_TOL:g} on the threshold); launches "
+          f"{[{k: v for k, v in r['launches'].items() if v} for r in results]} (one process "
+          f"{one}); wall {[round(r['wall_s'], 1) for r in results]} s against one process's "
+          f"{wall_one:.1f} s {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("10b: evaluation across ranks disagrees with one process")
+
+
+def tp_world1_phase(torch, lk):
+    """10c: one fp32 step with tp's placement at world 1 over NCCL, on a 1-D
+    and a (1, 1) mesh, against the plain step (phase 9's weights and batch)."""
+    import torch.distributed as dist
+
+    from music_transcription_tpu_torch.config import ModelConfig
+    from music_transcription_tpu_torch.models.cnn_rnn import CNNRNNLarge
+    from music_transcription_tpu_torch.models.transcription import TranscriptionModel
+    from music_transcription_tpu_torch.parallel import partitioning as part
+    from music_transcription_tpu_torch.parallel import train_step as ts
+    from music_transcription_tpu_torch.parallel.mesh import make_mesh
+
+    out_dir = os.path.join(WORK, "dp_steps")
+    weights = os.path.join(out_dir, "weights.pth")
+    full = tuple(a.cuda() for a in torch.load(os.path.join(out_dir, "batch.pt")))
+    cfg = ModelConfig(compute_dtype="float32", dropout=0.0, lstm_backend="pallas")
+    CNNRNNLarge.CHANNEL_DROPOUT, saved_rates = (0.0, 0.0, 0.0), CNNRNNLarge.CHANNEL_DROPOUT
+    try:
+        plain = _fresh_state(torch, cfg, weights, "cuda")
+        ref = ts.train_step(plain, full, 1, max_grad_norm=1.0)
+        ref_sd = {k: v.cpu() for k, v in plain.model.model.state_dict().items()}
+        del plain
+        store = os.path.join(out_dir, "tp_store")
+        with contextlib.suppress(FileNotFoundError):
+            os.remove(store)
+        dist.init_process_group("nccl", init_method=f"file://{store}", rank=0, world_size=1)
+        try:
+            for shape in ((1,), (1, 1)):
+                mesh = make_mesh(1, "cuda") if len(shape) == 1 else part.make_mesh_2d(1, 1, "cuda")
+                state = part.shard_state(ts.data_parallel(
+                    _fresh_state(torch, cfg, weights, "cuda"), mesh), mesh, strategy="tp")
+                dims = sorted(set(part.tp_shard_dims(state.model.model, 1).values()))
+                fwd, bwd = lk.lstm_recurrence_fwd.launches, lk.lstm_recurrence_bwd.launches
+                m = ts.train_step(state, full, 1, max_grad_norm=1.0)
+                launches = (lk.lstm_recurrence_fwd.launches - fwd,
+                            lk.lstm_recurrence_bwd.launches - bwd)
+                sd = part.full_model_state_dict(state)
+                errs = _state_errors(torch, sd, ref_sd, 1e-4)
+                one = TranscriptionModel(cfg)
+                one.model.load_state_dict(sd, strict=True)
+                loss_err = abs(m["loss"] - ref["loss"]) / abs(ref["loss"])
+                ok = loss_err <= 1e-4 and _within(errs) and launches == (4, 4)
+                print(f"    10c tp at world 1 over {dist.get_backend()}, mesh {shape} (shard dims "
+                      f"{dims}; sharded_param_bytes {part.sharded_param_bytes(state)}) vs the "
+                      f"plain step: loss {m['loss']!r} against {ref['loss']!r} (equal to the "
+                      f"bit: {m['loss'] == ref['loss']}; tol 1e-4 relative), {_fmt(errs)}; "
+                      f"K2a / K2b launches {launches} on the gathered weights; its gathered "
+                      f"state loads into a one-device model {'ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise AssertionError("10c: the tp step differs from the plain step")
+                del state, sd, one
+        finally:
+            dist.destroy_process_group()
+    finally:
+        CNNRNNLarge.CHANNEL_DROPOUT = saved_rates
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def dryrun_phase():
+    """10d: the multi-rank gate on this machine's torch, 4 gloo ranks on its CPU."""
+    import signal
+
+    t0 = time.perf_counter()
+    # a process group of its own, killed whole (the ranks too) if it outlives its time
+    proc = subprocess.Popen([sys.executable, "-m", "music_transcription_tpu_torch.parallel.dryrun",
+                             "4"], cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True, start_new_session=True)
+    try:
+        out, _ = proc.communicate(timeout=300)
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.communicate()
+    line = (out.strip().splitlines() or [""])[-1]
+    print(f"    10d {line} (rc {proc.returncode}, {time.perf_counter() - t0:.1f} s)")
+    if proc.returncode != 0 or not line.startswith("dryrun(4): ok"):
+        raise AssertionError(f"10d: the dryrun failed:\n{out[-3000:]}")
 
 
 def main() -> int:
@@ -2741,7 +2974,8 @@ def main() -> int:
     # a second request on the warm server measures steady serving
     server = Transcriber(pth, device="cuda")
     y, _ = load_audio(wav30, sr=acfg.sample_rate)
-    print(f"    warm request (load_audio excluded): {warm_request_ms(torch, server, y):.1f} ms")
+    warm30 = warm_request_ms(torch, server, y)
+    print(f"    warm request (load_audio excluded): {warm30:.1f} ms")
     profile_request(torch, server, y)
 
     # the model on the card against the same weights on the CPU, short input
@@ -2830,7 +3064,16 @@ def main() -> int:
     # 9. data-parallel training at world 2 on the one card
     dp_phase(torch, lk, ak, wav30, card, xla_ms)
 
-    # 10. report
+    # 10. serving across replicas, evaluation across ranks, tp at world 1,
+    # the multi-rank gate
+    t_phase = time.perf_counter()
+    replicas_phase(torch, lk, ak, pth, wav30, wav120, card, warm30)
+    eval_ranks_phase(torch, flash_best)
+    tp_world1_phase(torch, lk)
+    dryrun_phase()
+    print(f"    phase 10 wall {time.perf_counter() - t_phase:.1f} s")
+
+    # 11. report
     kernels = [
         dict(name="lstm_recurrence", route="cuda",
              source="music_transcription_tpu_torch/csrc/lstm_recurrence.cu",

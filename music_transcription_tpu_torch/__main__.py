@@ -7,8 +7,9 @@
 ``X.pth`` carries the model and audio config (else the shipped
 cnn_rnn_large / n_mels=320 defaults apply); an AST sidecar selects the
 token route, where ``--beam`` and ``--constrained`` apply. The flags and messages are
-those of the JAX package's ``main.py``; ``-d`` takes ``cuda`` (the default)
-or ``cpu``.
+those of the JAX package's ``main.py``; ``-d`` takes ``cuda`` (the default:
+a model replica on every visible card, each request's chunks split among
+them; ``CUDA_VISIBLE_DEVICES`` picks the cards) or ``cpu``.
 """
 
 import argparse
@@ -70,13 +71,17 @@ def main():
 
     import torch
 
-    from music_transcription_tpu_torch.transcribe import transcribe_audio
+    from music_transcription_tpu_torch.transcribe import serving_devices, transcribe_audio
 
     print("=" * 60)
     print("Music Transcription Pipeline (PyTorch/CUDA)")
     print("=" * 60)
-    name = torch.cuda.get_device_name(0) if args.device == "cuda" and torch.cuda.is_available() else ""
-    print(f"Device: {args.device}" + (f" ({name})" if name else ""))
+    if args.device == "cuda" and torch.cuda.is_available():
+        # a replica on every visible card (CUDA_VISIBLE_DEVICES narrows them)
+        names = [f"{d} ({torch.cuda.get_device_name(d)})" for d in serving_devices("cuda")]
+        print(f"Device: {args.device}: {', '.join(names)}")
+    else:
+        print(f"Device: {args.device}")
 
     try:
         output_path = transcribe_audio(

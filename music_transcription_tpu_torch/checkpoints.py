@@ -21,7 +21,9 @@ config, as ``transcribe.load_model`` reads it):
 ``state_dict_from_jax`` carries the JAX package's weights across: it takes
 the ``{"params", "batch_stats"}`` tree as numpy arrays and returns the
 port's state_dict; ``optimizer_state_from_jax`` carries optax's Adam
-moments and count to ``torch.optim.Adam``. The mapping is the port's own
+moments and count to ``torch.optim.Adam``; ``jax_axes`` reads a parameter's
+JAX axes off its torch layout (tensor parallelism shards by them,
+``parallel/partitioning.py``). The mapping is the port's own
 copy of the one in the JAX package's ``export_torch_state_dict``:
 
   flax (JAX package)                       torch (this package)
@@ -167,6 +169,25 @@ def state_dict_from_jax(variables: dict, cfg: ModelConfig) -> dict[str, torch.Te
     else:
         raise ValueError(f"No weight mapping for model type {cfg.model_type}")
     return {k: torch.from_numpy(np.array(v)) for k, v in out.items()}
+
+
+def jax_axes(owner: nn.Module, param: torch.Tensor) -> tuple[int, ...]:
+    """The dims of ``param`` (a parameter of the module ``owner``) that
+    hold its JAX counterpart's axes, in JAX's order: the mapping above read
+    backwards. A Conv2d weight (O,I,kh,kw) holds HWIO as (2, 3, 1, 0); a
+    Linear weight (O,I) and the LSTM's (4H, I) / (4H, H) matrices hold
+    (I, O) / (I, 4H) as (1, 0); vectors (biases, BatchNorm and LayerNorm)
+    are their own."""
+    from music_transcription_tpu_torch.models.cnn_rnn import BiLSTMStack
+
+    if param.ndim == 1:
+        return (0,)
+    if isinstance(owner, nn.Conv2d) and param.ndim == 4:
+        return (2, 3, 1, 0)
+    if param.ndim == 2 and isinstance(owner, (nn.Linear, BiLSTMStack)):
+        return (1, 0)
+    raise ValueError(f"no JAX layout for a {tuple(param.shape)} parameter of "
+                     f"{type(owner).__name__}")
 
 
 def optimizer_state_from_jax(opt_state, cfg: ModelConfig,

@@ -144,10 +144,11 @@ class TrainConfig:
     early_stop_patience: int = 0
     seed: int = 0
     max_nan_batches: int = 10  # abort after this many NaN/Inf losses
-    # Parallelism and state partitioning: data_parallel is the number of
-    # ranks torchrun launched (None: all of them); partitioning "dp",
-    # "zero1" or "fsdp" on their 1-D mesh (train/loop.resolve_mesh).
-    # model_parallel > 1 and "tp" are ROADMAP.md Queue 1 slice 5b.
+    # Parallelism and state partitioning (train/loop.resolve_mesh): on a 1-D
+    # mesh data_parallel is the number of ranks torchrun launched (None: all
+    # of them); model_parallel > 1 makes a 2-D (data, model) mesh of
+    # data_parallel (None: world // model_parallel) rows. partitioning "dp",
+    # "zero1", "fsdp" or "tp" ("dp" only on a 1-D mesh).
     data_parallel: int | None = None
     partitioning: str = "dp"
     model_parallel: int = 1

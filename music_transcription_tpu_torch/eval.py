@@ -117,14 +117,21 @@ def grid_mean_f1(cached: CachedPredictions, thresholds: np.ndarray) -> np.ndarra
 
 def tune_threshold(cached: CachedPredictions, *, rounds: int = 6,
                    tune_range: tuple[float, float] = (0.05, 0.95), step: float = 0.1,
-                   min_step: float = 0.01, verbose: bool = True) -> tuple[float, float]:
+                   min_step: float = 0.01, verbose: bool = True,
+                   grid_fn=None) -> tuple[float, float]:
     """Coarse-to-fine threshold search from cached probabilities (no model
-    re-forward). Returns (best threshold, its mean F1)."""
+    re-forward). Returns (best threshold, its mean F1).
+
+    ``grid_fn(cached, thresholds) -> mean-F1 array`` replaces the local grid
+    evaluation: evaluation across ranks passes one that reduces the grid
+    over them (``evaluate.py``)."""
+    if grid_fn is None:
+        grid_fn = grid_mean_f1
     tune_min, tune_max = tune_range
     best_threshold, best_f1 = 0.5, -1.0
     for round_num in range(1, rounds + 1):
         thresholds = np.arange(tune_min, tune_max + step / 2, step)
-        f1s = grid_mean_f1(cached, thresholds)
+        f1s = grid_fn(cached, thresholds)
         if verbose:
             print(f"=== Round {round_num}/{rounds} | range=[{tune_min:.4f}, "
                   f"{tune_max:.4f}] step={step:.4f} ===")

@@ -17,8 +17,23 @@ MIDIs under ``--out_dir``.
 
 Probabilities are computed once per split in device batches; every threshold
 of the sweep reuses them. Checkpoints are ``.pth`` + ``.json`` as
-``transcribe.load_model`` reads them. Evaluation runs in one process on one
-device: the JAX package's multi-host sharding is not ported.
+``transcribe.load_model`` reads them.
+
+Across ranks, as the JAX package's multi-host evaluation:
+
+    torchrun --standalone --nproc_per_node N -m music_transcription_tpu_torch.evaluate ...
+
+each rank joins the group (``parallel/distributed.py``) before it touches a
+device, takes its card (``rank_device``), and forwards its exact round-robin
+share of the eval split and of the tune split (``ProcessShard(exact=True)``:
+no sample twice) with no collective in the forward. Per-sample F1 and onset
+F1 are gathered back into global order (NaN-padded to equal lengths), the
+tuning grid's F1 sums and counts are summed over the ranks at every round
+(``tune_threshold``'s ``grid_fn``), and the confusion is summed, so every
+number is one process's. The gathers are of host arrays, over gloo (a gloo
+group of their own when the ranks run NCCL). Rank 0 alone prints the
+``EVAL_*`` lines and writes files; every rank leaves the group on every
+exit. ``--full_pieces`` is not sharded: rank 0 scores every piece.
 """
 
 from __future__ import annotations
@@ -30,6 +45,8 @@ import os
 import subprocess
 import sys
 from datetime import datetime
+
+import numpy as np
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -133,8 +150,6 @@ def full_piece_eval(args, loaded, source_path) -> int:
     interior. The prediction runs at mel frames per chunk (938 per 30 s), the
     target at 31.25 fps (937.5 per 30 s): the half-frame drift per chunk is
     part of what this measures."""
-    import numpy as np
-
     from music_transcription_tpu_torch import eval as E
     from music_transcription_tpu_torch.config import AudioConfig
     from music_transcription_tpu_torch.data.audio import split_into_chunks
@@ -253,6 +268,61 @@ def main(argv=None) -> int:
               "Pass -d cpu to evaluate on the CPU.")
         return 1
 
+    from music_transcription_tpu_torch.parallel.distributed import (
+        maybe_initialize_distributed,
+        rank_device,
+        shutdown,
+    )
+
+    # before the first device use: under torchrun, join the ranks' group
+    multi = maybe_initialize_distributed(args.device, verbose=not args.headless)
+    try:
+        return _evaluate(args, multi, rank_device(args.device))
+    finally:
+        shutdown()  # a rank that returns holds no other rank in a collective
+
+
+class _Ranks:
+    """The host-array collectives of evaluation across ranks, over gloo: the
+    default group, or one of its own when the ranks run NCCL."""
+
+    def __init__(self):
+        import torch.distributed as dist
+
+        from music_transcription_tpu_torch.parallel.distributed import backend, rank_and_world
+
+        self.dist = dist
+        self.rank, self.size = rank_and_world()
+        self.group = dist.new_group(backend="gloo") if backend() != "gloo" else None
+
+    def all_gather(self, a):
+        """(size, *a.shape) float64: every rank's ``a``, in rank order."""
+        import torch
+
+        t = torch.from_numpy(np.ascontiguousarray(a, np.float64))
+        out = [torch.empty_like(t) for _ in range(self.size)]
+        self.dist.all_gather(out, t, group=self.group)
+        return torch.stack(out).numpy()
+
+    def global_per_sample(self, local, n_eval: int):
+        """Per-sample scores of the exact round-robin shards back in global
+        order (shard item i on rank p is global item i * size + p)."""
+        m = -(-n_eval // self.size)
+        padded = np.full(m, np.nan)
+        padded[:len(local)] = local
+        return self.all_gather(padded).T.reshape(-1)[:n_eval]
+
+    def grid_fn(self, E):
+        """``tune_threshold``'s grid: every rank's F1 sums and counts summed."""
+        def grid(cached, thresholds):
+            sums, count = E.grid_f1_sums(cached, thresholds)
+            g = self.all_gather(np.concatenate([sums, [float(count)]]))
+            return g[:, :-1].sum(axis=0) / max(1.0, float(g[:, -1].sum()))
+
+        return grid
+
+
+def _evaluate(args, multi: bool, device) -> int:
     from music_transcription_tpu_torch import eval as E
     from music_transcription_tpu_torch.config import (
         AudioConfig,
@@ -263,8 +333,11 @@ def main(argv=None) -> int:
     from music_transcription_tpu_torch.data.cache import CachedMaestroDataset, load_metadata
     from music_transcription_tpu_torch.data.maestro import MaestroDataset
     from music_transcription_tpu_torch.data.pipeline import Loader
+    from music_transcription_tpu_torch.parallel.distributed import ProcessShard
     from music_transcription_tpu_torch.transcribe import LoadedModel, load_model
 
+    ranks = _Ranks() if multi else None
+    is_main = ranks is None or ranks.rank == 0
     source, source_path = detect_data_source(args)
 
     # model config: the sidecar, else the CLI's overrides, else the defaults
@@ -278,7 +351,7 @@ def main(argv=None) -> int:
               "needs frame logits: use python -m music_transcription_tpu_torch.evaluate_ast.")
         return 1
     try:
-        loaded = load_model(args.model, model_cfg=model_cfg, device=args.device)
+        loaded = load_model(args.model, model_cfg=model_cfg, device=device)
     except ValueError as exc:  # an orbax directory: the conversion hint
         print(f"Error: {exc}")
         return 1
@@ -302,7 +375,7 @@ def main(argv=None) -> int:
             print("Error: --full_pieces needs the raw data source (whole recordings); "
                   "pass --data_source full.")
             return 1
-        return full_piece_eval(args, loaded, source_path)
+        return full_piece_eval(args, loaded, source_path) if is_main else 0
 
     def make_dataset(split):
         if source == "cache":
@@ -353,10 +426,13 @@ def main(argv=None) -> int:
 
     if args.subset:
         dataset = _Subset(dataset, n_eval)
+    verbose = not args.headless and is_main
 
     def predict(ds):
+        if multi:  # this rank's exact share: no sample twice
+            ds = ProcessShard(ds, exact=True)
         loader = Loader(ds, args.batch_size, num_workers=4, pad_to=audio_cfg.mel_frames_per_chunk)
-        return E.predict_probs(loaded.model, loader, verbose=not args.headless,
+        return E.predict_probs(loaded.model, loader, verbose=verbose,
                                pad_batch_to=args.batch_size)
 
     cached = predict(dataset)
@@ -365,9 +441,10 @@ def main(argv=None) -> int:
         # tuned on a split disjoint from the reported one by default; the
         # tuned threshold is frozen, then the eval split is scored at it
         if args.tune_split == args.split:
-            print(f"Warning: --tune_split equals --split ('{args.split}'): the threshold is "
-                  f"tuned on the split it is reported on (the reported F1 is optimistically "
-                  f"biased).")
+            if is_main:
+                print(f"Warning: --tune_split equals --split ('{args.split}'): the threshold "
+                      f"is tuned on the split it is reported on (the reported F1 is "
+                      f"optimistically biased).")
             cached_tune = cached
         else:
             try:
@@ -384,30 +461,45 @@ def main(argv=None) -> int:
             cached_tune = predict(tune_ds)
         best_t, best_f1 = E.tune_threshold(
             cached_tune, rounds=args.tune_rounds, tune_range=tuple(args.tune_range),
-            step=args.tune_step, min_step=args.tune_min_step, verbose=not args.headless)
-        if args.headless:
+            step=args.tune_step, min_step=args.tune_min_step, verbose=verbose,
+            grid_fn=None if ranks is None else ranks.grid_fn(E))
+        if is_main and args.headless:
             print(f"EVAL_BEST_THRESHOLD={best_t:.6f}")
-        else:
+        elif is_main:
             print(f"Best threshold: {best_t:.6f} (tuned on '{args.tune_split}', "
                   f"tune-split mean F1 {best_f1:.6f})")
         args.threshold = best_t
 
     f1_scores = E.per_sample_f1(cached, args.threshold)
+    if ranks is not None:
+        f1_scores = ranks.global_per_sample(f1_scores, n_eval)
     mean = float(f1_scores.mean()) if f1_scores.size else 0.0
     onset_scores = None
     if args.onset_f1:
         onset_scores = E.per_sample_onset_f1(cached, args.threshold, fs=audio_cfg.frame_rate,
                                              tolerance_s=args.onset_tolerance)
+        if ranks is not None:
+            onset_scores = ranks.global_per_sample(onset_scores, n_eval)
 
     if args.headless:
-        print(f"EVAL_MEAN_F1={mean:.6f}")
-        if onset_scores is not None:
-            print(f"EVAL_ONSET_F1={float(onset_scores.mean()):.6f}")
+        if is_main:
+            print(f"EVAL_MEAN_F1={mean:.6f}")
+            if onset_scores is not None:
+                print(f"EVAL_ONSET_F1={float(onset_scores.mean()):.6f}")
         return 0
+
+    confusion = E.global_confusion(cached, args.threshold)
+    if ranks is not None:
+        # every rank joins the sum; rank 0 alone writes
+        confusion = ranks.all_gather(confusion).sum(axis=0).astype(np.int64)
+        if not is_main:
+            return 0
 
     run_dir = os.path.join(args.out_dir, datetime.now().strftime("%Y-%m-%d_%H-%M-%S"))
     os.makedirs(run_dir, exist_ok=True)
     extra = {"model": args.model, "split": args.split, "source": source, "device": args.device}
+    if ranks is not None:
+        extra["ranks"] = ranks.size
     if args.tune_threshold:
         extra["threshold tuned on"] = args.tune_split
     if onset_scores is not None:
@@ -415,8 +507,7 @@ def main(argv=None) -> int:
             f"{float(onset_scores.mean()):.6f}")
     E.write_summary(os.path.join(run_dir, "eval_summary.txt"), f1_scores, args.threshold,
                     extra=extra)
-    E.plot_confusion(os.path.join(run_dir, "confusion_matrix.png"),
-                     E.global_confusion(cached, args.threshold))
+    E.plot_confusion(os.path.join(run_dir, "confusion_matrix.png"), confusion)
     if not args.no_midi:
         E.write_sample_midis(cached, args.threshold, os.path.join(run_dir, "midis"),
                              fs=audio_cfg.frame_rate, limit=args.midi_limit)

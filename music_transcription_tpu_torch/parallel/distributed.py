@@ -17,13 +17,21 @@ on CUDA tensors need NCCL). At world 1 it does nothing.
 
 ``ProcessShard`` gives each rank its slice of a dataset (round-robin, equal
 lengths by wrap-around), ``local_batch_size`` its rows of a global batch.
+Both go by the rank's data index (``data_coordinate``): on a 2-D
+``(data, model)`` mesh of ``n_model`` ranks a row, the ranks of one row
+(model peers) load the same rows, as ``P(DATA_AXIS)`` lays a batch out.
 ``all_reduce_sum`` is an all-reduce whose backward sums the gradients over
-the ranks, as ``jax.lax.psum`` differentiates.
+the ranks, as ``jax.lax.psum`` differentiates. ``spawn_ranks`` starts the
+ranks of a run as subprocesses without ``torchrun`` (the dryrun gate, the
+tests), every wait bounded.
 """
 
 from __future__ import annotations
 
 import os
+import subprocess
+import tempfile
+import time
 
 import torch
 import torch.distributed as dist
@@ -99,13 +107,26 @@ def shutdown() -> None:
         dist.destroy_process_group()
 
 
-def local_batch_size(global_batch_size: int) -> int:
-    """A rank's rows of a global batch (the world size must divide it:
-    uneven batches would desynchronise the collectives of a step)."""
-    n = rank_and_world()[1]
+def data_coordinate(n_model: int = 1) -> tuple[int, int]:
+    """(data index, data axis size) of this rank on a ``(world / n_model,
+    n_model)`` mesh: (rank // n_model, world // n_model). With ``n_model``
+    1 it is (rank, world)."""
+    rank, world = rank_and_world()
+    if n_model < 1 or world % n_model:
+        raise ValueError(f"model_parallel={n_model} does not divide the {world} rank(s) of "
+                         f"this run; launch a multiple of {n_model} ranks (torchrun "
+                         f"--nproc_per_node)")
+    return rank // n_model, world // n_model
+
+
+def local_batch_size(global_batch_size: int, n_model: int = 1) -> int:
+    """A rank's rows of a global batch: its share of the data axis (which
+    must divide it: uneven batches would desynchronise the collectives of a
+    step)."""
+    n = data_coordinate(n_model)[1]
     if global_batch_size % n:
-        raise ValueError(f"global batch_size={global_batch_size} must be divisible by "
-                         f"the world size {n}")
+        axis = f"world size {n}" if n_model == 1 else f"data axis ({n} rows of {n_model} ranks)"
+        raise ValueError(f"global batch_size={global_batch_size} must be divisible by the {axis}")
     return global_batch_size // n
 
 
@@ -117,7 +138,9 @@ class ProcessShard:
     ranks with different lengths would issue different numbers of steps
     and deadlock in a collective. ``exact=True`` drops the wrap-around
     (lengths may differ by one), for evaluation without collectives, where
-    duplicates would bias a metric."""
+    duplicates would bias a metric. The index and count default to the
+    rank and the world size (on a 2-D mesh the caller passes the rank's
+    ``data_coordinate``)."""
 
     def __init__(self, dataset, process_index: int | None = None,
                  process_count: int | None = None, exact: bool = False):
@@ -160,3 +183,41 @@ def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
     backward is the same sum of the incoming gradients: each rank's output
     feeds every rank's loss."""
     return _AllReduceSum.apply(x, group)
+
+
+def spawn_ranks(argv_of_rank, world: int, *, timeout: float, env=None, cwd=None,
+                stop_on_failure: bool = False) -> tuple[list[int], list[str]]:
+    """Run ``argv_of_rank(r)`` for each rank r < ``world`` as a subprocess:
+    (exit codes, outputs, stdout and stderr together). With
+    ``stop_on_failure`` the other ranks are killed once one exits non-zero
+    (their codes are then negative). Raises ``TimeoutError`` with the
+    outputs' tails when a rank outlives ``timeout`` seconds; no rank
+    outlives the call."""
+    logs = [tempfile.TemporaryFile() for _ in range(world)]
+    procs = []
+    try:
+        for r, log in enumerate(logs):
+            procs.append(subprocess.Popen(argv_of_rank(r), stdout=log,
+                                          stderr=subprocess.STDOUT, env=env, cwd=cwd))
+        deadline = time.monotonic() + timeout
+        while any(p.poll() is None for p in procs):
+            if stop_on_failure and any(p.poll() for p in procs):
+                break
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"a rank outlived {timeout} s:\n" + "\n".join(
+                    f"rank {r}: {_read(log)[-2000:]}" for r, log in enumerate(logs)))
+            time.sleep(0.1)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    outs = [_read(log) for log in logs]
+    for log in logs:
+        log.close()
+    return [p.returncode for p in procs], outs
+
+
+def _read(log) -> str:
+    log.seek(0)
+    return log.read().decode(errors="replace")

@@ -1,11 +1,14 @@
 """The data axis of a run, a port of the JAX package's ``parallel/mesh.py``.
 
-Training is data-parallel over a 1-D ``data`` mesh of the run's ranks (one
-process each): the state replicated, each global batch split into
-contiguous blocks of rows in rank order (``P(DATA_AXIS)``'s layout), the
-gradients reduced over the axis (``parallel/train_step.py``). JAX's
-``positional_arity`` is a helper of its ``jit`` wrappers and has no
-counterpart here.
+Training is data-parallel over the ``data`` axis of a mesh of the run's
+ranks (one process each): a 1-D ``data`` mesh, or the 2-D ``(data, model)``
+mesh of ``parallel/partitioning.make_mesh_2d``, whose rank r sits at
+(r // n_model, r % n_model). Each global batch is split into contiguous
+blocks of rows in data-index order (``P(DATA_AXIS)``'s layout): the ranks
+of one row of a 2-D mesh (model peers) take the same rows. The state is
+replicated over every rank, the gradients reduced over all of them
+(``parallel/train_step.py``). JAX's ``positional_arity`` is a helper of its
+``jit`` wrappers and has no counterpart here.
 """
 
 from __future__ import annotations
@@ -34,25 +37,42 @@ def make_mesh(n_devices: int | None = None, device_type: str = "cuda"):
     return init_device_mesh(device_type, (n,), mesh_dim_names=(DATA_AXIS,))
 
 
+def data_index(mesh) -> int:
+    """This rank's coordinate on the mesh's ``data`` axis."""
+    return mesh.get_local_rank(DATA_AXIS)
+
+
+def data_size(mesh) -> int:
+    """The number of rows of the ``data`` axis (the batch's shards)."""
+    return mesh.size(mesh.mesh_dim_names.index(DATA_AXIS))
+
+
+def mesh_group(mesh):
+    """The process group of all the mesh's ranks. A 2-D ``DeviceMesh`` has
+    no group of its own (``get_group()`` raises); a mesh spans every rank
+    of the run (``make_mesh``, ``make_mesh_2d``), so it is the default one."""
+    return mesh.get_group() if mesh.ndim == 1 else dist.group.WORLD
+
+
 def shard_batch(batch, mesh):
     """This rank's rows of a global batch: the contiguous block of
-    ``len / mesh.size()`` rows at its rank, for each array of ``batch``."""
-    n, rank = mesh.size(), mesh.get_local_rank()
+    ``len / data_size`` rows at its data index, for each array of ``batch``."""
+    n, index = data_size(mesh), data_index(mesh)
 
     def rows(a):
         if a.shape[0] % n:
             raise ValueError(f"batch of {a.shape[0]} rows does not divide the data axis ({n})")
         k = a.shape[0] // n
-        return a[rank * k:(rank + 1) * k]
+        return a[index * k:(index + 1) * k]
 
     return tuple(rows(a) for a in batch)
 
 
 @torch.no_grad()
 def replicate(module: torch.nn.Module, mesh) -> torch.nn.Module:
-    """Broadcast ``module``'s parameters and buffers from rank 0 over the
-    mesh, in place: every rank then holds rank 0's state."""
-    group = mesh.get_group()
+    """Broadcast ``module``'s parameters and buffers from the mesh's first
+    rank over all its ranks, in place: every rank then holds that state."""
+    group = mesh_group(mesh)
     src = dist.get_global_rank(group, 0)
     for t in list(module.parameters()) + list(module.buffers()):
         dist.broadcast(t.data, src=src, group=group)

@@ -20,16 +20,22 @@ the same run draws the same masks, and a resumed run continues the stream.
 Data parallel (``TrainState.group`` set by ``data_parallel``: one process a
 rank, each with its rows of the global batch): BatchNorm takes its batch
 statistics over the ranks (sync-BN), each rank's dropout generator is
-seeded from (dropout_seed, step, rank), the counterpart of folding in
-``axis_index``, and the loss and gradients are frame-weighted: with a rank's
+seeded from (dropout_seed, step, data index), the counterpart of folding in
+``axis_index`` (on a 1-D mesh the data index is the rank; on a 2-D
+``(data, model)`` mesh model peers hold the same rows and draw the same
+masks), and the loss and gradients are frame-weighted: with a rank's
 masked loss L_r over its d_r = sum(clip(lengths, 0, T)) valid frames, the
 global loss and gradient are sum_r d_r (.)_r / sum_r d_r, the masked loss of
 the global batch. A plain average (DDP's) would weight a shard of short
 tail chunks as much as a full one. Each rank backpropagates
 (d_r / sum_r d_r) L_r, the denominator from an all-reduce of the d_r; the
 gradients are then summed over the ranks (one all-reduce of a flat buffer;
-under FSDP its reduce-scatter, which averages, so FSDP's ranks scale by the
-world size first), and the weighted losses in one more. The guard, the
+under FSDP2, ``fsdp`` and ``tp``, its reduce-scatter and on a 2-D mesh the
+all-reduce over ``data``, which average over the whole world, so those
+ranks scale by the world size first), and the weighted losses in one more.
+The sums and sync-BN run over all ranks on a 2-D mesh too: model peers
+count their rows n_model times in both sum_r d_r (.)_r and sum_r d_r, and
+in the mean of the ranks' E[x], which cancels. The guard, the
 clip and the Adam update act on the reduced gradient, which is the same on
 every rank, so every rank takes the same decision.
 """
@@ -47,23 +53,29 @@ from music_transcription_tpu_torch.config import ModelConfig, TrainConfig
 from music_transcription_tpu_torch.models.cnn_rnn import set_sync_batch_norm
 from music_transcription_tpu_torch.models.transcription import TranscriptionModel
 from music_transcription_tpu_torch.ops.precision import full_fp32
-from music_transcription_tpu_torch.parallel.mesh import replicate
+from music_transcription_tpu_torch.parallel.mesh import data_index, mesh_group, replicate
 from music_transcription_tpu_torch.train.optim import clip_gradients, make_optimizer
+
+# the partitionings whose state FSDP2 holds: parameters, gradients and
+# moments sharded, gradients averaged (not summed) over the ranks
+FSDP2 = ("fsdp", "tp")
 
 
 @dataclass
 class TrainState:
     """What a train step changes: the model (parameters and BatchNorm
     running statistics), the optimizer and the step count. ``group`` is the
-    data axis's process group (None: one process); ``partitioning`` says
-    how the state lies over it ("dp" replicated, "zero1" the Adam moments
-    sharded, "fsdp" parameters, gradients and moments sharded)."""
+    process group of the mesh's ranks (None: one process), ``data_index``
+    this rank's row of the batch; ``partitioning`` says how the state lies
+    over the mesh ("dp" replicated, "zero1" the Adam moments sharded,
+    "fsdp" and "tp" parameters, gradients and moments sharded)."""
 
     model: TranscriptionModel
     optimizer: torch.optim.Optimizer
     step: int = 0
     group: object = None
     partitioning: str = "dp"
+    data_index: int | None = None
 
 
 def init_train_state(model_cfg: ModelConfig, train_cfg: TrainConfig, device) -> TrainState:
@@ -77,19 +89,21 @@ def init_train_state(model_cfg: ModelConfig, train_cfg: TrainConfig, device) -> 
 
 
 def data_parallel(state: TrainState, mesh) -> TrainState:
-    """``state`` replicated over the data axis ``mesh``: rank 0's parameters
-    and buffers broadcast to every rank, BatchNorm synced over the ranks."""
+    """``state`` replicated over ``mesh`` (1-D ``data``, or 2-D ``(data,
+    model)``): rank 0's parameters and buffers broadcast to every rank,
+    BatchNorm synced over all the ranks, the rank's data index kept."""
     replicate(state.model, mesh)
-    state.group = mesh.get_group()
+    state.group = mesh_group(mesh)
+    state.data_index = data_index(mesh)
     set_sync_batch_norm(state.model, state.group)
     return state
 
 
-def dropout_generator(dropout_seed: int, step: int, device, rank: int | None = None
+def dropout_generator(dropout_seed: int, step: int, device, index: int | None = None
                       ) -> torch.Generator:
-    """The generator of step ``step``'s dropout masks (of ``rank``'s rows
-    under data parallelism)."""
-    entropy = [dropout_seed, step] if rank is None else [dropout_seed, step, rank]
+    """The generator of step ``step``'s dropout masks (of the rows at data
+    index ``index`` under data parallelism)."""
+    entropy = [dropout_seed, step] if index is None else [dropout_seed, step, index]
     seed = int(np.random.SeedSequence(entropy).generate_state(1, np.uint64)[0])
     return torch.Generator(device=device).manual_seed(seed & (2**63 - 1))
 
@@ -132,9 +146,9 @@ def train_step(state: TrainState, batch, dropout_seed: int, *, max_grad_norm: fl
     stats = _running_stats(model)
     saved = [s.clone() for s in stats]
     optimizer.zero_grad(set_to_none=True)
-    rank = None if group is None else group.rank()
+    index = None if group is None else state.data_index
     out = model(mel, return_all_heads=model.multi_head,
-                generator=dropout_generator(dropout_seed, state.step, mel.device, rank))
+                generator=dropout_generator(dropout_seed, state.step, mel.device, index))
     loss = model.loss(out, roll, lengths)
     if group is None:
         with full_fp32():  # fp32 gradients in fp32, not TF32, as the forward
@@ -144,11 +158,12 @@ def train_step(state: TrainState, batch, dropout_seed: int, *, max_grad_norm: fl
         total = frames.clone()
         dist.all_reduce(total, group=group)
         weight = frames / total.clamp(min=1.0)
-        # FSDP's reduce-scatter averages over the ranks; the others sum
-        scale = group.size() if state.partitioning == "fsdp" else 1
+        # FSDP2's reductions average over the ranks; the others sum
+        fsdp2 = state.partitioning in FSDP2
+        scale = group.size() if fsdp2 else 1
         with full_fp32():
             (loss * (weight * scale)).backward()
-        if state.partitioning != "fsdp":
+        if not fsdp2:
             _sum_gradients(model.parameters(), group)
         loss = loss.detach().float() * weight
         dist.all_reduce(loss, group=group)

@@ -7,7 +7,7 @@
 Data-parallel training runs one process a rank, launched by torchrun:
 
     torchrun --standalone --nproc_per_node N -m music_transcription_tpu_torch.train \
-        <the flags above> [--partitioning dp|zero1|fsdp]
+        <the flags above> [--partitioning dp|zero1|fsdp|tp] [--model_parallel M]
 
 The flags and their defaults are those of the JAX package's
 ``scripts/train_cnn.py``, so a command line moves between the two. ``--device``
@@ -15,13 +15,17 @@ takes ``cuda`` (the default; the run exits 1 when no card is visible) or
 ``cpu``. Under torchrun each rank joins the process group
 (``parallel/distributed.py``: NCCL with a card a rank, gloo when ranks share
 a card or run on the CPU), takes its round-robin share of each split
-(``ProcessShard``) and loads ``batch_size`` / N rows a step; ``--batch_size``
-stays the global batch. ``--data_parallel`` is the number of ranks, and any
-other value raises (the JAX package takes a subset of its devices; here that
-would leave ranks idle). ``--partitioning zero1`` shards Adam's moments,
-``fsdp`` the parameters and gradients too (both on one node, with more than
-one rank); ``tp`` and ``--model_parallel`` above 1 are not ported
-(ROADMAP.md Queue 1 slice 5b). ``--device_data on`` stages the whole cache
+(``ProcessShard``) and loads ``batch_size`` / n_data rows a step;
+``--batch_size`` stays the global batch. ``--model_parallel M`` > 1 lays the
+N ranks out as a ``(N / M, M)`` ``(data, model)`` mesh (``--data_parallel``
+rows, N / M by default): rank r loads the rows of data index r // M, which
+its M model peers share. Otherwise ``--data_parallel`` is the number of
+ranks, and any other value raises (the JAX package takes a subset of its
+devices; here that would leave ranks idle). ``--partitioning zero1`` shards
+Adam's moments, ``fsdp`` the parameters and gradients too, ``tp`` the same
+on the feature dims (all three on one node, with more than one rank; on a
+2-D mesh they shard over ``model`` and replicate over ``data``; ``dp``
+refuses ``--model_parallel`` > 1). ``--device_data on`` stages the whole cache
 (a rank's shard) on the device once; ``slab`` (and ``auto`` on one card when
 the staged cache would reach ``STAGE_LIMIT_BYTES``) rotates slabs of
 ``--slab_gb`` through the device (``data/pipeline.SlabRotatingLoader``),
@@ -99,8 +103,11 @@ def build_parser() -> argparse.ArgumentParser:
     e.add_argument("--partitioning", type=str, default="dp",
                    choices=["dp", "zero1", "fsdp", "tp"],
                    help="train-state placement over the ranks: dp replicated, zero1 Adam "
-                        "moments sharded, fsdp parameters too (tp: not ported)")
-    e.add_argument("--model_parallel", type=int, default=1)
+                        "moments sharded, fsdp parameters too, tp parameters on their "
+                        "feature dims")
+    e.add_argument("--model_parallel", type=int, default=1,
+                   help="ranks of the model axis of a 2-D (data, model) mesh (> 1 needs "
+                        "zero1, fsdp or tp)")
     e.add_argument("--resume", type=str, default=None,
                    help="checkpoint to resume from (.pt full state, .pth weights), or "
                         "'auto' for the newest in --run_dir")
@@ -207,7 +214,11 @@ def _train(args, multi: bool, device) -> int:
         Loader,
         SlabRotatingLoader,
     )
-    from music_transcription_tpu_torch.parallel.distributed import ProcessShard, local_batch_size
+    from music_transcription_tpu_torch.parallel.distributed import (
+        ProcessShard,
+        data_coordinate,
+        local_batch_size,
+    )
     from music_transcription_tpu_torch.train.loop import HostMemoryRecycle, train_model
     from music_transcription_tpu_torch.train.watchdog import RECYCLE_EXIT_CODE
 
@@ -252,8 +263,12 @@ def _train(args, multi: bool, device) -> int:
     print(f"Validation set size: {len(val_set)} chunks")
     loader_batch = args.batch_size  # the global batch; each rank loads its share
     if multi:
-        train_set, val_set = ProcessShard(train_set), ProcessShard(val_set)
-        loader_batch = local_batch_size(args.batch_size)
+        # by data index: the model peers of a 2-D mesh load the same rows
+        mp = max(1, args.model_parallel or 1)
+        index, count = data_coordinate(mp)
+        train_set = ProcessShard(train_set, index, count)
+        val_set = ProcessShard(val_set, index, count)
+        loader_batch = local_batch_size(args.batch_size, mp)
 
     pad_to = audio_cfg.mel_frames_per_chunk  # fixed-shape batches
     # Under bf16 compute the mel is staged as bf16 (the first convolution

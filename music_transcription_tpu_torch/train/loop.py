@@ -1,8 +1,10 @@
 """Training loop: epochs, validation, checkpoints, run artifacts. A port of
 the JAX package's ``train/loop.py``, on one device or data-parallel over
-the ranks of a ``torchrun`` launch (``partitioning`` "dp", "zero1" or
-"fsdp" on a 1-D mesh; ``parallel/``). Every rank runs every step and every
-validation batch; rank 0 alone prints and writes the run's files.
+the ranks of a ``torchrun`` launch (``partitioning`` "dp", "zero1", "fsdp"
+or "tp" on a 1-D mesh, or "zero1", "fsdp" or "tp" on a 2-D ``(data,
+model)`` mesh with ``model_parallel`` > 1; ``parallel/``). Every rank runs
+every step and every validation batch; rank 0 alone prints and writes the
+run's files.
 
   * NaN-skip accounting on the host: the step's guard skips a bad update;
     more than ``max_nan_batches`` skipped batches abort the run
@@ -40,7 +42,7 @@ from music_transcription_tpu_torch.config import (
 from music_transcription_tpu_torch.data.pipeline import device_prefetch
 from music_transcription_tpu_torch.parallel import partitioning as part
 from music_transcription_tpu_torch.parallel.distributed import local_world_size, rank_and_world
-from music_transcription_tpu_torch.parallel.mesh import make_mesh
+from music_transcription_tpu_torch.parallel.mesh import data_size, make_mesh
 from music_transcription_tpu_torch.parallel.train_step import (
     data_parallel,
     eval_step,
@@ -48,10 +50,6 @@ from music_transcription_tpu_torch.parallel.train_step import (
     train_step,
 )
 from music_transcription_tpu_torch.train.watchdog import StallWatchdog, host_rss_gb
-
-SLICE_5B = ("a 2-D (data, model) mesh (model_parallel > 1) and partitioning='tp' are not "
-            "ported yet: ROADMAP.md Queue 1 slice 5b")
-
 
 class TrainingUnstableError(RuntimeError):
     pass
@@ -194,37 +192,42 @@ def _max_over_ranks(value: float, device, group) -> float:
 
 
 def resolve_mesh(train_cfg: TrainConfig, device):
-    """The data axis of a run, after the JAX package's checks
-    (``train/loop.py``): None on one process, else a 1-D mesh over the
-    ranks. ``data_parallel`` is the world size: a run trains on every rank
-    it launched (torchrun's ``--nproc_per_node``)."""
+    """The mesh of a run, after the JAX package's rules (``train/loop.py``):
+    None on one process; a 1-D ``data`` mesh over the ranks; with
+    ``model_parallel`` > 1 a 2-D ``(data, model)`` mesh of
+    ``data_parallel`` (default world // model_parallel) rows. The mesh
+    covers every rank the run launched (torchrun's ``--nproc_per_node``)."""
     partitioning = train_cfg.partitioning
-    if partitioning not in ("dp", "zero1", "fsdp", "tp"):
+    if partitioning not in ("dp",) + part.STRATEGIES:
         raise ValueError(f"unknown partitioning {partitioning!r} (dp | zero1 | fsdp | tp)")
-    if (train_cfg.model_parallel or 1) > 1 and partitioning == "dp":
-        raise ValueError("model_parallel > 1 with partitioning='dp' would replicate all work "
-                         "across the model axis; use partitioning='zero1'/'fsdp'/'tp'")
-    if partitioning == "tp" or (train_cfg.model_parallel or 1) > 1:
-        raise NotImplementedError(SLICE_5B)
     world = rank_and_world()[1]
-    n = train_cfg.data_parallel or world
-    if n != world:
-        raise ValueError(f"data_parallel={n} differs from the {world} rank(s) of this run: "
-                         f"launch {n} ranks with torchrun --nproc_per_node {n}")
+    device_type = torch.device(device).type
+    mp = train_cfg.model_parallel or 1
+    if mp > 1:
+        if partitioning == "dp":
+            raise ValueError("model_parallel > 1 with partitioning='dp' would replicate all "
+                             "work across the model axis; use partitioning='zero1'/'fsdp'/'tp'")
+        n = train_cfg.data_parallel or world // mp
+        part.check_mesh_2d(n, mp)
+    else:
+        n = train_cfg.data_parallel or world
+        if n != world:
+            raise ValueError(f"data_parallel={n} differs from the {world} rank(s) of this run: "
+                             f"launch {n} ranks with torchrun --nproc_per_node {n}")
     if partitioning != "dp":
         if world == 1:
-            raise ValueError("partitioning='zero1'/'fsdp' shards state over a mesh; this run "
-                             "resolved to a single device (nothing to shard over)")
+            raise ValueError("partitioning='zero1'/'fsdp'/'tp' shards state over a mesh; this "
+                             "run resolved to a single device (nothing to shard over)")
         if local_world_size() != world:
-            raise ValueError("partitioning='zero1'/'fsdp' is single-node for now: its "
+            raise ValueError("partitioning='zero1'/'fsdp'/'tp' is single-node for now: its "
                              "checkpoints gather the shards through one node's ranks (use "
                              "partitioning='dp' across nodes)")
     if world == 1:
         return None
-    if train_cfg.batch_size % world:
+    if train_cfg.batch_size % n:
         raise ValueError(f"batch_size={train_cfg.batch_size} must divide the data axis "
-                         f"({world} shards)")
-    return make_mesh(world, torch.device(device).type)
+                         f"({n} shards)")
+    return part.make_mesh_2d(n, mp, device_type) if mp > 1 else make_mesh(world, device_type)
 
 
 def train_model(*, model_cfg: ModelConfig, train_cfg: TrainConfig, audio_cfg: AudioConfig,
@@ -255,11 +258,12 @@ def train_model(*, model_cfg: ModelConfig, train_cfg: TrainConfig, audio_cfg: Au
     if mesh is not None:
         state = data_parallel(state, mesh)
         if train_cfg.partitioning != "dp":
-            state = part.shard_state(state, mesh,
-                                     shard_params=train_cfg.partitioning == "fsdp")
+            state = part.shard_state(state, mesh, strategy=train_cfg.partitioning)
         if verbose:
-            print(f"Data-parallel over {world} ranks ({train_cfg.partitioning}, "
-                  f"{dist.get_backend()}): {train_cfg.batch_size // world} rows a rank")
+            shape = dict(zip(mesh.mesh_dim_names, mesh.shape))
+            print(f"Data-parallel over {world} ranks, mesh {shape} ({train_cfg.partitioning}, "
+                  f"{dist.get_backend()}): {train_cfg.batch_size // data_size(mesh)} rows a "
+                  f"rank")
 
     name = torch.cuda.get_device_name(device) + f" ({device})" if device.type == "cuda" else "cpu"
     devices = [name]

@@ -15,6 +15,19 @@ on the device (greedy, ``beam`` search, grammar-``constrained``), decoded to
 a roll of ``roll_frames_per_chunk`` frames on the host by the checkpoint's
 tokenizer, and the rolls concatenated.
 
+Serving across devices, as the JAX package's mesh branch: ``Transcriber``
+loads one replica of the model on each of its ``devices`` (every visible
+card for ``device="cuda"``, one CPU device for ``device="cpu"``, or an
+explicit list such as ``["cuda:0", "cuda:1"]``), each built from the loaded
+state_dict once at load. A request's chunk count is padded to a multiple of
+the replica count, contiguous blocks go to the replicas in order, every
+block is launched before any result is copied back (so the cards overlap),
+and the padded rows are dropped. Each replica runs the whole pipeline on
+its rows with no collective, its kernels on its card, and the "auto"
+attention rule decides from its own block. With one device the path is the
+single-device one, bit for bit. The AST token route serves on the first
+device, as in JAX.
+
 Entry points default to ``device="cuda"`` and raise ``RuntimeError`` when no
 card is visible, unless the caller asks for ``device="cpu"``.
 """
@@ -68,6 +81,32 @@ def resolve_device(device="cuda") -> torch.device:
             "CUDA is not available: no GPU is visible to PyTorch. Pass "
             "device='cpu' (CLI: -d cpu) to run on the CPU.")
     return dev
+
+
+def serving_devices(device="cuda", devices=None) -> list[torch.device]:
+    """The devices a server holds a replica on: ``devices`` as given (each
+    through ``resolve_device``), else every visible card for ``"cuda"``
+    without an index, else ``device`` alone."""
+    if devices is not None:
+        out = [resolve_device(d) for d in devices]
+        if not out:
+            raise ValueError("devices is empty: name at least one device")
+        return out
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    return [dev]
+
+
+def replicate_model(model: TranscriptionModel, devices) -> list[TranscriptionModel]:
+    """``model`` (on ``devices[0]``) and a replica on each other device,
+    built from its config and loaded from its state_dict, in eval mode."""
+    replicas = [model]
+    for device in devices[1:]:
+        replica = TranscriptionModel(model.config)
+        replica.load_state_dict(model.state_dict())
+        replicas.append(replica.eval().to(device))
+    return replicas
 
 
 def load_model(checkpoint_path, model_cfg: ModelConfig | None = None,
@@ -137,32 +176,47 @@ def _token_rolls(loaded: LoadedModel, chunks: np.ndarray, constrained: bool,
     return out
 
 
+def replica_forward(replicas, chunks: np.ndarray, acfg: AudioConfig, fn) -> np.ndarray:
+    """``fn(model, mel)`` over ``replicas``: (N, chunk_samples) padded to the
+    next power of two for one replica (as the JAX package buckets a batch)
+    and to a multiple of their count for several (as its mesh branch does), a
+    contiguous block of rows each (its log-mel (k, 1, n_mels, T) on the
+    replica's device), every block launched before any is copied back; the
+    outputs of the N real rows, on the host."""
+    n, r = chunks.shape[0], len(replicas)
+    rows = 1 << max(n - 1, 0).bit_length() if r == 1 else n + -n % r
+    padded = np.pad(np.asarray(chunks, np.float32), ((0, rows - n), (0, 0)))
+    k = rows // r
+    pending = []
+    with torch.inference_mode():
+        for i, model in enumerate(replicas):
+            device = next(model.parameters()).device
+            y = torch.from_numpy(np.ascontiguousarray(padded[i * k:(i + 1) * k])).to(device)
+            pending.append(fn(model, log_mel_batch(y, acfg)[:, None]))
+        out = [t.cpu().numpy() for t in pending]
+    return np.concatenate(out)[:n]
+
+
 def transcribe_chunks(loaded: LoadedModel, chunks: np.ndarray, threshold: float = 0.5,
                       hop_frames: int | None = None, constrained: bool = False,
-                      beam: int = 1) -> np.ndarray:
+                      beam: int = 1, replicas=None) -> np.ndarray:
     """(num_chunks, chunk_samples) -> (88, frames) binary roll.
 
-    The chunk count is padded to the next power of two, as in the JAX
+    The chunks go through ``replica_forward`` on ``replicas`` (models on
+    their devices, ``replicate_model``; default ``loaded``'s model alone):
+    one replica pads the chunk count to the next power of two, as in the JAX
     package, so the same request sees the same batch (and so the same
-    attention route) in both. With ``hop_frames`` the per-chunk rolls are
-    stitched (``stitch_rolls``), else concatenated. AST checkpoints take the
-    token route (no padding of the chunk count, ``threshold`` unused), with
+    attention route) in both; several pad it to a multiple of their count
+    and split it among them, as JAX's mesh branch does. With
+    ``hop_frames`` the per-chunk rolls are stitched (``stitch_rolls``), else
+    concatenated. AST checkpoints take the token route on ``loaded``'s
+    device (no padding of the chunk count, ``threshold`` unused), with
     ``constrained`` and ``beam``.
     """
     if loaded.model.config.is_ast:
         return np.concatenate(list(_token_rolls(loaded, chunks, constrained, beam)), axis=1)
-    n = chunks.shape[0]
-    bucket = 1
-    while bucket < n:
-        bucket *= 2
-    if bucket != n:
-        chunks = np.pad(np.asarray(chunks), ((0, bucket - n), (0, 0)))
-    device = next(loaded.model.parameters()).device
-    with torch.inference_mode():
-        y = torch.from_numpy(np.ascontiguousarray(chunks, dtype=np.float32)).to(device)
-        mel = log_mel_batch(y, loaded.audio_cfg)  # (N, n_mels, T)
-        rolls = loaded.model.predict(mel[:, None], threshold)
-    rolls = rolls.cpu().numpy()[:n]
+    rolls = replica_forward(replicas or [loaded.model], chunks, loaded.audio_cfg,
+                            lambda model, mel: model.predict(mel, threshold))
     if hop_frames is not None:
         return stitch_rolls(rolls, hop_frames)
     return np.concatenate(list(rolls), axis=1)
@@ -170,13 +224,14 @@ def transcribe_chunks(loaded: LoadedModel, chunks: np.ndarray, threshold: float 
 
 class Transcriber:
     """Serving wrapper: load a checkpoint once (weights moved to the device
-    at load), transcribe many recordings."""
+    at load, a replica on each of ``devices``), transcribe many recordings."""
 
     def __init__(self, checkpoint_path, model_cfg=None, audio_cfg=None,
                  threshold: float = 0.5, window: float | None = None, overlap: float = 0.0,
-                 constrained: bool = False, beam: int = 1, device="cuda"):
+                 constrained: bool = False, beam: int = 1, device="cuda", devices=None):
+        self.devices = serving_devices(device, devices)
         loaded = load_model(checkpoint_path, model_cfg=model_cfg, audio_cfg=audio_cfg,
-                            device=device)
+                            device=self.devices[0])
         is_ast = loaded.model.config.is_ast
         if window is not None:
             if is_ast:
@@ -192,6 +247,9 @@ class Transcriber:
         if not is_ast and loaded.model.config.attention_backend != "pallas":
             loaded.model.set_attention_backend("auto")
         self.loaded = loaded
+        # the token route serves on the first device alone
+        self.replicas = ([loaded.model] if is_ast
+                         else replicate_model(loaded.model, self.devices))
         self.threshold = threshold
         if constrained and not is_ast:
             raise ValueError(
@@ -233,6 +291,7 @@ class Transcriber:
             self.loaded, self.split(y),
             threshold=self.threshold if threshold is None else threshold,
             hop_frames=self.hop_frames, constrained=self.constrained, beam=self.beam,
+            replicas=self.replicas,
         )
         return midi_io.pianoroll_to_notes(roll, fs=self.loaded.audio_cfg.frame_rate)
 
@@ -258,8 +317,9 @@ def transcribe_audio(
     constrained: bool = False,
     beam: int = 1,
     device="cuda",
+    devices=None,
 ):
-    """Full pipeline. Returns the MIDI path."""
+    """Full pipeline. Returns the MIDI path. ``devices``: as ``Transcriber``'s."""
 
     def log(msg):
         if verbose:
@@ -268,6 +328,7 @@ def transcribe_audio(
     server = Transcriber(
         checkpoint_path, model_cfg=model_cfg, audio_cfg=audio_cfg, threshold=threshold,
         window=window, overlap=overlap, constrained=constrained, beam=beam, device=device,
+        devices=devices,
     )
     acfg = server.loaded.audio_cfg
 
@@ -279,11 +340,12 @@ def transcribe_audio(
     log(f"Split audio into {chunks.shape[0]} chunks of {acfg.chunk_length}s each"
         + (f" (hop {server.hop_samples / acfg.sample_rate:.2f}s, stitched)"
            if server.hop_samples else "")
-        + " (batched on device)")
+        + (" (batched on device)" if len(server.replicas) == 1
+           else f" (split over {len(server.replicas)} replicas)"))
 
     combined = transcribe_chunks(server.loaded, chunks, threshold=threshold,
                                  hop_frames=server.hop_frames, constrained=constrained,
-                                 beam=beam)
+                                 beam=beam, replicas=server.replicas)
 
     log("Converting to MIDI...")
     notes = midi_io.pianoroll_to_notes(combined, fs=acfg.frame_rate)

@@ -8,19 +8,26 @@ parallel test workers never collide) over gloo, one thread each, and import
 nothing of JAX. Modes:
 
   * ``steps``: the runs of ``work_dir/spec.json`` (model config, learning
-    rate, and per run its partitioning, step count, global batch from
+    rate, and per run its partitioning, its mesh (a 1-D mesh of every rank,
+    or ``"mesh": [n_data, n_model]``), step count, global batch from
     ``batches.npz``, and switches that break it on purpose: sync-BN off, a
     plain average of the ranks' losses in place of the frame-weighted one;
     a checkpoint to resume from, one to write), each from the weights in
     ``weights.pth``; rank 0 writes ``out_<name>.pt`` (metrics, the model's
-    whole state, sharded bytes of every rank). Then, as the spec asks,
+    whole state, sharded bytes of every rank, the dim each parameter shards
+    on). Then, as the spec asks,
     the eval step on the ``eval`` batch (prints ``EVAL_LOSS=``) and the NaN
     guard under each of ``spec["nan"]``'s partitionings: a good step, then
     one with a NaN in rank 1's rows (prints ``NAN_STEP_<partitioning>=``);
   * ``cli``: the training CLI's ``main`` with the arguments in
     ``work_dir/argv_<rank>.json``, its train steps recorded; prints
     ``LOSSES=`` and exits with ``main``'s code (the group it joined is
-    torn down by ``main``).
+    torn down by ``main``);
+  * ``evaluate``: the evaluation CLI's ``main`` once for each argument list
+    in ``work_dir/argv_<rank>.json``'s "runs", each in a group of its own
+    (``main`` tears it down); prints ``RUN=<i> RC=<code>`` after each and
+    ``CONFUSION=`` for each confusion it plots, and exits with the largest
+    code.
 
 Also imported by the tests for ``assert_close_state``.
 """
@@ -113,8 +120,26 @@ def _placed(state, mesh, run):
 
     state = data_parallel(state, mesh)
     if run["partitioning"] != "dp":
-        state = part.shard_state(state, mesh, shard_params=run["partitioning"] == "fsdp")
+        state = part.shard_state(state, mesh, strategy=run["partitioning"])
     return state
+
+
+def _mesh(run, mesh):
+    """``run``'s 2-D mesh where it names one, else the 1-D ``mesh``."""
+    from music_transcription_tpu_torch.parallel.partitioning import make_mesh_2d
+
+    return make_mesh_2d(*run["mesh"], "cpu") if run.get("mesh") else mesh
+
+
+def _shard_dims(state) -> dict:
+    """The dim each parameter shards on (None: whole on every rank)."""
+    from torch.distributed.tensor import Shard
+
+    dims = {}
+    for name, p in state.model.model.named_parameters():
+        shards = [pl.dim for pl in getattr(p, "placements", ()) if isinstance(pl, Shard)]
+        dims[name] = shards[0] if shards else None
+    return dims
 
 
 def run_steps(rank: int, world: int, work: str, spec: dict, mesh) -> None:
@@ -125,7 +150,9 @@ def run_steps(rank: int, world: int, work: str, spec: dict, mesh) -> None:
     from music_transcription_tpu_torch.parallel.mesh import shard_batch
 
     real_frames = ts.valid_frames
+    one_d = mesh
     for run in spec["runs"]:
+        mesh = _mesh(run, one_d)
         state = _placed(_state(spec, work, run), mesh, run)
         if not run.get("sync_bn", True):
             set_sync_batch_norm(state.model, None)
@@ -148,7 +175,8 @@ def run_steps(rank: int, world: int, work: str, spec: dict, mesh) -> None:
             ckpt_lib.save_training_checkpoint(run["save"], model_sd, optim_sd, state.step, 1, {})
         if rank == 0:
             torch.save({"metrics": metrics, "model": model_sd, "optimizer": optim_sd,
-                        "bytes": sizes, "resumed_optimizer": resumed, "step": state.step},
+                        "bytes": sizes, "resumed_optimizer": resumed, "step": state.step,
+                        "shard_dims": _shard_dims(state)},
                        os.path.join(work, f"out_{run['name']}.pt"))
         other = [None] * world
         torch.distributed.all_gather_object(other, metrics)
@@ -217,12 +245,40 @@ def run_cli(rank: int, world: int, work: str) -> int:
     return rc
 
 
+def run_evaluate(rank: int, world: int, work: str) -> int:
+    """The evaluation CLI's ``main`` for each of ``argv_<rank>.json``'s runs."""
+    import torch.distributed as dist
+
+    from music_transcription_tpu_torch import eval as E
+    from music_transcription_tpu_torch import evaluate as cli
+
+    with open(os.path.join(work, f"argv_{rank}.json")) as f:
+        runs = json.load(f)["runs"]
+    real_plot = E.plot_confusion
+
+    def plot(path, confusion):
+        print("CONFUSION=" + json.dumps(np.asarray(confusion).tolist()), flush=True)
+        real_plot(path, confusion)
+
+    E.plot_confusion = plot
+    codes = []
+    for i, argv in enumerate(runs):
+        if not dist.is_initialized():
+            dist.init_process_group("gloo", rank=rank, world_size=world,
+                                    init_method=f"file://{os.path.join(work, f'store{i}')}")
+        codes.append(cli.main(argv))
+        print(f"RUN={i} RC={codes[-1]}", flush=True)
+    return max(codes)
+
+
 def main() -> int:
     mode, rank, world, work = sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]
     _setup(rank, world, work)
     _no_channel_dropout()
     if mode == "cli":
         return run_cli(rank, world, work)
+    if mode == "evaluate":
+        return run_evaluate(rank, world, work)
     from music_transcription_tpu_torch.parallel.mesh import make_mesh
 
     with open(os.path.join(work, "spec.json")) as f:
@@ -242,22 +298,12 @@ def spawn(mode: str, work, world: int = 2, timeout: float = 240, check: bool = T
     With ``check`` a rank that exits non-zero fails the caller; one that
     outlives ``timeout`` always does, and every rank is killed on the way
     out."""
-    import subprocess
+    from music_transcription_tpu_torch.parallel.distributed import spawn_ranks
 
     env = {k: v for k, v in os.environ.items() if k not in ("XLA_FLAGS", "JAX_PLATFORMS")}
-    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), mode, str(r),
-                               str(world), str(work)],
-                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-                              env=env, cwd=REPO)
-             for r in range(world)]
-    try:
-        outs = [p.communicate(timeout=timeout)[0] for p in procs]
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.communicate()
-    codes = [p.returncode for p in procs]
+    codes, outs = spawn_ranks(
+        lambda r: [sys.executable, os.path.abspath(__file__), mode, str(r), str(world),
+                   str(work)], world, timeout=timeout, env=env, cwd=REPO)
     for r, (code, out) in enumerate(zip(codes, outs)):
         assert code == 0 or not check, f"rank {r} exited {code}:\n{out[-4000:]}"
     return codes, outs

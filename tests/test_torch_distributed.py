@@ -105,14 +105,20 @@ def test_make_mesh_refuses_more_ranks_than_the_run_has():
 
 
 class _Mesh:
-    def __init__(self, rank, n):
-        self.rank, self.n = rank, n
+    """DeviceMesh's coordinates of a rank: ``_Mesh(r, n)`` is rank r of a
+    1-D ``data`` mesh of n, ``_Mesh(r, n, n_model)`` of an (n, n_model)
+    ``(data, model)`` mesh."""
 
-    def size(self):
-        return self.n
+    def __init__(self, rank, n, n_model=None):
+        self.shape = (n,) if n_model is None else (n, n_model)
+        self.mesh_dim_names = ("data",) if n_model is None else ("data", "model")
+        self.coords = (rank,) if n_model is None else divmod(rank, n_model)
 
-    def get_local_rank(self):
-        return self.rank
+    def size(self, dim=None):
+        return int(np.prod(self.shape)) if dim is None else self.shape[dim]
+
+    def get_local_rank(self, dim=None):
+        return self.coords[0 if dim is None else self.mesh_dim_names.index(dim)]
 
 
 def test_shard_batch_takes_contiguous_rows_in_rank_order():
@@ -122,6 +128,10 @@ def test_shard_batch_takes_contiguous_rows_in_rank_order():
     assert [p[1].tolist() for p in parts] == [[0, 1], [2, 3], [4, 5], [6, 7]]
     with pytest.raises(ValueError, match="does not divide the data axis"):
         M.shard_batch((np.zeros((6, 2)),), _Mesh(0, 4))
+    # a (2, 2) mesh: by data index, the model peers (ranks 0, 1 and 2, 3) alike
+    parts = [M.shard_batch(batch, _Mesh(r, 2, 2)) for r in range(4)]
+    assert [p[1].tolist() for p in parts] == [[0, 1, 2, 3], [0, 1, 2, 3], [4, 5, 6, 7],
+                                              [4, 5, 6, 7]]
     assert M.pad_to_multiple is pipeline.pad_to_multiple  # one copy, re-exported
 
 

@@ -227,18 +227,19 @@ def test_train_step_on_card_matches_cpu(cuda, monkeypatch, attention):
         assert float((other - p.grad).abs().max()) <= tol * float(p.grad.abs().max()), name
 
 
-def test_fsdp_step_at_world_1_over_nccl_matches_the_plain_step(cuda, monkeypatch, tmp_path):
-    """One fp32 step with the state under FSDP (``parallel/partitioning``) in
-    a world-1 NCCL group on the card against the same step without a group:
-    the loss within 1e-4 relative; the parameters within 2 lr and all but
-    1 in 200 within 1e-2 lr; the gathered state loads into a plain model."""
+def _sharded_step_at_world_1(cuda, tmp_path, strategy: str, mesh_shape: tuple):
+    """One fp32 step with the state placed by ``strategy``
+    (``parallel/partitioning``) on a world-1 mesh of ``mesh_shape`` in an
+    NCCL group on the card, against the same step without a group: the loss
+    within 1e-4 relative; the parameters within 2 lr and all but 1 in 200
+    within 1e-2 lr; the recurrence kernels launched on the gathered weights
+    (K2a and K2b once a layer); the gathered state loads into a plain model."""
     import torch.distributed as dist
 
     from music_transcription_tpu_torch.parallel import partitioning as part
     from music_transcription_tpu_torch.parallel.mesh import make_mesh
     from music_transcription_tpu_torch.parallel.train_step import data_parallel
 
-    monkeypatch.setattr(CNNRNNLarge, "CHANNEL_DROPOUT", (0.0, 0.0, 0.0))
     torch.manual_seed(0)
     cfg = ModelConfig(n_mels=64, hidden_size=32, num_layers=2, dropout=0.0,
                       compute_dtype="float32", lstm_backend="pallas")
@@ -260,12 +261,17 @@ def test_fsdp_step_at_world_1_over_nccl_matches_the_plain_step(cuda, monkeypatch
     dist.init_process_group("nccl", init_method=f"file://{tmp_path / 'store'}", rank=0,
                             world_size=1)
     try:
-        mesh = make_mesh(1, "cuda")
-        state = part.shard_state(data_parallel(fresh(), mesh), mesh, shard_params=True)
+        mesh = (make_mesh(1, "cuda") if len(mesh_shape) == 1
+                else part.make_mesh_2d(*mesh_shape, "cuda"))
+        state = part.shard_state(data_parallel(fresh(), mesh), mesh, strategy=strategy)
+        fwd, bwd = LK.lstm_recurrence_fwd.launches, LK.lstm_recurrence_bwd.launches
         got = train_step(state, batch, 1, max_grad_norm=1.0)
+        launches = (LK.lstm_recurrence_fwd.launches - fwd, LK.lstm_recurrence_bwd.launches - bwd)
         sd = part.full_model_state_dict(state)
     finally:
         dist.destroy_process_group()
+    # one launch a layer, both directions stacked: rnn_main's 2 and rnn_local's 1
+    assert launches == (3, 3)
     assert got["skipped"] == 0.0 and abs(got["loss"] - ref["loss"]) <= 1e-4 * abs(ref["loss"])
     lr, loose, total = TrainConfig().learning_rate, 0, 0
     for name, p in plain.model.model.named_parameters():
@@ -274,6 +280,66 @@ def test_fsdp_step_at_world_1_over_nccl_matches_the_plain_step(cuda, monkeypatch
         loose, total = loose + int((diff > 1e-2 * lr).sum()), total + diff.numel()
     assert loose <= 5e-3 * total
     TranscriptionModel(cfg).model.load_state_dict(sd, strict=True)
+
+
+def test_fsdp_step_at_world_1_over_nccl_matches_the_plain_step(cuda, monkeypatch, tmp_path):
+    monkeypatch.setattr(CNNRNNLarge, "CHANNEL_DROPOUT", (0.0, 0.0, 0.0))
+    _sharded_step_at_world_1(cuda, tmp_path, "fsdp", (1,))
+
+
+@pytest.mark.parametrize("mesh_shape", [(1,), (1, 1)], ids=["1d", "2d"])
+def test_tp_step_at_world_1_over_nccl_matches_the_plain_step(cuda, monkeypatch, tmp_path,
+                                                             mesh_shape):
+    monkeypatch.setattr(CNNRNNLarge, "CHANNEL_DROPOUT", (0.0, 0.0, 0.0))
+    _sharded_step_at_world_1(cuda, tmp_path, "tp", mesh_shape)
+
+
+def test_two_replicas_on_one_card_serve_the_one_device_roll(cuda, tmp_path):
+    """Transcriber(devices=["cuda:0", "cuda:0"]): 5 chunks padded to 6, 3 a
+    replica, each replica through K1 (once a layer: 3 launches a forward); the
+    logits within the serving check's fp32 bound of one device's, a block
+    shifted by one chunk outside it, and the rolls equal except where a
+    probability sits within a quarter of that bound of the threshold."""
+    from music_transcription_tpu_torch.transcribe import (
+        Transcriber,
+        replica_forward,
+        transcribe_chunks,
+    )
+
+    torch.manual_seed(0)
+    cfg = ModelConfig(n_mels=64, hidden_size=32, num_layers=2, compute_dtype="float32")
+    acfg = AudioConfig(n_mels=64, chunk_length=2.0)
+    pth = tmp_path / "m.pth"
+    torch.save(TranscriptionModel(cfg).model.state_dict(), pth)
+    (tmp_path / "m.json").write_text(json.dumps({"model": config_to_dict(cfg),
+                                                 "audio": config_to_dict(acfg)}))
+    chunks = (0.1 * np.random.default_rng(6).standard_normal((5, acfg.chunk_samples))
+              ).astype(np.float32)
+    one = Transcriber(pth, device="cuda")
+    two = Transcriber(pth, devices=["cuda:0", "cuda:0"])
+    assert len(two.replicas) == 2 and two.replicas[0] is not two.replicas[1]
+    before = LK.lstm_recurrence.launches
+    got = transcribe_chunks(two.loaded, chunks, replicas=two.replicas)
+    assert LK.lstm_recurrence.launches - before == 2 * 3
+    want = transcribe_chunks(one.loaded, chunks)
+
+    def forward(model, mel):
+        return model(mel).float()
+
+    logits = [torch.from_numpy(replica_forward(r, chunks, acfg, forward))
+              for r in ([one.loaded.model], two.replicas)]
+    # the serving check's fp32 bound (card against CPU): 1e-3 of the largest logit
+    bound = 1e-3 * float(logits[0].abs().max())
+    assert float((logits[1] - logits[0]).abs().max()) <= bound
+    # a replica fed its block one chunk early fails that bound
+    shifted = np.concatenate([chunks[:3], chunks[2:4]])
+    fault = torch.from_numpy(replica_forward(two.replicas, shifted, acfg, forward))
+    assert float((fault - logits[0]).abs().max()) > bound
+    # sigmoid' <= 1/4: a roll frame may flip only within bound / 4 of the threshold
+    near = (torch.sigmoid(logits[0]) - 0.5).abs() <= bound / 4
+    differ = torch.from_numpy(got != want)
+    flat_near = torch.cat(list(near), dim=1)
+    assert bool((~differ | flat_near).all())
 
 
 # |got - ref| <= rtol |ref| + ptol (P|V|) element by element, with P|V| the

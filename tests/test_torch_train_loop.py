@@ -244,15 +244,16 @@ def test_refusals(cache_dir, tmp_path, in_process):
     # sharding with nothing to shard over, as the JAX package says
     with pytest.raises(ValueError, match="torchrun --nproc_per_node 2"):
         cli.main(_argv(cache_dir, tmp_path / "dp", "--data_parallel", "2"))
-    for how in ("zero1", "fsdp"):
+    for how in ("zero1", "fsdp", "tp"):
         with pytest.raises(ValueError, match="resolved to a single device"):
             cli.main(_argv(cache_dir, tmp_path / how, "--partitioning", how))
-    # the 2-D mesh and tensor parallelism wait for slice 5b
-    with pytest.raises(NotImplementedError, match="slice 5b"):
-        cli.main(_argv(cache_dir, tmp_path / "tp", "--partitioning", "tp"))
-    with pytest.raises(NotImplementedError, match="slice 5b"):
+    # a (data, model) mesh one process cannot form: JAX's (1 // 2, 2)
+    with pytest.raises(ValueError, match=r"mesh dims must be >= 1, got \(0, 2\)"):
         cli.main(_argv(cache_dir, tmp_path / "mp", "--model_parallel", "2",
                        "--partitioning", "fsdp"))
+    with pytest.raises(ValueError, match="torchrun --nproc_per_node 2"):
+        cli.main(_argv(cache_dir, tmp_path / "mp1", "--model_parallel", "2",
+                       "--data_parallel", "1", "--partitioning", "tp"))
     # model_parallel with replicated state only repeats work: JAX's refusal
     with pytest.raises(ValueError, match="would replicate all work"):
         cli.main(_argv(cache_dir, tmp_path / "mp_dp", "--model_parallel", "2"))
