@@ -171,7 +171,21 @@ Phases, in order; any failure exits non-zero:
      gathered weights, the gathered state loaded into a one-device model;
      10d python -m music_transcription_tpu_torch.parallel.dryrun 4 on this
      machine's CPU (the FSDP2 API of its torch);
- 11. print the kernels line (JSON: launches on the main path, error against
+ 11. the remaining surfaces at full width (phase 3's model and WAV): 11a the
+     resident server (serve.main) in watch mode with --once over the 118 s
+     WAV, a seeded 60 s WAV and a text file, in this process (K1 4 a
+     request, notes equal to phase 3's Transcriber's, a warm file timed),
+     then in stdin mode as a subprocess; 11b visualize.transcribe_rolls on
+     the card (its roll equal to transcribe_chunks) and the CLI (a PNG, or
+     exit 1 naming matplotlib); 11c bench.attention at its defaults and at
+     --batch 4 --t 938 (K3 in the "pallas" forward, K3 with lse, K4a and
+     K4b in its forward + backward, none under "xla"); 11d bench.components
+     at --batch_size 16 (K2a and K2b 4 a LSTM-tier call); 11e bench.train at
+     its defaults; 11f bench.loader on phase 6b's card-built cache, with the
+     card feed and with --no_device; 11g example.sh eval on phase 6's run
+     and cache, EVAL_MEAN_F1 within 1e-6 of the evaluation CLI's; the
+     phase's wall time;
+ 12. print the kernels line (JSON: launches on the main path, error against
      the plain version, times, bound, and for K1, K2a and K2b the sequential
      floor; a failed check has already exited),
      the card's name and power limit, and as the last line
@@ -226,22 +240,40 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(torch, fn, reps: int) -> float:
-    """Device time of one call of ``fn`` (ms): the sum of its kernels' times
-    on the card under torch.profiler, without the host's gaps between them
-    (a call that launches several small kernels is host-bound under CUDA
-    events). A reading beside ``cuda_ms``, which gives the records' times."""
+def device_ms(torch, fn, reps: int, tries: int = 3):
+    """Device time of one call of ``fn`` (ms): the sum of its device events'
+    times on the card under torch.profiler, without the host's gaps between
+    them (a call that launches several small kernels is host-bound under
+    CUDA events). A reading beside ``cuda_ms``, which gives the records'
+    times. The profiler's trace can come back without a device event; it is
+    taken again, up to ``tries`` times, and None ("not measured") is returned
+    if every trace was empty."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA) / reps / 1e3
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        ns = sum(e.duration_ns() for e in prof.profiler.kineto_results.events()
+                 if e.device_type() == DeviceType.CUDA)
+        if ns > 0:
+            return ns / reps / 1e6
+    return None
+
+
+def fmt_ms(ms, spec: str = ".4f") -> str:
+    """A time from ``device_ms``: "not measured" where it gave None."""
+    return "not measured" if ms is None else format(ms, spec)
+
+
+def fmt_rate(work: float, ms) -> str:
+    """``work`` over ``ms`` in units of 10^12 per second (TFLOP/s from
+    flops), "not measured" where the time is None."""
+    return "not measured" if ms is None else f"{work / ms / 1e9:.1f}"
 
 
 def bound(flops: float, peak: float, nbytes: float):
@@ -820,12 +852,13 @@ def check_k5(torch, ck, model, rows):
                     f"|s|({ck.K5_TOL:g}|h| + 2n2^-23 m)) {score:.3f} (faults: "
                     + ", ".join(f"{k} {v:.1f}" for k, v in scores.items())
                     + f"); ms={ms:.4f} plain_ms={plain_ms:.3f} model_stage_ms={lib_ms:.4f} "
-                    f"(device time under torch.profiler: {dev_ms:.4f} / {dev_plain_ms:.3f} / "
-                    f"{dev_lib_ms:.4f}) bound_ms={b_ms:.4f} ({b_by}); weights from L2 "
+                    f"(device time under torch.profiler: {fmt_ms(dev_ms)} / "
+                    f"{fmt_ms(dev_plain_ms, '.3f')} / {fmt_ms(dev_lib_ms)}) "
+                    f"bound_ms={b_ms:.4f} ({b_by}); weights from L2 "
                     f"{traffic['weights_l2'] / 1e9:.4f} GB, x gathered "
                     f"{traffic['x_gathered'] / 1e6:.2f} MB ({traffic['x_gathered'] / traffic['x_bytes']:.3f}x "
                     f"the input); TFLOP/s {flops / ms / 1e9:.1f} (device time "
-                    f"{flops / dev_ms / 1e9:.1f}), at the bound {flops / b_ms / 1e9:.1f} "
+                    f"{fmt_rate(flops, dev_ms)}), at the bound {flops / b_ms / 1e9:.1f} "
                     f"{'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(rows[-1])
@@ -912,13 +945,14 @@ def check_k6(torch, ck, model, rows):
         work = ck.k6_work(4, c_in, block.conv1.out_channels, block.conv2.out_channels, f, 938,
                           block.skip is not None, sms)
         rows.append(text + f"; ms={ms:.4f} plain_ms={plain_ms:.3f} model_block_ms={lib_ms:.4f} "
-                    f"(device time under torch.profiler: {dev_ms:.4f} / {dev_plain_ms:.3f} / "
-                    f"{dev_lib_ms:.4f}) bound_ms={b_ms:.4f} ({b_by}); executed / useful work: "
+                    f"(device time under torch.profiler: {fmt_ms(dev_ms)} / "
+                    f"{fmt_ms(dev_plain_ms, '.3f')} / {fmt_ms(dev_lib_ms)}) "
+                    f"bound_ms={b_ms:.4f} ({b_by}); executed / useful work: "
                     f"conv1 {work['conv1_executed'] / work['conv1_useful']:.4f}, block "
                     f"{work['executed'] / work['useful']:.4f}; TFLOP/s useful "
                     f"{flops / ms / 1e9:.1f}"
-                    f" (device time {flops / dev_ms / 1e9:.1f}), executed "
-                    f"{work['executed'] / dev_ms / 1e9:.1f} (device time), at the bound "
+                    f" (device time {fmt_rate(flops, dev_ms)}), executed "
+                    f"{fmt_rate(work['executed'], dev_ms)} (device time), at the bound "
                     f"{flops / b_ms / 1e9:.1f} ok")
         for key, v in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", lib_ms),
                        ("flops", flops), ("nbytes", nbytes)):
@@ -1005,7 +1039,8 @@ def conv_front_end(torch, ck, model, rows) -> dict:
                 f"max|err|/max|ref| {max_ratio:.3e} (tol {tol['max']:g}), rms ratio "
                 f"{rms_ratio:.3e} (tol {tol['rms']:g}), launches {launches}; ms {k_ms:.3f} "
                 f"through K5 + K6, {model_ms:.3f} the model's own (device time under "
-                f"torch.profiler {k_dev:.3f} / {model_dev:.3f}) {'ok' if ok else 'FAIL'}")
+                f"torch.profiler {fmt_ms(k_dev, '.3f')} / {fmt_ms(model_dev, '.3f')}) "
+                f"{'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(rows[-1])
     return launches
@@ -2903,6 +2938,240 @@ def dryrun_phase():
         raise AssertionError(f"10d: the dryrun failed:\n{out[-3000:]}")
 
 
+# Phase 11: the remaining surfaces, each through its entry point, at full
+# width. Every check that fails raises.
+SURFACE_KERNELS = {"K1": "lstm_recurrence", "K2a": "lstm_recurrence_fwd",
+                   "K2b": "lstm_recurrence_bwd", "K3": "flash_attention_clamped",
+                   "K3+lse": "flash_attention_clamped_fwd", "K4a": "flash_attention_clamped_dq",
+                   "K4b": "flash_attention_clamped_dkv"}
+
+
+def in_process(fn, argv) -> tuple[int, str]:
+    """``fn(argv)`` (a CLI's ``main``) in this process: (its code, its stdout)."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = fn(argv)
+    return rc, out.getvalue()
+
+
+def note_spans(path) -> list:
+    from music_transcription_tpu_torch.data.midi import load_midi
+
+    return [(n.pitch, n.start, n.end) for n in load_midi(path).instruments[0].notes]
+
+
+def serve_phase(torch, lk, pth, wav30, server):
+    """11a: the resident server, in watch mode in this process over the
+    118 s WAV, a seeded 60 s WAV and a non-audio file, then in stdin mode as
+    a subprocess: every MIDI's notes equal phase 3's ``Transcriber``'s on
+    the same card, K1 4 launches a request."""
+    from music_transcription_tpu_torch import serve
+
+    watch, out, out_warm, out_stdin = (os.path.join(WORK, d) for d in (
+        "serve_in", "serve_out", "serve_warm", "serve_stdin"))
+    for d in (watch, out, out_warm, out_stdin):
+        shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(watch)
+    shutil.copy(wav30, os.path.join(watch, "request.wav"))
+    write_wav(os.path.join(watch, "second.wav"), 60.0, SEED + 17)
+    with open(os.path.join(watch, "notes.txt"), "w") as f:
+        f.write("not audio")
+    wavs = [os.path.join(watch, n) for n in ("request.wav", "second.wav")]
+    lk.lstm_recurrence.launches = 0
+    t0 = time.perf_counter()
+    rc, log = in_process(serve.main, ["--model", pth, "--watch_dir", watch, "--out_dir", out,
+                                      "--once"])
+    wall = time.perf_counter() - t0
+    k1 = lk.lstm_recurrence.launches
+    print(f"[11a] serve --watch_dir --once (in process): rc {rc}, wall {wall:.1f} s, K1 "
+          f"launches {k1} for {len(wavs)} requests")
+    for line in log.splitlines():
+        print(f"    | {line}")
+    same = []
+    for w in wavs:
+        stem = os.path.splitext(os.path.basename(w))[0]
+        ref = server.transcribe_file(w, os.path.join(WORK, f"serve_ref_{stem}.mid"))
+        got, want = note_spans(os.path.join(out, stem + ".mid")), note_spans(ref)
+        same.append(got == want)
+        print(f"    {stem}: {len(got)} notes, equal to phase 3's Transcriber's ({len(want)}): "
+              f"{got == want}")
+    if rc != 0 or sorted(os.listdir(out)) != ["request.mid", "second.mid"] or not all(same):
+        raise AssertionError("11a: watch mode failed or its notes differ from the Transcriber's")
+    if k1 != 4 * len(wavs):
+        raise AssertionError(f"11a: K1 should run 4 times a request, ran {k1}")
+    # a warm file on the same path (serve.handle: load, transcribe, MIDI write)
+    line = io.StringIO()
+    with contextlib.redirect_stdout(line):
+        serve.handle(server, wavs[0], out_warm)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        serve.handle(server, wavs[0], out_warm)
+        warm = (time.perf_counter() - t0) * 1e3
+    print(f"    warm file (118 s WAV, load and MIDI write included): {warm:.1f} ms")
+
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "music_transcription_tpu_torch.serve",
+                           "--model", pth, "--stdin", "--out_dir", out_stdin],
+                          input=wavs[0] + "\n", capture_output=True, text=True, cwd=REPO,
+                          timeout=300)
+    got = note_spans(os.path.join(out_stdin, "request.mid"))
+    print(f"    serve --stdin (subprocess): rc {proc.returncode}, wall "
+          f"{time.perf_counter() - t0:.1f} s (start-up and model load included)")
+    for ln in proc.stdout.splitlines():
+        print(f"    | {ln}")
+    if proc.returncode != 0 or got != note_spans(os.path.join(out, "request.mid")):
+        raise AssertionError(f"11a: stdin mode failed or differs:\n{proc.stderr[-3000:]}")
+
+
+def visualize_phase(torch, pth, wav30):
+    """11b: ``transcribe_rolls`` on the card against ``transcribe_chunks`` on
+    the same card; the CLI draws a PNG or exits 1 naming matplotlib."""
+    from music_transcription_tpu_torch import visualize
+    from music_transcription_tpu_torch.data.audio import load_audio, split_into_chunks
+    from music_transcription_tpu_torch.transcribe import load_model, transcribe_chunks
+
+    loaded = load_model(pth, device="cuda")
+    acfg = loaded.audio_cfg
+    mel, rolls = visualize.transcribe_rolls(loaded, wav30)
+    y, _ = load_audio(wav30, sr=acfg.sample_rate, mono=True)
+    ref = transcribe_chunks(loaded, split_into_chunks(y, acfg.chunk_samples))[:, :mel.shape[1]]
+    pred = rolls["predicted piano roll"]
+    ok = pred.shape == ref.shape == (88, mel.shape[1]) and np.array_equal(pred, ref)
+    print(f"[11b] visualize.transcribe_rolls on the card: mel {mel.shape}, predicted roll "
+          f"{pred.shape} ({int(pred.sum())} active frames), equal to transcribe_chunks: {ok}")
+    if not ok or not np.isfinite(mel).all():
+        raise AssertionError("11b: the plotted roll differs from transcribe_chunks")
+    png = os.path.join(WORK, "visualize.png")
+    if os.path.exists(png):
+        os.remove(png)
+    rc, out = in_process(visualize.main, ["transcribe", wav30, pth, "-o", png])
+    if rc == 1 and "matplotlib" in out and not os.path.exists(png):
+        print(f"    the CLI without matplotlib: rc 1, {out.strip()!r}")
+    elif rc == 0 and os.path.getsize(png) > 0:
+        print(f"    the CLI drew {png} ({os.path.getsize(png)} bytes)")
+    else:
+        raise AssertionError(f"11b: the visualize CLI gave rc {rc}: {out[-2000:]}")
+    del loaded
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def bench_phase(torch, lk, ak, card):
+    """11c-11f: the four benches through their functions, each path's
+    kernel counters set to 0 before it and read after it."""
+    from music_transcription_tpu_torch.bench import attention as bench_attention
+    from music_transcription_tpu_torch.bench import components as bench_components
+    from music_transcription_tpu_torch.bench import loader as bench_loader
+    from music_transcription_tpu_torch.bench import train as bench_train
+
+    counters = counters_of(lk, ak)
+
+    def totals():
+        return {k: counters[v].launches for k, v in SURFACE_KERNELS.items() if k != "K1"
+                and counters[v].launches}
+
+    flash = {"K3+lse": 1.0, "K4a": 1.0, "K4b": 1.0}
+    for argv in ([], ["--batch", "4", "--t", "938"]):
+        reset_counts(counters)
+        t0 = time.perf_counter()
+        print(f"[11c] bench.attention {' '.join(argv) or '(defaults: --t 938 2048 4096 --batch 2)'}"
+              f" on {card}")
+        rows = bench_attention.run(bench_attention.build_parser().parse_args(argv))
+        got = totals()
+        print(f"    launches in the run {got}; wall {time.perf_counter() - t0:.1f} s")
+        for r in rows:
+            ok = (r["fwd_launches"] == {} and r["fwdbwd_launches"] == {} if r["backend"] == "xla"
+                  else r["fwd_launches"] == {"K3": 1.0} and r["fwdbwd_launches"] == flash)
+            if not ok:
+                raise AssertionError(f"11c: {r['backend']} at T={r['t']} launched "
+                                     f"{r['fwd_launches']} / {r['fwdbwd_launches']}")
+        if set(got) != {"K3", "K3+lse", "K4a", "K4b"}:
+            raise AssertionError(f"11c: a flash kernel did not launch: {got}")
+
+    reset_counts(counters)
+    t0 = time.perf_counter()
+    print("[11d] bench.components --batch_size 16")
+    results = bench_components.run(bench_components.build_parser().parse_args([]))
+    got = totals()
+    print(f"    launches in the run {got}; wall {time.perf_counter() - t0:.1f} s")
+    if (results["lstm_tier"]["launches"] != {"K2a": 4.0, "K2b": 4.0}
+            or results["conv_stack"]["launches"] or results["attention"]["launches"]
+            or set(got) != {"K2a", "K2b"}):
+        raise AssertionError(f"11d: K2a and K2b should launch 4 times a LSTM-tier call: "
+                             f"{ {k: r['launches'] for k, r in results.items()} }")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    reset_counts(counters)
+    t0 = time.perf_counter()
+    print("[11e] bench.train (defaults: --batch_size 16 --steps 8)")
+    r = bench_train.run(bench_train.build_parser().parse_args([]))
+    got = totals()
+    print(f"    first step {r['first_s']:.1f} s; launches in the run {got}; wall "
+          f"{time.perf_counter() - t0:.1f} s")
+    # 1 + 8 steps, 4 recurrences each
+    if got != {"K2a": 36, "K2b": 36} or not r["ms"] > 0:
+        raise AssertionError(f"11e: the train step missed K2a / K2b: {got}")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cache_dir = os.path.join(WORK, "cache_card")  # phase 6b's
+    for extra in ([], ["--no_device"]):
+        t0 = time.perf_counter()
+        print(f"[11f] bench.loader --cache_dir <phase 6b's card-built cache> --passes 4 "
+              f"{' '.join(extra)}")
+        r = bench_loader.run(bench_loader.build_parser().parse_args(
+            ["--cache_dir", cache_dir, "--passes", "4"] + extra))
+        print(f"    wall {time.perf_counter() - t0:.1f} s")
+        if r is None or r["batches"] != 12 or not r["value"] > 0 or r["demand_1chip"] is not None:
+            raise AssertionError(f"11f: bench.loader gave {r}")
+
+
+def example_eval_phase():
+    """11g: the port's example.sh eval on phase 6's run and cache, against
+    the evaluation CLI in this process on the same checkpoint and flags."""
+    out_root = os.path.join(WORK, "example_out")
+    shutil.rmtree(out_root, ignore_errors=True)
+    os.makedirs(out_root)
+    os.symlink(os.path.join(WORK, "train_run"), os.path.join(out_root, "train_run"))
+    cache_dir, root = os.path.join(WORK, "train_cache"), os.path.join(WORK, "no_raw_audio")
+    best = os.path.join(out_root, "train_run", "checkpoints", "model_best.pth")
+    env = dict(os.environ, OUT_ROOT=out_root, CACHE_DIR=cache_dir, ROOT_DIR=root,
+               EVAL_SPLIT="validation", DEVICE="cuda", EVAL_EXTRA_ARGS="--headless")
+    t0 = time.perf_counter()
+    proc = subprocess.run(["bash", os.path.join(REPO, "music_transcription_tpu_torch",
+                                                "example.sh"), "eval"],
+                          env=env, capture_output=True, text=True, timeout=300, cwd=WORK)
+    wall = time.perf_counter() - t0
+    flow = {ln.split("=")[0]: float(ln.split("=")[1]) for ln in proc.stdout.splitlines()
+            if ln.startswith("EVAL_")}
+    ref = run_evaluate(["--model", best, "--split", "validation", "--cache_dir", cache_dir,
+                        "--root_dir", root, "--tune_threshold", "--device", "cuda",
+                        "--headless"])
+    ok = (proc.returncode == 0 and f"=== Evaluating {best} on split 'validation'" in proc.stdout
+          and set(flow) == set(ref)
+          and abs(flow["EVAL_MEAN_F1"] - ref["EVAL_MEAN_F1"]) <= EVAL_F1_TOL
+          and abs(flow["EVAL_BEST_THRESHOLD"] - ref["EVAL_BEST_THRESHOLD"]) <= EVAL_THRESHOLD_TOL)
+    print(f"[11g] example.sh eval (DEVICE=cuda, EVAL_EXTRA_ARGS=--headless) on phase 6's "
+          f"model_best: rc {proc.returncode}, {flow}, wall {wall:.1f} s; the evaluate CLI in "
+          f"this process: {ref} (tol {EVAL_F1_TOL:g}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"11g: example.sh eval disagrees with the CLI:\n"
+                             f"{proc.stdout[-2000:]}{proc.stderr[-2000:]}")
+
+
+def surfaces_phase(torch, lk, ak, pth, wav30, server, card):
+    """Phase 11: serve, visualize, the four benches and example.sh eval."""
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    serve_phase(torch, lk, pth, wav30, server)
+    visualize_phase(torch, pth, wav30)
+    bench_phase(torch, lk, ak, card)
+    example_eval_phase()
+    print(f"    phase 11 wall {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     import torch
 
@@ -3073,7 +3342,10 @@ def main() -> int:
     dryrun_phase()
     print(f"    phase 10 wall {time.perf_counter() - t_phase:.1f} s")
 
-    # 11. report
+    # 11. serve, visualize, the benches and example.sh eval at full width
+    surfaces_phase(torch, lk, ak, pth, wav30, server, card)
+
+    # 12. report
     kernels = [
         dict(name="lstm_recurrence", route="cuda",
              source="music_transcription_tpu_torch/csrc/lstm_recurrence.cu",

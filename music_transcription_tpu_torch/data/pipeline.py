@@ -138,7 +138,9 @@ class Loader:
                 yield self._maybe_pad(self.collate([self.dataset[int(i)] for i in bidx],
                                                    pad_to=self.pad_to))
             return
-        with ThreadPoolExecutor(max_workers=self.num_workers) as pool:
+        pool = ThreadPoolExecutor(max_workers=self.num_workers)
+        finished = False
+        try:
             lookahead = max(2, self.num_workers)
             futures = [[pool.submit(self.dataset.__getitem__, int(i)) for i in bidx]
                        for bidx in batches[:lookahead]]
@@ -148,6 +150,14 @@ class Loader:
                     futures.append([pool.submit(self.dataset.__getitem__, int(i))
                                     for i in batches[bi + lookahead]])
                 yield self._maybe_pad(self.collate([f.result() for f in fs], pad_to=self.pad_to))
+            finished = True
+        finally:
+            # an iteration left early (a break, an error) does not wait for
+            # its look-ahead items: its close may run in the generator's
+            # finalizer, where a KeyboardInterrupt (Ctrl-C, SIGTERM through
+            # train.loop.install_graceful_sigterm) landing in a long wait is
+            # dropped and the run goes on
+            pool.shutdown(wait=finished, cancel_futures=not finished)
 
 
 def collate_subset(dataset, collate, indices, *, pad_to: int | None = None,

@@ -33,6 +33,7 @@ differs:
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import sys
 from datetime import datetime
@@ -393,14 +394,17 @@ def pretrain_main(args, subset, device) -> int:
             if val_loader is not None:
                 vtotal, vn = 0.0, 0
                 tp = fp = fn = 0
-                for batch in val_loader:
-                    vloss, btp, bfp, bfn = pretrain_eval(model, *to_device(batch, device)).tolist()
-                    vtotal += vloss
-                    ops.beat()
-                    tp, fp, fn = tp + int(btp), fp + int(bfp), fn + int(bfn)
-                    vn += 1
-                    if vn >= args.val_batches:
-                        break
+                # closed here, not by its finalizer, where an interrupt is dropped
+                with contextlib.closing(iter(val_loader)) as val_batches:
+                    for batch in val_batches:
+                        vloss, btp, bfp, bfn = pretrain_eval(
+                            model, *to_device(batch, device)).tolist()
+                        vtotal += vloss
+                        ops.beat()
+                        tp, fp, fn = tp + int(btp), fp + int(bfp), fn + int(bfn)
+                        vn += 1
+                        if vn >= args.val_batches:
+                            break
                 vloss = vtotal / max(1, vn)
                 f1 = 2 * tp / max(1, 2 * tp + fp + fn)
                 line += f" val_loss={vloss:.4f} val_frame_f1={f1:.4f}"
@@ -697,12 +701,13 @@ def token_main(args, subset, device) -> int:
                 line += f" ss_p={ss_p:.2f}"
             if val_loader is not None:
                 vtotal, vn = 0.0, 0
-                for batch in val_loader:
-                    vtotal += float(token_eval_loss(model, *to_device(batch, device)))
-                    ops.beat()
-                    vn += 1
-                    if vn >= args.val_batches:
-                        break
+                with contextlib.closing(iter(val_loader)) as val_batches:
+                    for batch in val_batches:
+                        vtotal += float(token_eval_loss(model, *to_device(batch, device)))
+                        ops.beat()
+                        vn += 1
+                        if vn >= args.val_batches:
+                            break
                 vloss = vtotal / max(1, vn)
                 line += f" val_loss={vloss:.4f}"
                 score = vloss

@@ -7,6 +7,8 @@ the CPU here) give the JAX package's arrays; ``MaestroDataset``,
 synthetic MAESTRO tree of tests/maestro_fixture.py, bit for bit.
 """
 
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -142,3 +144,30 @@ def test_cached_datasets_read_a_jax_written_cache(maestro_root, tmp_path):
     assert not raw.use_cache
     _equal(raw[0], JMaestroDataset(maestro_root, split="train", chunk_length=3.0,
                                    audio_cfg=JAudioConfig(**CFG))[0])
+
+
+class _SlowItems:
+    """12 items that take 0.3 s each to decode."""
+
+    def __len__(self):
+        return 12
+
+    def __getitem__(self, i):
+        time.sleep(0.3)
+        return np.full((2, 3), i, np.float32), np.zeros((88, 3), np.float32)
+
+
+def test_an_abandoned_iteration_does_not_wait_for_its_look_ahead():
+    """A Loader iteration left early (validation's break after --val_batches)
+    shuts its pool down without waiting for the items it decodes ahead: a
+    SIGTERM that landed in that wait, inside the generator's finalizer, was
+    dropped and the run went on."""
+    loader = P.Loader(_SlowItems(), 2, num_workers=2)
+    it = iter(loader)
+    assert next(it)[0].reshape(2, -1)[:, 0].tolist() == [0.0, 1.0]
+    t0 = time.perf_counter()
+    it.close()
+    assert time.perf_counter() - t0 < 0.25  # 4 look-ahead items queued, 0.3 s each
+    # a whole epoch still yields every batch, in order
+    assert [b[0].reshape(2, -1)[:, 0].tolist() for b in loader] == [
+        [float(2 * k), float(2 * k + 1)] for k in range(6)]

@@ -921,3 +921,67 @@ def test_ast_staged_compact_batches_equal_the_streamed_ones(cuda):
             assert w.device.type == "cuda" and w.dtype == torch.float32
             assert torch.equal(w.cpu(), torch.from_numpy(sw))
             assert torch.equal(t.cpu(), torch.from_numpy(st))
+
+
+def _small_model_and_wavs(tmp_path, seconds=(5.0, 3.0)):
+    """A seeded cnn_rnn_large at n_mels 64, hidden 32 (2 layers), 2 s
+    chunks, as .pth + .json, and a WAV of each length in ``incoming/``."""
+    torch.manual_seed(0)
+    mcfg = ModelConfig(n_mels=64, hidden_size=32, num_layers=2)
+    acfg = AudioConfig(n_mels=64, chunk_length=2.0)
+    torch.save(TranscriptionModel(mcfg).model.state_dict(), tmp_path / "m.pth")
+    (tmp_path / "m.json").write_text(json.dumps({"model": config_to_dict(mcfg),
+                                                 "audio": config_to_dict(acfg)}))
+    (tmp_path / "incoming").mkdir()
+    sr, rng = 16000, np.random.default_rng(3)
+    for i, s in enumerate(seconds):
+        t = np.arange(int(s * sr)) / sr
+        y = 0.3 * np.sin(2 * np.pi * 220.0 * (i + 1) * t) + 0.01 * rng.standard_normal(t.size)
+        with wave.open(str(tmp_path / "incoming" / f"w{i}.wav"), "wb") as w:
+            w.setnchannels(1)
+            w.setsampwidth(2)
+            w.setframerate(sr)
+            w.writeframes((np.clip(y, -1, 1) * 32767).astype("<i2").tobytes())
+    (tmp_path / "incoming" / "readme.txt").write_text("not audio")
+    return tmp_path / "m.pth", sorted((tmp_path / "incoming").glob("*.wav"))
+
+
+def test_serve_watch_once_on_card_gives_the_transcribers_notes(cuda, tmp_path, capsys):
+    from music_transcription_tpu_torch import serve
+    from music_transcription_tpu_torch.transcribe import Transcriber
+
+    pth, wavs = _small_model_and_wavs(tmp_path)
+    before = LK.lstm_recurrence.launches
+    assert serve.main(["--model", str(pth), "--watch_dir", str(tmp_path / "incoming"),
+                       "--out_dir", str(tmp_path / "out"), "--once"]) == 0
+    assert LK.lstm_recurrence.launches == before + 3 * len(wavs)  # one forward a file
+    assert capsys.readouterr().out.count(" -> ") == len(wavs)
+    server = Transcriber(pth, device="cuda")
+    for w in wavs:
+        ref = server.transcribe_file(w, tmp_path / f"ref_{w.stem}.mid")
+        got = load_midi(tmp_path / "out" / f"{w.stem}.mid").instruments[0].notes
+        assert [(n.pitch, n.start, n.end) for n in got] == [
+            (n.pitch, n.start, n.end) for n in load_midi(ref).instruments[0].notes]
+
+
+def test_bench_attention_launches_the_flash_kernels_only_on_pallas(cuda):
+    from music_transcription_tpu_torch.bench import attention
+
+    rows = attention.run(attention.build_parser().parse_args(
+        ["--t", "938", "--batch", "1", "--iters", "2", "--chain", "1"]))
+    by = {r["backend"]: r for r in rows}
+    assert by["xla"]["fwd_launches"] == {} and by["xla"]["fwdbwd_launches"] == {}
+    assert by["pallas"]["fwd_launches"] == {"K3": 1.0}
+    assert by["pallas"]["fwdbwd_launches"] == {"K3+lse": 1.0, "K4a": 1.0, "K4b": 1.0}
+    assert all(r["fwd_ms"] > 0 and r["fwdbwd_ms"] > 0 for r in rows)
+
+
+def test_bench_components_runs_the_lstm_tier_through_k2a_and_k2b(cuda, monkeypatch):
+    from music_transcription_tpu_torch.bench import components
+
+    monkeypatch.setattr(components, "CHUNK_LENGTH", 4.0)
+    results = components.run(components.build_parser().parse_args(
+        ["--batch_size", "2", "--n_mels", "64", "--iters", "1", "--chain", "2"]))
+    assert results["lstm_tier"]["launches"] == {"K2a": 4.0, "K2b": 4.0}
+    assert results["conv_stack"]["launches"] == {} and results["attention"]["launches"] == {}
+    assert all(r["ms"] > 0 and r["tflops"] > 0 for r in results.values())

@@ -34,7 +34,8 @@ def test_importing_the_port_loads_no_jax():
                  "native", "preprocess", "data.preprocess", "models.remi_tokenizer",
                  "models.event_tokenizer", "models.transformer", "evaluate_ast", "train_ast",
                  "train.ast_step", "parallel.distributed", "parallel.mesh",
-                 "parallel.partitioning", "parallel.dryrun"):
+                 "parallel.partitioning", "parallel.dryrun", "serve", "visualize",
+                 "bench.attention", "bench.components", "bench.train", "bench.loader"):
         assert f"music_transcription_tpu_torch.{name}" in modules
     code = (
         "import importlib, json, sys\n"
