@@ -17,7 +17,8 @@ Phases, in order; any failure exits non-zero:
      doing the T per-direction barriers and nothing else); the plain version
      reading h_{t-2} at one step must fail K1's tolerance, and K3's plain
      version skipping the last partial key tile or reading one key tile's v
-     from the tile before (a stale stage of its ring) must fail K3's;
+     from the tile before (a stale stage of its ring), at each dtype's key
+     tile, must fail K3's;
   3. serve the default 89M cnn_rnn_large (seeded random weights, .pth + .json)
      on a seeded ~2 min WAV through transcribe_audio on cuda: the MIDI must
      decode and the K1 counter must rise by 4 per forward; time a warm
@@ -26,7 +27,11 @@ Phases, in order; any failure exits non-zero:
      short input;
   4. the long-window route (-w 120) on a seeded ~8 min WAV (4 windows):
      the clamped flash kernel K3 must run and the MIDI must decode; time a
-     warm request and break it down as in phase 3;
+     warm request and break it down as in phase 3; then the same model with
+     compute_dtype="float32": warm requests through "auto" (K3 in fp32, 1
+     launch a request) timed beside requests through "xla" (0 launches), in
+     turns, and the forward alone the same way; their frame probabilities
+     within FP32_ROUTE_TOL;
   4b. hold K5 (fused ConvBNRelu + pool) against its plain version at the
      default model's two ConvBNRelu stages (B=4, T=938: conv1 3x3 1->32 at
      F=320, freq_aware_conv 7x3 128->256 at F=80; seeded weights, BatchNorm
@@ -66,7 +71,8 @@ Phases, in order; any failure exits non-zero:
      clamp gate, of one skipping the last partial key tile, of K4a's plain
      dq skipping the last partial key tile or reading a stale k / v stage,
      and of K4b's plain version skipping the last partial query tile or
-     reading a stale q / dO stage, all of which must fail the bound;
+     reading a stale q / dO stage (each at the dtype's tiles), all of which
+     must fail the bound;
   6. train the default 89M cnn_rnn_large (TrainConfig defaults, batch 24)
      through the training CLI on a seeded synthetic cache written here (48
      train and 24 validation chunks of 30 s): 2 epochs of 2 steps with the
@@ -93,7 +99,8 @@ Phases, in order; any failure exits non-zero:
      steps. Per train step K3 with lse, K4a and K4b must rise by 1 and K2a,
      K2b by 4; per validation batch K3 (no lse) by 1 and K1 by 4; model_best's
      sidecar must say "pallas". Warm steps timed beside phase 6's, one
-     profiled, and one full-width fp32 flash step on the card against the CPU;
+     profiled, and one full-width fp32 flash step on the card against the CPU
+     (K3 with lse, K4a and K4b in fp32, once each);
   8. evaluate on the card with python -m music_transcription_tpu_torch.evaluate
      (in this process): phase 7's model_best on the cache's validation split
      with a tuned threshold (K1 4 and K3 1 per batch of 8), and phase 6's
@@ -187,7 +194,9 @@ Phases, in order; any failure exits non-zero:
      phase's wall time;
  12. print the kernels line (JSON: launches on the main path, error against
      the plain version, times, bound, and for K1, K2a and K2b the sequential
-     floor; a failed check has already exited),
+     floor; the fp32 variants of K3, K3 with lse, K4a and K4b as rows of
+     their own, "_f32", with phase 4's and phase 7's fp32 launches; a failed
+     check has already exited),
      the card's name and power limit, and as the last line
      {"ok": true, "device": {...}}.
 
@@ -486,7 +495,6 @@ def check_k2(torch, lk, rows):
 # version after. So |got - ref| <= 2^-7 |ref| + 2^-8 (P|V|); the bounds below
 # are twice that. fp32: only the summation order differs.
 K3_TOL = {"bfloat16": (2.0**-6, 2.0**-7), "float32": (1e-5, 1e-5)}
-K3_KEY_TILE = {"bfloat16": 64, "float32": 32}  # the bf16 kernel's ring stage: ak.K3_KEY_TILE
 
 
 def k3_score(got, ref, ref_abs_v, dtype: str) -> float:
@@ -500,11 +508,11 @@ def check_k3(torch, ak, rows):
     """K3 against its plain version at the -w 120 shape (4 windows), bf16 (the
     serving path) and fp32 (compute_dtype="float32"), launched REPEATS times
     with bit-identical outputs, with the scores of a kernel skipping the last
-    partial key tile and (bf16) of one reading a stale stage of its ring (one
-    key tile's v from the tile before: ``ak.faulty_fwd_plain``), which must
-    fail the bound; beside it, for scale only, PyTorch's
+    partial key tile and of one reading a stale stage of its ring (one key
+    tile's v from the tile before: ``ak.faulty_fwd_plain`` at the dtype's
+    tile), which must fail the bound; beside it, for scale only, PyTorch's
     scaled_dot_product_attention at the same shape, which does not clamp and
-    so computes another function. Returns the bf16 record."""
+    so computes another function. Returns the record of each dtype."""
     from music_transcription_tpu_torch.ops.precision import full_fp32
 
     rng = np.random.default_rng(SEED + 1)
@@ -515,23 +523,23 @@ def check_k3(torch, ak, rows):
                      for m in (4.0, 1.0, 1.0))
     clamped = float(((torch.einsum("bthd,bshd->bhts", q32[:1], k32[:1]) * scale).abs() > 10)
                     .float().mean())
-    record = None
+    records = {}
     for dtype, elt in (("bfloat16", 2.0), ("float32", 4.0)):
         q, k, v = (x.to(getattr(torch, dtype)) for x in (q32, k32, v32))
+        tile = ak.K3_KEY_TILE if dtype == "bfloat16" else ak.K3_KEY_TILE_F32
         with full_fp32():
             got = ak.flash_attention_clamped(q, k, v, scale, 10.0)
             ref = ak.attention_clamped_plain(q, k, v, scale, 10.0)
             ref_abs_v = ak.attention_clamped_plain(q, k, v.abs(), scale, 10.0)
             # what a kernel that skipped the last partial key tile would give
-            kept = t // K3_KEY_TILE[dtype] * K3_KEY_TILE[dtype]
+            kept = t // tile * tile
             skipped = ak.attention_clamped_plain(q, k[:, :kept], v[:, :kept], scale, 10.0)
             torch.cuda.synchronize()
             score = k3_score(got, ref, ref_abs_v, dtype)
             fault = k3_score(skipped, ref, ref_abs_v, dtype)
-            faults = {"skip_last_key_tile": fault}
-            if dtype == "bfloat16":
-                faults["stale_stage"] = k3_score(ak.faulty_fwd_plain(q, k, v, scale, 10.0), ref,
-                                                 ref_abs_v, dtype)
+            faults = {"skip_last_key_tile": fault,
+                      "stale_stage": k3_score(ak.faulty_fwd_plain(q, k, v, scale, 10.0, tile=tile),
+                                              ref, ref_abs_v, dtype)}
             same = repeats_identical(torch, lambda: ak.flash_attention_clamped(q, k, v, scale, 10.0),
                                      got)
             err = float((got.float() - ref.float()).abs().max())
@@ -550,22 +558,21 @@ def check_k3(torch, ak, rows):
         rtol, ptol = K3_TOL[dtype]
         ok = (score <= 1.0 and min(faults.values()) > 1.0 and same
               and bool(torch.isfinite(got.float()).all()))
-        stale = (f"; one reading key tile {-(-t // ak.K3_KEY_TILE) // 2}'s v from the tile "
-                 f"before: {faults['stale_stage']:.1f}" if "stale_stage" in faults else "")
         rows.append(f"K3 {dtype} B={b} T={t} heads={nh} D={d}: max_abs_err={err:.3e}, rms(ref) "
                     f"{rms:.3e}, rms(P|V|) {float(ref_abs_v.float().pow(2).mean().sqrt()):.3e}, "
                     f"worst |err|/({rtol:g}|ref| + {ptol:g}P|V|) {score:.3f} (a kernel "
-                    f"skipping the last {t - kept} keys: {fault:.1f}{stale}), clamped share "
+                    f"skipping the last {t - kept} keys: {fault:.1f}; one reading key tile "
+                    f"{-(-t // tile) // 2}'s v from the tile before, {tile} keys a tile: "
+                    f"{faults['stale_stage']:.1f}), clamped share "
                     f"{clamped:.4f}; {REPEATS} launches bit-identical={same}; ms={ms:.4f} "
                     f"plain_ms={plain_ms:.3f}{sdpa} bound_ms={b_ms:.4f} ({b_by}) "
                     f"{'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(rows[-1])
-        if dtype == "bfloat16":
-            record = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                          bound_by=b_by, library_ms=None, repeats_identical=same,
-                          fault_scores=faults)
-    return record
+        records[dtype] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                              bound_by=b_by, library_ms=None, repeats_identical=same,
+                              fault_scores=faults)
+    return records
 
 
 # K3 with lse, K4a and K4b against their plain versions, element by element:
@@ -579,7 +586,6 @@ def check_k3(torch, ak, rows):
 # summation order only. The forward's o is held to K3_TOL, its lse to
 # 1e-5 |lse| + 1e-5 (fp32 summation order).
 K4_TOL = {"bfloat16": (2.0**-7, 2.0**-6), "float32": (1e-4, 1e-5)}
-K4_KEY_TILE_F32 = 32  # the fp32 K4a's key tile (the bf16 one's: ak.K4A_KEY_TILE)
 
 
 def attention_grad_terms(torch, q, k, v, o, do, lse, scale, clip, *, gate=True, keys=None):
@@ -623,12 +629,12 @@ def check_k4(torch, ak, rows):
     and fp32 (compute_dtype="float32"), q scaled so that the clamp binds on
     a share of the logits. K3 with lse, K4a and K4b are launched REPEATS
     times with bit-identical outputs; the scores of a backward without the
-    clamp gate, of one skipping the last partial key tile, (bf16, K4a's ring:
+    clamp gate, of one skipping the last partial key tile, (K4a's ring:
     ``ak.faulty_dq_plain``, dq alone) of one skipping the last partial key
-    tile and of one reading a stale k / v stage, and (bf16, K4b's ring:
+    tile and of one reading a stale k / v stage, and (K4b's ring:
     ``ak.faulty_dkv_plain``) of one skipping the last partial query tile and
-    of one reading a stale q / dO stage must fail the bound. Returns the bf16
-    records of the three."""
+    of one reading a stale q / dO stage, each at the dtype's tiles, must fail
+    the bound. Returns the records of the three, by dtype."""
     from music_transcription_tpu_torch.ops.precision import full_fp32
 
     rng = np.random.default_rng(SEED + 8)
@@ -642,6 +648,9 @@ def check_k4(torch, ak, rows):
     records = {}
     for dtype, elt in (("bfloat16", 2.0), ("float32", 4.0)):
         q, k, v, do = (x.to(getattr(torch, dtype)) for x in (q32, k32, v32, do32))
+        bf16 = dtype == "bfloat16"
+        dq_tile = ak.K4A_KEY_TILE if bf16 else ak.K4A_KEY_TILE_F32
+        dkv_tile = ak.K4B_QUERY_TILE if bf16 else ak.K4B_QUERY_TILE_F32
         with full_fp32():
             o, lse = ak.flash_attention_clamped_fwd(q, k, v, scale, clip)
             ref_o, ref_lse = ak.attention_clamped_fwd_plain(q, k, v, scale, clip)
@@ -664,22 +673,17 @@ def check_k4(torch, ak, rows):
                                               gate=False)
             fault_gate = k4_score(ungated, ref, mag, dtype)
             del ungated
-            tile = ak.K4A_KEY_TILE if dtype == "bfloat16" else K4_KEY_TILE_F32
-            kept = t // tile * tile
+            kept = t // dq_tile * dq_tile
             skipped, _ = attention_grad_terms(torch, q, k, v, ref_o, do, ref_lse, scale, clip,
                                               keys=kept)
             fault_tile = k4_score(skipped, ref, mag, dtype)
             del skipped
-            dq_faults, dkv_faults = {}, {}
-            if dtype == "bfloat16":
-                for name in ak.DQ_FAULTS:
-                    dq_faults[name] = k4_score([ak.faulty_dq_plain(
-                        q, k, v, ref_o, do, ref_lse, scale, clip, fault=name)], ref[:1], mag[:1],
-                        dtype)
-                for name in ak.DKV_FAULTS:
-                    dkv_faults[name] = k4_score(ak.faulty_dkv_plain(
-                        q, k, v, ref_o, do, ref_lse, scale, clip, fault=name), ref[1:], mag[1:],
-                        dtype)
+            dq_faults = {name: k4_score([ak.faulty_dq_plain(
+                q, k, v, ref_o, do, ref_lse, scale, clip, fault=name, tile=dq_tile)], ref[:1],
+                mag[:1], dtype) for name in ak.DQ_FAULTS}
+            dkv_faults = {name: k4_score(ak.faulty_dkv_plain(
+                q, k, v, ref_o, do, ref_lse, scale, clip, fault=name, tile=dkv_tile), ref[1:],
+                mag[1:], dtype) for name in ak.DKV_FAULTS}
             del mag
             same_fwd = repeats_identical(
                 torch, lambda: ak.flash_attention_clamped_fwd(q, k, v, scale, clip), (o, lse))
@@ -711,8 +715,9 @@ def check_k4(torch, ak, rows):
               and same_fwd and same_dq and same_dkv
               and all(bool(torch.isfinite(g.float()).all()) for g in got))
         rtol, ptol = K4_TOL[dtype]
-        ring = "".join(f"; {kernel} {n.replace('_', ' ')}: {v:.1f}"
-                       for kernel, faults in (("K4a", dq_faults), ("K4b", dkv_faults))
+        ring = "".join(f"; {kernel} {n.replace('_', ' ')} ({tile} a tile): {v:.1f}"
+                       for kernel, faults, tile in (("K4a", dq_faults, dq_tile),
+                                                    ("K4b", dkv_faults, dkv_tile))
                        for n, v in faults.items())
         rows.append(
             f"K3+lse/K4a/K4b {dtype} B={b} T={t} heads={nh} D={d}: o worst |err|/K3_TOL "
@@ -727,17 +732,17 @@ def check_k4(torch, ak, rows):
             + f" {'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(rows[-1])
-        if dtype == "bfloat16":
-            for name, err, ms, plain_ms in (("K3+lse", float((o.float() - ref_o.float()).abs().max()),
-                                             fwd_ms, fwd_plain_ms),
-                                            ("K4a", errs[0], dq_ms, bwd_plain_ms),
-                                            ("K4b", max(errs[1:]), dkv_ms, bwd_plain_ms)):
-                records[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                                     bound_ms=bounds[name][0], bound_by=bounds[name][1],
-                                     library_ms=None)
-            records["K3+lse"]["repeats_identical"] = same_fwd
-            records["K4a"].update(repeats_identical=same_dq, fault_scores=dq_faults)
-            records["K4b"].update(repeats_identical=same_dkv, fault_scores=dkv_faults)
+        rec = {}
+        for name, err, ms, plain_ms in (("K3+lse", float((o.float() - ref_o.float()).abs().max()),
+                                         fwd_ms, fwd_plain_ms),
+                                        ("K4a", errs[0], dq_ms, bwd_plain_ms),
+                                        ("K4b", max(errs[1:]), dkv_ms, bwd_plain_ms)):
+            rec[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bounds[name][0],
+                             bound_by=bounds[name][1], library_ms=None)
+        rec["K3+lse"]["repeats_identical"] = same_fwd
+        rec["K4a"].update(repeats_identical=same_dq, fault_scores=dq_faults)
+        rec["K4b"].update(repeats_identical=same_dkv, fault_scores=dkv_faults)
+        records[dtype] = rec
         del q, k, v, do, o, lse, ref_o, ref_lse, dq, dk, dv, ref, got
     return records
 
@@ -1103,6 +1108,74 @@ def warm_request_ms(torch, server, y) -> float:
     """One request after one untimed (``timed_request_ms``)."""
     server.transcribe_array(y)
     return timed_request_ms(torch, server, y)
+
+
+# Phase 4's fp32 -w 120 request through "auto" (K3-fp32) and "xla" (the
+# plain attention): the two attentions agree element by element within
+# K3_TOL["float32"] (summation order alone, 1e-5 of |o| and of P|V|), and the
+# fp32 layers after them carry a relative difference of that order on to
+# the frame logits; a probability moves by at most a quarter of its logit's
+# change. 1e-4 on the probabilities leaves that 1e-5 ten times over.
+FP32_ROUTE_TOL = 1e-4
+
+
+FP32_WINDOW_REPS = 5  # timed requests a route, the routes in turns
+
+
+def fp32_window_phase(torch, ak, pth, wav120) -> dict:
+    """The default model with compute_dtype="float32" (``pth``'s seeded
+    weights) on the -w 120 WAV (4 windows, T=3751), through "auto", which
+    takes K3-fp32 (1 launch a request), and through "xla" (0 launches): after
+    one untimed request a route, FP32_WINDOW_REPS warm requests a route in
+    turns, each after a collection (``timed_request_ms``), and as many
+    forwards alone (mel + model + sigmoid, host clock to the copy back: no
+    note decode); medians. The two routes' frame probabilities within
+    FP32_ROUTE_TOL. Returns the readings."""
+    from music_transcription_tpu_torch.config import ModelConfig
+    from music_transcription_tpu_torch.data.audio import load_audio
+    from music_transcription_tpu_torch.transcribe import Transcriber, replica_forward
+
+    server = Transcriber(pth, model_cfg=ModelConfig(compute_dtype="float32"), window=120.0,
+                         device="cuda")
+    acfg = server.loaded.audio_cfg
+    y, _ = load_audio(wav120, sr=acfg.sample_rate)
+    chunks = server.split(y)
+    routes = ("auto", "xla")
+    request_ms, forward_ms, launches, probs = ({r: [] for r in routes} for _ in range(4))
+    for route in routes:
+        server.loaded.model.set_attention_backend(route)
+        server.transcribe_array(y)
+    for _ in range(FP32_WINDOW_REPS):
+        for route in routes:
+            server.loaded.model.set_attention_backend(route)
+            ak.flash_attention_clamped.launches = 0
+            request_ms[route].append(timed_request_ms(torch, server, y))
+            launches[route].append(ak.flash_attention_clamped.launches)
+            gc.collect()
+            t0 = time.perf_counter()
+            probs[route] = replica_forward(server.replicas, chunks, acfg,
+                                           lambda m, mel: torch.sigmoid(m(mel)))
+            forward_ms[route].append((time.perf_counter() - t0) * 1e3)
+    out = {f"{r}_{k}": float(np.median(v[r])) for r in routes
+           for k, v in (("ms", request_ms), ("forward_ms", forward_ms))}
+    out.update({f"{r}_launches": launches[r][0] for r in routes})
+    out["prob_err"] = float(np.abs(probs["auto"] - probs["xla"]).max())
+    ok = (set(launches["auto"]) == {1} and set(launches["xla"]) == {0}
+          and out["prob_err"] <= FP32_ROUTE_TOL and bool(np.isfinite(probs["auto"]).all())
+          and probs["auto"].shape == (len(chunks), 88, acfg.mel_frames_per_chunk))
+    print(f"    fp32 (compute_dtype='float32'), {len(chunks)} windows, medians of "
+          f"{FP32_WINDOW_REPS} in turns: warm request through 'auto' {out['auto_ms']:.1f} ms "
+          f"(K3 launches {out['auto_launches']} a request), through 'xla' {out['xla_ms']:.1f} ms "
+          f"({out['xla_launches']}); the forward alone {out['auto_forward_ms']:.1f} against "
+          f"{out['xla_forward_ms']:.1f} ms (requests {[round(v, 1) for v in request_ms['auto']]} / "
+          f"{[round(v, 1) for v in request_ms['xla']]}); frame probabilities max |auto - xla| "
+          f"{out['prob_err']:.3e} (tol {FP32_ROUTE_TOL:g}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"fp32 -w 120 routes: {out}, launches {launches}")
+    del server
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
 
 
 def profile_request(torch, server, y, cpu_ops: bool = True):
@@ -1575,8 +1648,8 @@ def preprocess_slab_phase(torch, lk, ak, card):
 def flash_train_phase(torch, lk, ak, rows, xla_ms):
     """Phase 7: the default model with attention_backend="pallas" through
     train/loop.train_model on the phase-6 cache staged on the card, 2 epochs
-    of 2 steps. Returns the main path's launch counts and the path of
-    model_best."""
+    of 2 steps. Returns the main path's launch counts, the path of
+    model_best and the fp32 flash step's launches (K3 with lse, K4a, K4b)."""
     from music_transcription_tpu_torch.config import AudioConfig, ModelConfig, TrainConfig
     from music_transcription_tpu_torch.data.cache import HybridMaestroDataset
     from music_transcription_tpu_torch.data.pipeline import DeviceStagedLoader
@@ -1635,8 +1708,15 @@ def flash_train_phase(torch, lk, ak, rows, xla_ms):
     ms, _ = time_train_steps(torch, mcfg, tcfg, acfg, cache_dir)
     print(f"    flash step {ms:.1f} ms against the materialized-scores step {xla_ms:.1f} ms "
           f"(phase 6): {ms / xla_ms:.3f}x")
+    flash = (ak.flash_attention_clamped_fwd, ak.flash_attention_clamped_dq,
+             ak.flash_attention_clamped_dkv)
+    for counter in flash:
+        counter.launches = 0
     check_fp32_step(torch, mcfg, tcfg, rows)
-    return launches, best
+    fp32_launches = {c.__name__: c.launches for c in flash}
+    if set(fp32_launches.values()) != {1}:
+        raise AssertionError(f"the fp32 flash step should launch each kernel once: {fp32_launches}")
+    return launches, best, fp32_launches
 
 
 def eval_phase(torch, lk, ak, flash_best, xla_best):
@@ -3295,6 +3375,8 @@ def main() -> int:
     print(f"    warm request (load_audio excluded): "
           f"{warm_request_ms(torch, server120, y120):.1f} ms")
     profile_request(torch, server120, y120)
+    del server120
+    fp32_120 = fp32_window_phase(torch, ak, pth, wav120)
 
     # 4b. K5 at the default model's two ConvBNRelu stages, K6 at its two
     # residual blocks, then its CNN front end through both
@@ -3316,7 +3398,8 @@ def main() -> int:
     preprocess_slab_phase(torch, lk, ak, card)
 
     # 7. training at full width through the flash attention
-    flash_launches, flash_best = flash_train_phase(torch, lk, ak, rows, xla_ms)
+    flash_launches, flash_best, fp32_flash_launches = flash_train_phase(torch, lk, ak, rows,
+                                                                        xla_ms)
 
     # 8. evaluation on the card
     eval_phase(torch, lk, ak, flash_best, xla_best)
@@ -3346,15 +3429,16 @@ def main() -> int:
     surfaces_phase(torch, lk, ak, pth, wav30, server, card)
 
     # 12. report
+    attention = "music_transcription_tpu_torch/csrc/flash_attention_clamped.cu"
+    pallas = "music_transcription_tpu/ops/attention_pallas.py"
     kernels = [
         dict(name="lstm_recurrence", route="cuda",
              source="music_transcription_tpu_torch/csrc/lstm_recurrence.cu",
              replaces="music_transcription_tpu/ops/lstm_pallas.py:71",
              launches=launches30["lstm_recurrence"], ok=True, **k1),
-        dict(name="flash_attention_clamped", route="cuda",
-             source="music_transcription_tpu_torch/csrc/flash_attention_clamped.cu",
-             replaces="music_transcription_tpu/ops/attention_pallas.py:38",
-             launches=launches120["flash_attention_clamped"], ok=True, **k3),
+        dict(name="flash_attention_clamped", route="cuda", source=attention,
+             replaces=f"{pallas}:38", launches=launches120["flash_attention_clamped"], ok=True,
+             **k3["bfloat16"]),
         dict(name="lstm_recurrence_fwd", route="cuda",
              source="music_transcription_tpu_torch/csrc/lstm_recurrence.cu",
              replaces="music_transcription_tpu/ops/lstm_pallas.py:128",
@@ -3363,18 +3447,21 @@ def main() -> int:
              source="music_transcription_tpu_torch/csrc/lstm_recurrence.cu",
              replaces="music_transcription_tpu/ops/lstm_pallas.py:147",
              launches=train_launches["lstm_recurrence_bwd"], ok=True, **k2["K2b"]),
-        dict(name="flash_attention_clamped_fwd", route="cuda",
-             source="music_transcription_tpu_torch/csrc/flash_attention_clamped.cu",
-             replaces="music_transcription_tpu/ops/attention_pallas.py:38",
-             launches=flash_launches["flash_attention_clamped_fwd"], ok=True, **k4["K3+lse"]),
-        dict(name="flash_attention_clamped_dq", route="cuda",
-             source="music_transcription_tpu_torch/csrc/flash_attention_clamped.cu",
-             replaces="music_transcription_tpu/ops/attention_pallas.py:152",
-             launches=flash_launches["flash_attention_clamped_dq"], ok=True, **k4["K4a"]),
-        dict(name="flash_attention_clamped_dkv", route="cuda",
-             source="music_transcription_tpu_torch/csrc/flash_attention_clamped.cu",
-             replaces="music_transcription_tpu/ops/attention_pallas.py:173",
-             launches=flash_launches["flash_attention_clamped_dkv"], ok=True, **k4["K4b"]),
+    ]
+    # the flash training kernels: bf16 launches on phase 7's steps, fp32 on
+    # its fp32 step; K3 in fp32 on phase 4's fp32 request
+    for name, key, line in (("flash_attention_clamped_fwd", "K3+lse", 38),
+                            ("flash_attention_clamped_dq", "K4a", 152),
+                            ("flash_attention_clamped_dkv", "K4b", 173)):
+        kernels.append(dict(name=name, route="cuda", source=attention, replaces=f"{pallas}:{line}",
+                            launches=flash_launches[name], ok=True, **k4["bfloat16"][key]))
+        kernels.append(dict(name=name + "_f32", route="cuda", source=attention,
+                            replaces=f"{pallas}:{line}", launches=fp32_flash_launches[name],
+                            ok=True, **k4["float32"][key]))
+    kernels.append(dict(name="flash_attention_clamped_f32", route="cuda", source=attention,
+                        replaces=f"{pallas}:38", launches=fp32_120["auto_launches"], ok=True,
+                        **k3["float32"]))
+    kernels += [
         dict(name="fused_conv_bn_relu", route="cuda",
              source="music_transcription_tpu_torch/csrc/conv_bn_relu.cu",
              replaces="music_transcription_tpu/ops/conv_pallas.py:141",

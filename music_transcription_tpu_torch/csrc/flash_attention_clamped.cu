@@ -82,16 +82,38 @@
 //   spill some 0.3-0.6 KB a thread.
 //
 // fp32 inputs: the tensor cores take no full-fp32 operands, so every product
-// is an fp32 FMA on the CUDA cores (67 TFLOP/s at most, and the loops read one
-// shared-memory operand per FMA, which caps them lower). K3-fp32 and K4a-fp32:
-// 256 threads per 64 query rows, key / value tiles of 32 rows, four lanes per
-// query row, each owning key columns part, part+4, ... of the score tile and
-// output columns part, part+4, ... in registers. K4b-fp32: 256 threads per 32
-// key rows and query tiles of 64 rows; the score step uses the same four
-// lanes per query row, the accumulation step eight lanes per key row, each
-// owning dK and dV columns cpart, cpart+8, ... in registers. Rows of the
-// shared tiles are padded by one word so the lanes of a warp read distinct
-// banks.
+// is an fp32 FMA on the CUDA cores (67 TFLOP/s at most; no TF32).
+//   * K3-fp32 (with and without lse) and K4b-fp32 are register-tiled, in
+//     blocks of 4 warps, two blocks an SM (under 113 KB of shared memory
+//     each, up to 255 registers a thread). A thread holds an 8 x 4 block of
+//     the 64-column score tile and 8 rows x DP / 16 columns of the
+//     accumulator (O in K3; dV or dK in K4b), reads its operands from
+//     shared memory as 16-byte vectors (128 FMAs for every 12 vectors in the
+//     score product, 96 for every 5 in the accumulating one) and combines
+//     row statistics by shuffles over the 16 lanes of a row. p (and dS)
+//     cross from the score layout to the accumulating one through a padded
+//     [64][16] tile a warp. head_dim is padded to 64, 128, 192 or 256 (a
+//     template parameter), columns past D zero-filled.
+//   * A cp.async ring (16-byte copies; plain loads and stores when D % 4 !=
+//     0) streams each tile in chunks, one __syncthreads a chunk: the next
+//     chunks are in flight during the products on this one. K3: block =
+//     (batch*head, 64 query rows), q loaded once; a key tile of 64 comes as
+//     DP / 32 chunks of k (64 keys x 32 columns) for S, then 8 chunks of v
+//     (8 keys x DP) for P v, with the online softmax between them. K4b: block
+//     = (batch*head, 32 key rows), k and v loaded once; warps 0-1 compute
+//     S^T, p and dV, warps 2-3 dP^T, dS and dK; a query tile of 64 comes as
+//     DP / 16 chunks of q and dO (the last with the tile's lse and delta)
+//     for the score products, then chunks of 8 rows (4 at DP = 256) of q and
+//     dO for the accumulating ones; the gated p crosses from warps 0-1 to
+//     2-3 through a shared tile, which warps 2-3 overwrite with dS. delta
+//     comes from the same pre-pass kernel as in bf16, launched by the entry.
+//     At D=192 K3-fp32 takes 107,520 bytes (4 stages) and 255 registers,
+//     K4b-fp32 108,288 (3 stages) and 247, with no spills; at D=256 both
+//     spill (148 and 28 bytes a thread).
+//   * K4a-fp32: 256 threads per 64 query rows, key tiles of 32 rows loaded
+//     between two barriers, four lanes per query row, each owning key
+//     columns part, part+4, ... of the score tile and dQ columns part,
+//     part+4, ... in registers; rows of the shared tiles padded by one word.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -121,12 +143,16 @@ __device__ void load_tile_f32(float* dst, int stride, const float* __restrict__ 
   }
 }
 
-// sum_d dO[d] * o[d] in fp32 over one row of D, by the 32 lanes of a warp
-// (lane-strided, then a butterfly): K4b's delta pre-pass.
-__device__ __forceinline__ float warp_row_dot(const bf16* dos, const bf16* __restrict__ orow, int D,
+__device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f32(float x) { return x; }
+
+// sum_d dO[d] * o[d] in fp32 over one row of D (bf16 or fp32), by the 32
+// lanes of a warp (lane-strided, then a butterfly): K4b's delta pre-pass.
+template <typename E>
+__device__ __forceinline__ float warp_row_dot(const E* dos, const E* __restrict__ orow, int D,
                                               int lane) {
   float acc = 0.0f;
-  for (int d = lane; d < D; d += 32) acc += __bfloat162float(dos[d]) * __bfloat162float(orow[d]);
+  for (int d = lane; d < D; d += 32) acc += to_f32(dos[d]) * to_f32(orow[d]);
 #pragma unroll
   for (int off = 16; off; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
   return acc;
@@ -457,100 +483,448 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// K3, fp32
+// K3 and K4b, fp32 (CUDA cores): register-tiled products fed by a cp.async ring
 // ---------------------------------------------------------------------------
 
-constexpr int BK32 = 32;                // key rows per tile, fp32 kernels
-constexpr int PS = BK32 + 1;            // padded row stride of an fp32 [rows][BK32] tile
-constexpr int kColsPerLane = kMaxD / 4;  // output columns a lane accumulates
+// Blocks of 4 warps, two an SM (each under 113 KB of shared memory), so that
+// a thread may hold 8 rows of a score tile and of an accumulator (up to 255
+// registers). Lane (rg, kg) = (lane / 16, lane % 16) of warp w owns rows
+// 16 w + rg + 2 i (i < 8) of the block's tiles (interleaved, so that the two
+// half-warps read neighbouring rows, which lie in different banks), columns
+// kg + 16 j (j < 4) of a 64-column score tile and columns 64 c + 4 kg .. + 3
+// of each 64-column chunk of an accumulator. In a warp's [64][16] p tile the
+// thread's rows are columns 8 rg .. 8 rg + 7.
+constexpr int kF32Threads = 128;
+constexpr int kF32Rows = 64;        // rows of a 4-warp tile, 16 a warp
+constexpr int kF32Ri = 8;           // rows a thread
+constexpr int kPL = 20;             // row stride of a warp's [64][16] p tile (16 rows + 4)
+constexpr int kF32Stages = 6;       // the most stages a ring holds
+constexpr int kF32Smem = 115712;    // bytes of shared memory a block, two an SM
 
-size_t smem_bytes_f32(int D) {
-  return sizeof(float) * ((size_t)(BQ + BK32) * (D + 1) + (size_t)BK32 * D + (size_t)BQ * PS);
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// Until at most N of this thread's committed cp.async groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-template <bool kLse>
-__global__ void __launch_bounds__(kThreads)
+// Rows [r0, r0 + ROWS) of one head (row t at src + t * stride), columns
+// [c0, c0 + COLS), into a [ROWS][COLS + 4] fp32 shared tile at dst (the row
+// padded by 4 words, so that 16-byte reads of rows 1 apart take distinct
+// banks); zeros at rows >= T and columns >= D. By the block's kF32Threads
+// threads: 16-byte cp.async copies when `vec` (D % 4 == 0, 16-byte aligned
+// rows), else plain loads and stores.
+template <int ROWS, int COLS>
+__device__ __forceinline__ void load_rows_f32(float* dst, const float* __restrict__ src,
+                                              size_t stride, int r0, int c0, int T, int D,
+                                              bool vec) {
+  constexpr int G = COLS / 4, LD = COLS + 4, kN = ROWS * G;
+  if (vec) {
+    const uint32_t base = shared_address(dst);
+#pragma unroll
+    for (int p = 0; p < (kN + kF32Threads - 1) / kF32Threads; ++p) {
+      const int e = threadIdx.x + p * kF32Threads;
+      if (kN % kF32Threads != 0 && e >= kN) break;
+      const int r = e / G, g = e % G, col = c0 + 4 * g;
+      const bool ok = r0 + r < T && col < D;
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                       base + 4 * (r * LD + 4 * g)),
+                   "l"(ok ? src + (size_t)(r0 + r) * stride + col : src), "r"(ok ? 16 : 0)
+                   : "memory");
+    }
+  } else {
+    for (int e = threadIdx.x; e < ROWS * COLS; e += kF32Threads) {
+      const int r = e / COLS, c = e % COLS;
+      dst[r * LD + c] = r0 + r < T && c0 + c < D ? src[(size_t)(r0 + r) * stride + c0 + c] : 0.0f;
+    }
+  }
+}
+
+// acc[i][j] += sum_{d < N} a[2 i * LDA + d] * b[16 j * LDB + d]: the
+// thread's 8 rows, 2 apart, of the resident tile (a at the first) against its
+// 4 rows, 16 apart, of a streamed chunk (b at the first), both read as 16-byte
+// vectors: 128 FMAs for every 12 vectors. d runs in order, as in a plain dot
+// product.
+template <int N, int LDA, int LDB>
+__device__ __forceinline__ void score_product(float (&acc)[kF32Ri][4], const float* a,
+                                              const float* b) {
+#pragma unroll
+  for (int d = 0; d < N; d += 4) {
+    float4 bv[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) bv[j] = *reinterpret_cast<const float4*>(b + 16 * j * LDB + d);
+#pragma unroll
+    for (int i = 0; i < kF32Ri; ++i) {
+      const float4 av = *reinterpret_cast<const float4*>(a + 2 * i * LDA + d);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        acc[i][j] = fmaf(av.x, bv[j].x, acc[i][j]);
+        acc[i][j] = fmaf(av.y, bv[j].y, acc[i][j]);
+        acc[i][j] = fmaf(av.z, bv[j].z, acc[i][j]);
+        acc[i][j] = fmaf(av.w, bv[j].w, acc[i][j]);
+      }
+    }
+  }
+}
+
+// acc[i][4 c + e] += sum_{r < N} p[kPL r + i] * m[r * LDM + 64 c + e]: the
+// thread's 8 rows of its warp's [.][kPL] p tile (p at its first value of
+// step 0: two 16-byte vectors a step) times N streamed rows (m at row 0,
+// column 4 kg), 4 columns of each 64-column chunk: 32 FMAs a vector of m.
+template <int N, int NC, int LDM>
+__device__ __forceinline__ void accumulate_product(float (&acc)[kF32Ri][4 * NC], const float* p,
+                                                   const float* m) {
+#pragma unroll
+  for (int r = 0; r < N; ++r) {
+    const float4 p0 = *reinterpret_cast<const float4*>(p + kPL * r);
+    const float4 p1 = *reinterpret_cast<const float4*>(p + kPL * r + 4);
+    const float pr[kF32Ri] = {p0.x, p0.y, p0.z, p0.w, p1.x, p1.y, p1.z, p1.w};
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const float4 mv = *reinterpret_cast<const float4*>(m + r * LDM + 64 * c);
+#pragma unroll
+      for (int i = 0; i < kF32Ri; ++i) {
+        acc[i][4 * c] = fmaf(pr[i], mv.x, acc[i][4 * c]);
+        acc[i][4 * c + 1] = fmaf(pr[i], mv.y, acc[i][4 * c + 1]);
+        acc[i][4 * c + 2] = fmaf(pr[i], mv.z, acc[i][4 * c + 2]);
+        acc[i][4 * c + 3] = fmaf(pr[i], mv.w, acc[i][4 * c + 3]);
+      }
+    }
+  }
+}
+
+// The thread's 4 x 4 values of column group j (vals[i][j], rows i) into its
+// warp's p tile at pt (column r at pt + kPL r): two 16-byte stores a column.
+__device__ __forceinline__ void store_p_columns(float* pt, const float (&vals)[kF32Ri][4], int kg) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    float* at = pt + kPL * (kg + 16 * j);
+    *reinterpret_cast<float4*>(at) = make_float4(vals[0][j], vals[1][j], vals[2][j], vals[3][j]);
+    *reinterpret_cast<float4*>(at + 4) =
+        make_float4(vals[4][j], vals[5][j], vals[6][j], vals[7][j]);
+  }
+}
+
+// One accumulator row (columns 64 c + 4 kg + e) divided by div, into the
+// global row at out; 16-byte stores when `vec`.
+template <int NC>
+__device__ __forceinline__ void store_row_f32(float* __restrict__ out, const float (&acc)[4 * NC],
+                                              float div, int kg, int D, bool vec) {
+#pragma unroll
+  for (int c = 0; c < NC; ++c) {
+    const int col = 64 * c + 4 * kg;
+    const float x[4] = {acc[4 * c] / div, acc[4 * c + 1] / div, acc[4 * c + 2] / div,
+                        acc[4 * c + 3] / div};
+    if (vec) {
+      if (col < D) *reinterpret_cast<float4*>(out + col) = make_float4(x[0], x[1], x[2], x[3]);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (col + e < D) out[col + e] = x[e];
+    }
+  }
+}
+
+// K3-fp32: block = (batch*head, 64 query rows). A key tile of 64 comes
+// through the ring as DP / 32 chunks of k (64 keys x 32 columns: S += q k^T,
+// the thread's 8 x 4 scores) and then 8 chunks of v (8 keys x DP: O += P v,
+// the thread's 8 rows x DP / 16 columns); between them the online softmax of
+// the tile (row statistics by shuffles over the 16 lanes of a row) and the
+// probabilities into the warp's [64 keys][16 rows] shared tile.
+template <int DP>
+struct F32FwdTiles {
+  static constexpr int kCW = 32, kRW = 8;   // columns of a k chunk, rows of a v chunk
+  static constexpr int kQS = DP + 4;        // row stride of the q tile and the v chunks
+  static constexpr int kQ = kF32Rows * kQS;                 // floats of the q tile
+  static constexpr int kP = kF32Threads / 32 * BK * kPL;    // the warps' p tiles
+  static constexpr int kK = BK * (kCW + 4), kV = kRW * kQS;
+  static constexpr int kStage = kK > kV ? kK : kV;
+  static constexpr int kFit = (kF32Smem / 4 - kQ - kP) / kStage;
+  static constexpr int kStages = kFit < kF32Stages ? kFit : kF32Stages;
+  static_assert(kStages >= 2, "K3-fp32's ring needs two stages");
+  static constexpr int kChunks = DP / kCW, kSteps = kChunks + BK / kRW;  // stages a key tile
+  static constexpr size_t kSmem = 4 * ((size_t)kQ + kP + (size_t)kStages * kStage);
+};
+
+template <int DP, bool kLse>
+__global__ void __launch_bounds__(kF32Threads, 2)
 flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, float* __restrict__ o, float* __restrict__ lse,
-                     int T, int NH, int D, float scale, float clip) {
+                     int T, int NH, int D, float scale, float clip, int vec) {
+  using L = F32FwdTiles<DP>;
+  constexpr int S = L::kStages, NC = DP / 64, R = kF32Ri;
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  const int DS = D + 1;  // padded row stride of the q and k tiles
-  float* qs = reinterpret_cast<float*>(smem_raw);  // [BQ][DS]
-  float* ks = qs + BQ * DS;                         // [BK32][DS]
-  float* vs = ks + BK32 * DS;                       // [BK32][D]
-  float* ps = vs + BK32 * D;                        // [BQ][PS] probabilities
-
+  float* qs = reinterpret_cast<float*>(smem_raw);  // [64][kQS]
+  float* ps = qs + L::kQ;                           // warp w's p tile at ps + 64 kPL w
+  float* ring = ps + L::kP;                         // S stages of kStage floats
   const int bh = blockIdx.y, b = bh / NH, h = bh % NH;
-  const int q0 = blockIdx.x * BQ;
-  const int r = threadIdx.x / 4, part = threadIdx.x % 4;
+  const int q0 = blockIdx.x * kF32Rows;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int rg = lane / 16, kg = lane % 16, row0 = 16 * warp + rg;
+  const size_t head = ((size_t)b * T * NH + h) * D, stride = (size_t)NH * D;
+  const int steps = (T + BK - 1) / BK * L::kSteps;
 
-  load_tile_f32(qs, DS, q, b, h, q0, BQ, T, NH, D);
-  float acc[kColsPerLane];
-#pragma unroll
-  for (int i = 0; i < kColsPerLane; ++i) acc[i] = 0.0f;
-  float m = kNegInf, l = 0.0f;
-
-  for (int k0 = 0; k0 < T; k0 += BK32) {
-    __syncthreads();  // the previous tile's ks, vs and ps are consumed
-    load_tile_f32(ks, DS, k, b, h, k0, BK32, T, NH, D);
-    load_tile_f32(vs, D, v, b, h, k0, BK32, T, NH, D);
-    __syncthreads();
-
-    float s[BK32 / 4];
-#pragma unroll
-    for (int j = 0; j < BK32 / 4; ++j) s[j] = 0.0f;
-    for (int d = 0; d < D; ++d) {
-      const float qd = qs[r * DS + d];
-#pragma unroll
-      for (int j = 0; j < BK32 / 4; ++j) s[j] = fmaf(qd, ks[(part + 4 * j) * DS + d], s[j]);
+  // stage `it` of the walk into its slot, then one commit (empty past the end)
+  auto issue = [&](int it) {
+    if (it < steps) {
+      float* st = ring + (it % S) * L::kStage;
+      const int t0 = it / L::kSteps * BK, c = it % L::kSteps;
+      if (c < L::kChunks)
+        load_rows_f32<BK, L::kCW>(st, k + head, stride, t0, c * L::kCW, T, D, vec);
+      else
+        load_rows_f32<L::kRW, DP>(st, v + head, stride, t0 + (c - L::kChunks) * L::kRW, 0, T, D,
+                                  vec);
     }
+    cp_async_commit();
+  };
+  load_rows_f32<kF32Rows, DP>(qs, q + head, stride, q0, 0, T, D, vec);
+  for (int s = 0; s + 1 < S; ++s) issue(s);  // q lands with stage 0
 
-    // online softmax of row r over this tile: clamp, then mask keys >= T
-    float mx = kNegInf;
+  float acc[R][4 * NC], sc[R][4], m[R], l[R];
 #pragma unroll
-    for (int j = 0; j < BK32 / 4; ++j) {
-      float x = fminf(fmaxf(s[j] * scale, -clip), clip);
-      if (k0 + part + 4 * j >= T) x = kNegInf;
-      s[j] = x;
-      mx = fmaxf(mx, x);
-    }
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-    const float m_next = fmaxf(m, mx);
-    const float alpha = expf(m - m_next);
-    float sum = 0.0f;
+  for (int i = 0; i < R; ++i) {
 #pragma unroll
-    for (int j = 0; j < BK32 / 4; ++j) {
-      const float p = expf(s[j] - m_next);
-      sum += p;
-      ps[r * PS + part + 4 * j] = p;
-    }
-    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-    l = alpha * l + sum;
-    m = m_next;
-    __syncwarp();  // row r's probabilities come from the four lanes of this warp
+    for (int e = 0; e < 4 * NC; ++e) acc[i][e] = 0.0f;
+    m[i] = kNegInf;
+    l[i] = 0.0f;
+  }
+  float* pt = ps + BK * kPL * warp + R * rg;  // the thread's rows of its warp's p tile
+  const float* qa = qs + row0 * L::kQS;
 
-    // O = alpha * O + P v, in registers
+  for (int it = 0; it < steps; ++it) {
+    cp_async_wait<S - 2>();
+    __syncthreads();  // stage it has landed; every thread is done with stage it - 1's slot
+    issue(it + S - 1);
+    const float* st = ring + (it % S) * L::kStage;
+    const int c = it % L::kSteps;
+    if (c < L::kChunks) {
+      if (c == 0) {
 #pragma unroll
-    for (int i = 0; i < kColsPerLane; ++i) acc[i] *= alpha;
-    for (int c = 0; c < BK32; ++c) {
-      const float p = ps[r * PS + c];
-      const float* vrow = vs + c * D + part;
+        for (int i = 0; i < R; ++i)
 #pragma unroll
-      for (int i = 0; i < kColsPerLane; ++i)
-        if (part + 4 * i < D) acc[i] = fmaf(p, vrow[4 * i], acc[i]);
+          for (int j = 0; j < 4; ++j) sc[i][j] = 0.0f;
+      }
+      score_product<L::kCW, L::kQS, L::kCW + 4>(sc, qa + c * L::kCW, st + kg * (L::kCW + 4));
+      if (c == L::kChunks - 1) {
+        // online softmax of the rows over this key tile: clamp, then mask
+        // keys >= T (only the last tile has any)
+        const int t0 = it / L::kSteps * BK;
+        float alpha[R];
+        bool moved = false;
+#pragma unroll
+        for (int i = 0; i < R; ++i) {
+          float mx = kNegInf;
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            float x = fminf(fmaxf(sc[i][j] * scale, -clip), clip);
+            if (t0 + kg + 16 * j >= T) x = kNegInf;
+            sc[i][j] = x;
+            mx = fmaxf(mx, x);
+          }
+#pragma unroll
+          for (int off = 8; off; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+          const float m_next = fmaxf(m[i], mx);
+          alpha[i] = expf(m[i] - m_next);
+          moved |= alpha[i] != 1.0f;
+          m[i] = m_next;
+          float sum = 0.0f;
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            sc[i][j] = expf(sc[i][j] - m_next);
+            sum += sc[i][j];
+          }
+#pragma unroll
+          for (int off = 8; off; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
+          l[i] = alpha[i] * l[i] + sum;
+        }
+        // O = alpha O (+ P v below); alpha is 1 once a row's max stops moving
+        if (__any_sync(0xffffffffu, moved)) {
+#pragma unroll
+          for (int i = 0; i < R; ++i)
+#pragma unroll
+            for (int e = 0; e < 4 * NC; ++e) acc[i][e] *= alpha[i];
+        }
+        store_p_columns(pt, sc, kg);
+        __syncwarp();  // the rows' probabilities come from the 16 lanes of their half-warp
+      }
+    } else {
+      accumulate_product<L::kRW, NC, L::kQS>(acc, pt + kPL * (c - L::kChunks) * L::kRW,
+                                             st + 4 * kg);
     }
   }
+  cp_async_wait<0>();
 
-  if (q0 + r < T) {
-    const float div = l == 0.0f ? 1.0f : l;
-    float* orow = o + (((size_t)b * T + q0 + r) * NH + h) * D;
 #pragma unroll
-    for (int i = 0; i < kColsPerLane; ++i)
-      if (part + 4 * i < D) orow[part + 4 * i] = acc[i] / div;
-    if (kLse && part == 0) lse[(size_t)bh * T + q0 + r] = m + logf(div);
+  for (int i = 0; i < R; ++i) {
+    const int t = q0 + row0 + 2 * i;
+    if (t >= T) continue;
+    const float div = l[i] == 0.0f ? 1.0f : l[i];
+    store_row_f32<NC>(o + head + (size_t)t * stride, acc[i], div, kg, D, vec);
+    if (kLse && kg == 0) lse[(size_t)bh * T + t] = m[i] + logf(div);
   }
+}
+
+// K4b-fp32: block = (batch*head, 32 key rows), k and v loaded once. Warps 0
+// and 1 (group 0) compute S^T = K Q^T, p and dV += P^T dO; warps 2 and 3
+// (group 1) dP^T = V dO^T, dS and dK += dS^T Q. Warp 2 g + w owns key rows
+// 16 w .. 16 w + 15, lane (rg, kg) keys 16 w + rg + 2 i and, of each query
+// tile, queries kg + 16 j. A query tile of 64 comes through the ring as DP /
+// 16 chunks of q and dO (64 rows x 16 columns each; the last with the tile's
+// lse and delta) for the score products, then chunks of kRW rows x DP for
+// the accumulating ones. Group 0 writes p into its warps' [64 queries][16
+// keys] tiles and the gated p into the crossing tiles xs; after the next
+// block barrier group 1 turns xs into dS in place.
+template <int DP>
+struct F32DkvTiles {
+  static constexpr int kRows = kF32Rows / 2;  // key rows a block: 16 a warp of each group
+  static constexpr int kCW = 16;              // columns of a score chunk
+  static constexpr int kRW = DP > 192 ? 4 : 8;  // rows of an accumulating chunk
+  static constexpr int kRS = DP + 4;          // row stride of k, v and the accumulating chunks
+  static constexpr int kKV = kRows * kRS;     // floats of k or v
+  static constexpr int kP = 2 * BQ * kPL;     // a group's p (or dS) tiles
+  static constexpr int kStage1 = 2 * BQ * (kCW + 4) + 2 * BQ;  // q, dO chunks; lse, delta
+  static constexpr int kStage2 = 2 * kRW * kRS;
+  static constexpr int kStage = kStage1 > kStage2 ? kStage1 : kStage2;
+  static constexpr int kFit = (kF32Smem / 4 - 2 * kKV - 2 * kP) / kStage;
+  static constexpr int kStages = kFit < kF32Stages ? kFit : kF32Stages;
+  static_assert(kStages >= 2, "K4b-fp32's ring needs two stages");
+  static_assert(kF32Threads == 2 * BQ, "one lse or delta value a thread");
+  static constexpr int kChunks = DP / kCW, kSteps = kChunks + BQ / kRW;  // stages a query tile
+  static constexpr size_t kSmem = 4 * (2 * (size_t)kKV + 2 * kP + (size_t)kStages * kStage);
+};
+
+template <int DP>
+__global__ void __launch_bounds__(kF32Threads, 2)
+flash_bwd_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                         const float* __restrict__ v, const float* __restrict__ dout,
+                         const float* __restrict__ lse, const float* __restrict__ delta,
+                         float* __restrict__ dk, float* __restrict__ dv, int T, int NH, int D,
+                         float scale, float clip, int vec) {
+  using L = F32DkvTiles<DP>;
+  constexpr int S = L::kStages, NC = DP / 64, LC = L::kCW + 4, R = kF32Ri;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  float* ks = reinterpret_cast<float*>(smem_raw);  // [32][kRS]
+  float* vs = ks + L::kKV;
+  float* pa = vs + L::kKV;  // group 0's p tiles: warp w's at pa + 64 kPL w, [64 queries][16 keys]
+  float* xs = pa + L::kP;   // the gated p, group 0 to group 1, which overwrites it with dS
+  float* ring = xs + L::kP;
+  const int bh = blockIdx.y, b = bh / NH, h = bh % NH;
+  const int kv0 = blockIdx.x * L::kRows;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int grp = warp / 2, gw = warp % 2, rg = lane / 16, kg = lane % 16;
+  const int key0 = 16 * gw + rg;
+  const size_t head = ((size_t)b * T * NH + h) * D, stride = (size_t)NH * D;
+  const int steps = (T + BQ - 1) / BQ * L::kSteps;
+
+  auto issue = [&](int it) {
+    if (it < steps) {
+      float* st = ring + (it % S) * L::kStage;
+      const int t0 = it / L::kSteps * BQ, c = it % L::kSteps;
+      if (c < L::kChunks) {
+        load_rows_f32<BQ, L::kCW>(st, q + head, stride, t0, c * L::kCW, T, D, vec);
+        load_rows_f32<BQ, L::kCW>(st + BQ * LC, dout + head, stride, t0, c * L::kCW, T, D, vec);
+        if (c == L::kChunks - 1) {  // the tile's lse (threads 0-63) and delta (64-127)
+          const int half = threadIdx.x / BQ;
+          load_row_values(shared_address(st + 2 * BQ * LC + BQ * half),
+                          (half ? delta : lse) + (size_t)bh * T, t0, BQ, T, true,
+                          threadIdx.x % BQ);
+        }
+      } else {
+        const int r0 = t0 + (c - L::kChunks) * L::kRW;
+        load_rows_f32<L::kRW, DP>(st, q + head, stride, r0, 0, T, D, vec);
+        load_rows_f32<L::kRW, DP>(st + L::kRW * L::kRS, dout + head, stride, r0, 0, T, D, vec);
+      }
+    }
+    cp_async_commit();
+  };
+  load_rows_f32<L::kRows, DP>(ks, k + head, stride, kv0, 0, T, D, vec);
+  load_rows_f32<L::kRows, DP>(vs, v + head, stride, kv0, 0, T, D, vec);
+  for (int s = 0; s + 1 < S; ++s) issue(s);  // k and v land with stage 0
+
+  const float* a = (grp == 0 ? ks : vs) + key0 * L::kRS;
+  float* pt = (grp == 0 ? pa : xs) + BQ * kPL * gw + R * rg;  // p (group 0) or dS (1)
+  float* xt = xs + BQ * kPL * gw + R * rg;
+  bool key_ok[R];
+  float acc[R][4 * NC], sc[R][4], rv[4];  // rv: lse (group 0) or delta (1) of the thread's queries
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    key_ok[i] = kv0 + key0 + 2 * i < T;
+#pragma unroll
+    for (int e = 0; e < 4 * NC; ++e) acc[i][e] = 0.0f;
+  }
+
+  for (int it = 0; it < steps; ++it) {
+    cp_async_wait<S - 2>();
+    __syncthreads();  // stage it has landed; every thread is done with stage it - 1's slot
+    issue(it + S - 1);
+    const float* st = ring + (it % S) * L::kStage;
+    const int c = it % L::kSteps;
+    if (c < L::kChunks) {
+      if (c == 0) {
+#pragma unroll
+        for (int i = 0; i < R; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) sc[i][j] = 0.0f;
+      }
+      // S^T over k and the q chunk (group 0), dP^T over v and the dO chunk (1)
+      score_product<L::kCW, L::kRS, LC>(sc, a + c * L::kCW, st + grp * BQ * LC + kg * LC);
+      if (c == L::kChunks - 1) {
+        const int t0 = it / L::kSteps * BQ;
+        const float* vals = st + 2 * BQ * LC + grp * BQ;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) rv[j] = vals[kg + 16 * j];
+        if (grp == 0) {
+          // p (0 at keys and queries >= T), and p gated on the pre-clip z for dS
+          float pg[R][4];
+#pragma unroll
+          for (int i = 0; i < R; ++i)
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              const float z = sc[i][j] * scale;
+              float p = 0.0f, g = 0.0f;
+              if (key_ok[i] && t0 + kg + 16 * j < T) {
+                p = expf(fminf(fmaxf(z, -clip), clip) - rv[j]);
+                if (z >= -clip && z <= clip) g = p;
+              }
+              sc[i][j] = p;
+              pg[i][j] = g;
+            }
+          store_p_columns(pt, sc, kg);
+          store_p_columns(xt, pg, kg);
+          __syncwarp();
+        }
+      }
+    } else {
+      if (grp == 1 && c == L::kChunks) {
+        // group 0's gated p of this tile is in xs since this step's barrier
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int hf = 0; hf < 2; ++hf) {
+            float4* x = reinterpret_cast<float4*>(xt + kPL * (kg + 16 * j) + 4 * hf);
+            const float4 g = *x;
+            const int i = 4 * hf;
+            *x = make_float4(g.x * (sc[i][j] - rv[j]) * scale, g.y * (sc[i + 1][j] - rv[j]) * scale,
+                             g.z * (sc[i + 2][j] - rv[j]) * scale,
+                             g.w * (sc[i + 3][j] - rv[j]) * scale);
+          }
+        __syncwarp();
+      }
+      // dV += P^T dO (group 0) or dK += dS^T Q (group 1) over the chunk's rows
+      accumulate_product<L::kRW, NC, L::kRS>(acc, pt + kPL * (c - L::kChunks) * L::kRW,
+                                             st + (grp == 0 ? L::kRW * L::kRS : 0) + 4 * kg);
+    }
+  }
+  cp_async_wait<0>();
+
+  float* out = grp == 0 ? dv : dk;
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+    if (key_ok[i])
+      store_row_f32<NC>(out + head + (size_t)(kv0 + key0 + 2 * i) * stride, acc[i], 1.0f, kg, D,
+                        vec);
 }
 
 // ---------------------------------------------------------------------------
@@ -770,13 +1144,15 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// K4b (dK, dV), bf16, and its delta pre-pass
+// K4b (dK, dV), bf16, and the delta pre-pass of both K4b entries
 // ---------------------------------------------------------------------------
 
 // delta[b, h, t] = sum_d dO[b, t, h, d] o[b, t, h, d] in fp32, one warp a row
-// (warp_row_dot); rows are (b, t, h) in memory order, R = B * T * NH.
+// (warp_row_dot), from bf16 or fp32 o and dO; rows are (b, t, h) in memory
+// order, R = B * T * NH. The pre-pass of both K4b entries.
+template <typename E>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_delta_kernel(const bf16* __restrict__ o, const bf16* __restrict__ dout,
+flash_bwd_delta_kernel(const E* __restrict__ o, const E* __restrict__ dout,
                        float* __restrict__ delta, int R, int T, int NH, int D) {
   const int r = blockIdx.x * kWarps + threadIdx.x / 32, lane = threadIdx.x % 32;
   if (r >= R) return;
@@ -933,8 +1309,12 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// K4a and K4b, fp32 (CUDA cores)
+// K4a, fp32 (CUDA cores)
 // ---------------------------------------------------------------------------
+
+constexpr int BK32 = 32;                // key rows per tile
+constexpr int PS = BK32 + 1;            // padded row stride of an fp32 [rows][BK32] tile
+constexpr int kColsPerLane = kMaxD / 4;  // output columns a lane accumulates
 
 size_t smem_bytes_dq_f32(int D) {
   return sizeof(float) * (2 * (size_t)(BQ + BK32) * (D + 1) + (size_t)BQ * PS);
@@ -1018,105 +1398,6 @@ flash_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k
   }
 }
 
-constexpr int kColsPerLane8 = kMaxD / 8;  // dK / dV columns a lane accumulates
-
-size_t smem_bytes_dkv_f32(int D) {
-  return sizeof(float) * (2 * (size_t)(BK32 + BQ) * (D + 1) + 2 * (size_t)BQ * PS);
-}
-
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                         const float* __restrict__ v, const float* __restrict__ o,
-                         const float* __restrict__ dout, const float* __restrict__ lse,
-                         float* __restrict__ dk, float* __restrict__ dv, int T, int NH, int D,
-                         float scale, float clip) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  const int DS = D + 1;
-  float* ks = reinterpret_cast<float*>(smem_raw);  // [BK32][DS]
-  float* vs = ks + BK32 * DS;                       // [BK32][DS]
-  float* qs = vs + BK32 * DS;                       // [BQ][DS]
-  float* dos = qs + BQ * DS;                        // [BQ][DS] dO
-  float* ps = dos + BQ * DS;                        // [BQ][PS] p
-  float* dss = ps + BQ * PS;                        // [BQ][PS] dS
-
-  const int bh = blockIdx.y, b = bh / NH, h = bh % NH;
-  const int kv0 = blockIdx.x * BK32;
-  // score step: 4 lanes per query row r; accumulation step: 8 lanes per key row
-  const int r = threadIdx.x / 4, part = threadIdx.x % 4;
-  const int key = threadIdx.x / 8, cpart = threadIdx.x % 8;
-
-  load_tile_f32(ks, DS, k, b, h, kv0, BK32, T, NH, D);
-  load_tile_f32(vs, DS, v, b, h, kv0, BK32, T, NH, D);
-  float dk_acc[kColsPerLane8], dv_acc[kColsPerLane8];
-#pragma unroll
-  for (int i = 0; i < kColsPerLane8; ++i) dk_acc[i] = dv_acc[i] = 0.0f;
-
-  for (int q0 = 0; q0 < T; q0 += BQ) {
-    __syncthreads();  // the previous query tile's qs, dos, ps and dss are consumed
-    load_tile_f32(qs, DS, q, b, h, q0, BQ, T, NH, D);
-    load_tile_f32(dos, DS, dout, b, h, q0, BQ, T, NH, D);
-    __syncthreads();
-
-    const bool row_ok = q0 + r < T;
-    float delta = 0.0f;
-    if (row_ok) {
-      const float* orow = o + (((size_t)b * T + q0 + r) * NH + h) * D;
-      for (int d = part; d < D; d += 4) delta += dos[r * DS + d] * orow[d];
-    }
-    delta += __shfl_xor_sync(0xffffffffu, delta, 1);
-    delta += __shfl_xor_sync(0xffffffffu, delta, 2);
-    const float lse_r = row_ok ? lse[(size_t)bh * T + q0 + r] : 0.0f;
-
-    float s[BK32 / 4], dp[BK32 / 4];
-#pragma unroll
-    for (int j = 0; j < BK32 / 4; ++j) s[j] = dp[j] = 0.0f;
-    for (int d = 0; d < D; ++d) {
-      const float qd = qs[r * DS + d], gd = dos[r * DS + d];
-#pragma unroll
-      for (int j = 0; j < BK32 / 4; ++j) {
-        s[j] = fmaf(qd, ks[(part + 4 * j) * DS + d], s[j]);
-        dp[j] = fmaf(gd, vs[(part + 4 * j) * DS + d], dp[j]);
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < BK32 / 4; ++j) {
-      const float z = s[j] * scale;
-      float p = 0.0f, ds = 0.0f;
-      if (row_ok && kv0 + part + 4 * j < T) {
-        p = expf(fminf(fmaxf(z, -clip), clip) - lse_r);
-        if (z >= -clip && z <= clip) ds = p * (dp[j] - delta) * scale;
-      }
-      ps[r * PS + part + 4 * j] = p;
-      dss[r * PS + part + 4 * j] = ds;
-    }
-    __syncthreads();
-
-    // dV[key] += sum_r p[r, key] dO[r], dK[key] += sum_r dS[r, key] q[r]
-    for (int rr = 0; rr < BQ; ++rr) {
-      const float p = ps[rr * PS + key], g = dss[rr * PS + key];
-      const float* dorow = dos + rr * DS + cpart;
-      const float* qrow = qs + rr * DS + cpart;
-#pragma unroll
-      for (int i = 0; i < kColsPerLane8; ++i) {
-        if (cpart + 8 * i < D) {
-          dv_acc[i] = fmaf(p, dorow[8 * i], dv_acc[i]);
-          dk_acc[i] = fmaf(g, qrow[8 * i], dk_acc[i]);
-        }
-      }
-    }
-  }
-
-  if (kv0 + key < T) {
-    const size_t at = (((size_t)b * T + kv0 + key) * NH + h) * D;
-#pragma unroll
-    for (int i = 0; i < kColsPerLane8; ++i) {
-      if (cpart + 8 * i < D) {
-        dk[at + cpart + 8 * i] = dk_acc[i];
-        dv[at + cpart + 8 * i] = dv_acc[i];
-      }
-    }
-  }
-}
 bool bad_shape(int B, int T, int NH, int D) {
   return B <= 0 || T <= 0 || NH <= 0 || D <= 0 || D > kMaxD || B * NH > 65535;
 }
@@ -1133,10 +1414,11 @@ int launch(Kernel kernel, dim3 grid, int threads, size_t smem, void* stream, Arg
 // The Hopper kernels' head_dim, padded to whole 64-column chunks.
 int padded_dim(int D) { return D <= 64 ? 64 : D <= 128 ? 128 : D <= 192 ? 192 : 256; }
 
-// Rows of D bf16 that cp.async can copy in 16-byte pieces: D % 8 == 0 and
-// every base address 16-byte aligned.
-bool rows16(int D, std::initializer_list<const void*> ptrs) {
-  if (D % 8 != 0) return false;
+// Rows of D elements that cp.async can copy in 16-byte pieces: D a multiple
+// of the elements in 16 bytes (8 bf16, 4 fp32) and every base address
+// 16-byte aligned.
+bool rows16(int D, int per16, std::initializer_list<const void*> ptrs) {
+  if (D % per16 != 0) return false;
   for (const void* p : ptrs)
     if (reinterpret_cast<uintptr_t>(p) % 16 != 0) return false;
   return true;
@@ -1171,6 +1453,28 @@ int dkv_bf16(const bf16* q, const bf16* k, const bf16* v, const bf16* dout, cons
                 clip, vec);
 }
 
+template <int DP>
+int forward_f32(const float* q, const float* k, const float* v, float* o, float* lse, int B, int T,
+                int NH, int D, float scale, float clip, int vec, void* stream) {
+  using L = F32FwdTiles<DP>;
+  const dim3 grid((T + kF32Rows - 1) / kF32Rows, B * NH);
+  if (lse)
+    return launch(flash_fwd_f32_kernel<DP, true>, grid, kF32Threads, L::kSmem, stream, q, k, v, o,
+                  lse, T, NH, D, scale, clip, vec);
+  return launch(flash_fwd_f32_kernel<DP, false>, grid, kF32Threads, L::kSmem, stream, q, k, v, o,
+                lse, T, NH, D, scale, clip, vec);
+}
+
+template <int DP>
+int dkv_f32(const float* q, const float* k, const float* v, const float* dout, const float* lse,
+            const float* delta, float* dk, float* dv, int B, int T, int NH, int D, float scale,
+            float clip, int vec, void* stream) {
+  using L = F32DkvTiles<DP>;
+  return launch(flash_bwd_dkv_f32_kernel<DP>, dim3((T + L::kRows - 1) / L::kRows, B * NH),
+                kF32Threads, L::kSmem, stream, q, k, v, dout, lse, delta, dk, dv, T, NH, D, scale,
+                clip, vec);
+}
+
 }  // namespace
 
 extern "C" {
@@ -1186,7 +1490,7 @@ int flash_attention_clamped_forward(const void* q, const void* k, const void* v,
   const auto* vp = static_cast<const bf16*>(v);
   auto* op = static_cast<bf16*>(o);
   auto* lp = static_cast<float*>(lse);
-  const int vec = rows16(D, {q, k, v, o});
+  const int vec = rows16(D, 8, {q, k, v, o});
   switch (padded_dim(D)) {
     case 64: return forward_bf16<64>(qp, kp, vp, op, lp, B, T, NH, D, scale, clip, vec, stream);
     case 128: return forward_bf16<128>(qp, kp, vp, op, lp, B, T, NH, D, scale, clip, vec, stream);
@@ -1200,17 +1504,18 @@ int flash_attention_clamped_forward_f32(const void* q, const void* k, const void
                                         void* lse, int B, int T, int NH, int D, float scale,
                                         float clip, void* stream) {
   if (bad_shape(B, T, NH, D)) return cudaErrorInvalidValue;
-  const dim3 grid((T + BQ - 1) / BQ, B * NH);
   const auto* qp = static_cast<const float*>(q);
   const auto* kp = static_cast<const float*>(k);
   const auto* vp = static_cast<const float*>(v);
   auto* op = static_cast<float*>(o);
   auto* lp = static_cast<float*>(lse);
-  if (lse)
-    return launch(flash_fwd_f32_kernel<true>, grid, kThreads, smem_bytes_f32(D), stream, qp, kp,
-                  vp, op, lp, T, NH, D, scale, clip);
-  return launch(flash_fwd_f32_kernel<false>, grid, kThreads, smem_bytes_f32(D), stream, qp, kp, vp,
-                op, lp, T, NH, D, scale, clip);
+  const int vec = rows16(D, 4, {q, k, v, o});
+  switch (padded_dim(D)) {
+    case 64: return forward_f32<64>(qp, kp, vp, op, lp, B, T, NH, D, scale, clip, vec, stream);
+    case 128: return forward_f32<128>(qp, kp, vp, op, lp, B, T, NH, D, scale, clip, vec, stream);
+    case 192: return forward_f32<192>(qp, kp, vp, op, lp, B, T, NH, D, scale, clip, vec, stream);
+    default: return forward_f32<256>(qp, kp, vp, op, lp, B, T, NH, D, scale, clip, vec, stream);
+  }
 }
 
 // K4a: dq from q, k, v, o, dout (bf16) and lse (fp32).
@@ -1226,7 +1531,7 @@ int flash_attention_clamped_backward_dq(const void* q, const void* k, const void
   const auto* gp = static_cast<const bf16*>(dout);
   const auto* lp = static_cast<const float*>(lse);
   auto* dqp = static_cast<bf16*>(dq);
-  const int vec = rows16(D, {q, k, v, o, dout, dq});
+  const int vec = rows16(D, 8, {q, k, v, o, dout, dq});
   switch (padded_dim(D)) {
     case 64: return dq_bf16<64>(qp, kp, vp, op, gp, lp, dqp, B, T, NH, D, scale, clip, vec, stream);
     case 128: return dq_bf16<128>(qp, kp, vp, op, gp, lp, dqp, B, T, NH, D, scale, clip, vec, stream);
@@ -1252,10 +1557,10 @@ int flash_attention_clamped_backward_dkv(const void* q, const void* k, const voi
   auto* dkp = static_cast<bf16*>(dk);
   auto* dvp = static_cast<bf16*>(dv);
   const int rows = B * T * NH;
-  int err = launch(flash_bwd_delta_kernel, dim3((rows + kWarps - 1) / kWarps), kThreads, 0, stream,
+  int err = launch(flash_bwd_delta_kernel<bf16>, dim3((rows + kWarps - 1) / kWarps), kThreads, 0, stream,
                    static_cast<const bf16*>(o), gp, dl, rows, T, NH, D);
   if (err != cudaSuccess) return err;
-  const int vec = rows16(D, {q, k, v, dout, dk, dv});
+  const int vec = rows16(D, 8, {q, k, v, dout, dk, dv});
   switch (padded_dim(D)) {
     case 64: return dkv_bf16<64>(qp, kp, vp, gp, lp, dl, dkp, dvp, B, T, NH, D, scale, clip, vec, stream);
     case 128: return dkv_bf16<128>(qp, kp, vp, gp, lp, dl, dkp, dvp, B, T, NH, D, scale, clip, vec, stream);
@@ -1277,18 +1582,32 @@ int flash_attention_clamped_backward_dq_f32(const void* q, const void* k, const 
                 static_cast<const float*>(lse), static_cast<float*>(dq), T, NH, D, scale, clip);
 }
 
-// K4b, fp32.
+// K4b, fp32: as the bf16 entry, delta scratch included.
 int flash_attention_clamped_backward_dkv_f32(const void* q, const void* k, const void* v,
                                              const void* o, const void* dout, const void* lse,
-                                             void* dk, void* dv, int B, int T, int NH, int D,
-                                             float scale, float clip, void* stream) {
+                                             void* delta, void* dk, void* dv, int B, int T,
+                                             int NH, int D, float scale, float clip,
+                                             void* stream) {
   if (bad_shape(B, T, NH, D)) return cudaErrorInvalidValue;
-  return launch(flash_bwd_dkv_f32_kernel, dim3((T + BK32 - 1) / BK32, B * NH), kThreads,
-                smem_bytes_dkv_f32(D), stream, static_cast<const float*>(q),
-                static_cast<const float*>(k), static_cast<const float*>(v),
-                static_cast<const float*>(o), static_cast<const float*>(dout),
-                static_cast<const float*>(lse), static_cast<float*>(dk), static_cast<float*>(dv),
-                T, NH, D, scale, clip);
+  const auto* qp = static_cast<const float*>(q);
+  const auto* kp = static_cast<const float*>(k);
+  const auto* vp = static_cast<const float*>(v);
+  const auto* gp = static_cast<const float*>(dout);
+  const auto* lp = static_cast<const float*>(lse);
+  auto* dl = static_cast<float*>(delta);
+  auto* dkp = static_cast<float*>(dk);
+  auto* dvp = static_cast<float*>(dv);
+  const int rows = B * T * NH;
+  int err = launch(flash_bwd_delta_kernel<float>, dim3((rows + kWarps - 1) / kWarps), kThreads, 0,
+                   stream, static_cast<const float*>(o), gp, dl, rows, T, NH, D);
+  if (err != cudaSuccess) return err;
+  const int vec = rows16(D, 4, {q, k, v, dout, dk, dv});
+  switch (padded_dim(D)) {
+    case 64: return dkv_f32<64>(qp, kp, vp, gp, lp, dl, dkp, dvp, B, T, NH, D, scale, clip, vec, stream);
+    case 128: return dkv_f32<128>(qp, kp, vp, gp, lp, dl, dkp, dvp, B, T, NH, D, scale, clip, vec, stream);
+    case 192: return dkv_f32<192>(qp, kp, vp, gp, lp, dl, dkp, dvp, B, T, NH, D, scale, clip, vec, stream);
+    default: return dkv_f32<256>(qp, kp, vp, gp, lp, dl, dkp, dvp, B, T, NH, D, scale, clip, vec, stream);
+  }
 }
 
 const char* kernel_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }

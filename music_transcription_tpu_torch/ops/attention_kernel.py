@@ -37,6 +37,9 @@ MAX_BATCH_HEADS = 65535  # B * H: the kernels' grids take one (batch, head) a ro
 K3_KEY_TILE = 64  # keys a bf16 K3 stage holds
 K4A_KEY_TILE = 64  # keys a bf16 K4a stage holds
 K4B_QUERY_TILE = 64  # query rows a bf16 K4b stage holds
+K3_KEY_TILE_F32 = 64  # keys of an fp32 K3 tile (its ring's k and v chunks)
+K4A_KEY_TILE_F32 = 32  # keys of an fp32 K4a tile
+K4B_QUERY_TILE_F32 = 64  # query rows of an fp32 K4b tile (its ring's q and dO chunks)
 _SUFFIX = {torch.bfloat16: "", torch.float32: "_f32"}  # of each launch function's name
 
 
@@ -105,12 +108,13 @@ def attention_delta_plain(o, do) -> torch.Tensor:
     return (do.float() * o.float()).sum(-1).permute(0, 2, 1).contiguous()
 
 
-def faulty_fwd_plain(q, k, v, scale: float, clip_val: float = 10.0):
+def faulty_fwd_plain(q, k, v, scale: float, clip_val: float = 10.0, *, tile: int = K3_KEY_TILE):
     """What K3 would give if one stage of its ring were read before it was
     refilled: the plain version with key tile ``nk // 2``'s v rows taken
-    from the tile before it (``K3_KEY_TILE`` keys a tile). For showing that
-    K3's tolerance catches a stale stage."""
-    t, tile = k.shape[1], K3_KEY_TILE
+    from the tile before it (``tile`` keys a tile: ``K3_KEY_TILE`` in bf16,
+    ``K3_KEY_TILE_F32`` in fp32). For showing that K3's tolerance catches a
+    stale stage."""
+    t = k.shape[1]
     j = -(-t // tile) // 2
     if j < 1:
         raise ValueError(f"a stale stage needs two key tiles of {tile}, T={t}")
@@ -123,13 +127,14 @@ DKV_FAULTS = ("skip_last_query_tile", "stale_query_stage")
 
 
 def faulty_dkv_plain(q, k, v, o, do, lse, scale: float, clip_val: float = 10.0, *,
-                     fault: str):
+                     fault: str, tile: int = K4B_QUERY_TILE):
     """What K4b would give with a broken query ring, (dk, dv) of the plain
     backward: "skip_last_query_tile" leaves out the query rows past the last
-    whole tile of ``K4B_QUERY_TILE`` (the partial tail); "stale_query_stage"
-    gives query tile ``nq // 2`` the q, dO, lse and delta (o) of the tile
-    before it. For showing that K4b's tolerance catches either."""
-    t, tile = q.shape[1], K4B_QUERY_TILE
+    whole tile of ``tile`` (``K4B_QUERY_TILE`` in bf16, ``K4B_QUERY_TILE_F32``
+    in fp32: the partial tail); "stale_query_stage" gives query tile
+    ``nq // 2`` the q, dO, lse and delta (o) of the tile before it. For
+    showing that K4b's tolerance catches either."""
+    t = q.shape[1]
     if fault == "skip_last_query_tile":
         kept = t // tile * tile
         q, o, do, lse = q[:, :kept], o[:, :kept], do[:, :kept], lse[..., :kept]
@@ -151,13 +156,14 @@ def faulty_dkv_plain(q, k, v, o, do, lse, scale: float, clip_val: float = 10.0, 
 DQ_FAULTS = ("skip_last_key_tile", "stale_key_stage")
 
 
-def faulty_dq_plain(q, k, v, o, do, lse, scale: float, clip_val: float = 10.0, *, fault: str):
+def faulty_dq_plain(q, k, v, o, do, lse, scale: float, clip_val: float = 10.0, *, fault: str,
+                    tile: int = K4A_KEY_TILE):
     """What K4a would give with a broken key ring, dq of the plain backward:
     "skip_last_key_tile" leaves out the keys past the last whole tile of
-    ``K4A_KEY_TILE`` (the partial tail); "stale_key_stage" gives key tile
-    ``nk // 2`` the k and v of the tile before it. For showing that K4a's
-    tolerance catches either."""
-    t, tile = k.shape[1], K4A_KEY_TILE
+    ``tile`` (``K4A_KEY_TILE`` in bf16, ``K4A_KEY_TILE_F32`` in fp32: the
+    partial tail); "stale_key_stage" gives key tile ``nk // 2`` the k and v
+    of the tile before it. For showing that K4a's tolerance catches either."""
+    t = k.shape[1]
     if fault == "skip_last_key_tile":
         kept = t // tile * tile
         k, v = k[:, :kept], v[:, :kept]
@@ -270,8 +276,8 @@ def flash_attention_clamped_dq(q, k, v, o, do, lse, scale: float, clip_val: floa
 
 
 def flash_attention_clamped_dkv(q, k, v, o, do, lse, scale: float, clip_val: float = 10.0):
-    """K4b: (dk, dv), each (B, T, H, D) in q's dtype. In bf16 the launch runs
-    a pre-pass that writes delta = rowsum(do * o) (``attention_delta_plain``)
+    """K4b: (dk, dv), each (B, T, H, D) in q's dtype. The launch runs a
+    pre-pass that writes delta = rowsum(do * o) (``attention_delta_plain``)
     into scratch allocated here, then the kernel; both count as one launch in
     ``flash_attention_clamped_dkv.launches``."""
     if q.device.type == "cpu":
@@ -280,12 +286,11 @@ def flash_attention_clamped_dkv(q, k, v, o, do, lse, scale: float, clip_val: flo
     lse = _check_lse("flash_attention_clamped_dkv", lse, shape)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     if dk.numel():
-        ins = (q, k, v, o, do, lse)
-        if q.dtype == torch.bfloat16:
-            ins += (torch.empty_like(lse),)  # delta
+        delta = torch.empty_like(lse)
         with torch.cuda.device(q.device):
             _launch("flash_attention_clamped_backward_dkv", q.dtype,
-                    tuple(x.data_ptr() for x in (*ins, dk, dv)), shape, scale, clip_val)
+                    tuple(x.data_ptr() for x in (q, k, v, o, do, lse, delta, dk, dv)), shape,
+                    scale, clip_val)
         flash_attention_clamped_dkv.launches += 1
     return dk, dv
 

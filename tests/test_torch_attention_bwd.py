@@ -214,12 +214,17 @@ def test_faulty_dkv_plain_fails_where_plain_passes(fault, t):
     assert max(np.abs(f.numpy() - r).max() for f, r in zip(faulty, ref)) > 100 * GRAD_FP32_TOL
 
 
-@pytest.mark.parametrize("fault,t", [("skip_last_key_tile", 37), ("skip_last_key_tile", 130),
-                                     ("stale_key_stage", 130)])
-def test_faulty_dq_plain_fails_where_plain_passes(fault, t):
+@pytest.mark.parametrize("fault,t,tile", [
+    *(pytest.param(f, t, AK.K4A_KEY_TILE, id=f"{f}-{t}")
+      for f, t in [("skip_last_key_tile", 37), ("skip_last_key_tile", 130),
+                   ("stale_key_stage", 130)]),
+    # the fp32 K4a's 32-key tile, at T = 2 tiles + 1
+    *(pytest.param(f, 2 * AK.K4A_KEY_TILE_F32 + 1, AK.K4A_KEY_TILE_F32,
+                   id=f"{f}-fp32_tile{AK.K4A_KEY_TILE_F32}") for f in AK.DQ_FAULTS)])
+def test_faulty_dq_plain_fails_where_plain_passes(fault, t, tile):
     """K4a's ring faults: dq far outside the tolerance that the plain backward
     meets against JAX's VJP (at T=37 the only key tile is partial, so skipping
-    it leaves nothing)."""
+    it leaves nothing), at the bf16 kernel's key tile and the fp32 one's."""
     q, k, v, do = _small_inputs(t, seed=t + 13)
     scale = D_SMALL**-0.5
     args = [jnp.asarray(x) for x in (q, k, v)]
@@ -228,7 +233,7 @@ def test_faulty_dq_plain_fails_where_plain_passes(fault, t):
     tq, tk, tv, tdo = map(torch.from_numpy, (q, k, v, do))
     o, lse = AK.attention_clamped_fwd_plain(tq, tk, tv, scale)
     plain = AK.attention_clamped_bwd_plain(tq, tk, tv, o, tdo, lse, scale)[0]
-    faulty = AK.faulty_dq_plain(tq, tk, tv, o, tdo, lse, scale, fault=fault)
+    faulty = AK.faulty_dq_plain(tq, tk, tv, o, tdo, lse, scale, fault=fault, tile=tile)
     assert np.abs(plain.numpy() - ref).max() < GRAD_FP32_TOL
     assert np.abs(faulty.numpy() - ref).max() > 100 * GRAD_FP32_TOL
 

@@ -149,12 +149,7 @@ def test_flash_attention_refuses_a_gradient_on_card(cuda):
 FLASH_GRAD_TOL = {torch.bfloat16: 2.0**-7, torch.float32: 1e-5}
 
 
-# T=257: a partial last tile of both K3's 128 query rows and K4b's 64 key
-# rows, and of the 64-row tiles both stream (one row each)
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
-@pytest.mark.parametrize("b,t,nh,d", [(1, 37, 2, 192), (2, 130, 8, 192), (1, 100, 2, 24),
-                                      (1, 70, 1, 18), (1, 150, 2, 256), (1, 257, 2, 192)])
-def test_flash_training_kernels_match_plain(cuda, b, t, nh, d, dtype):
+def _flash_training_kernels_match_plain(cuda, b, t, nh, d, dtype):
     rng = np.random.default_rng(t + d + 1)
     q, k, v, do = (torch.from_numpy((m * rng.standard_normal((b, t, nh, d))).astype(np.float32))
                    .to(cuda, dtype) for m in (6.0, 1.0, 1.0, 1.0))
@@ -179,6 +174,26 @@ def test_flash_training_kernels_match_plain(cuda, b, t, nh, d, dtype):
         assert got.dtype == dtype
         err = float((got.float() - want.float()).abs().max())
         assert err <= FLASH_GRAD_TOL[dtype] * float(want.float().abs().max())
+
+
+# T=257: a partial last tile of both K3's 128 query rows and K4b's 64 key
+# rows, and of the 64-row tiles both stream (one row each)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("b,t,nh,d", [(1, 37, 2, 192), (2, 130, 8, 192), (1, 100, 2, 24),
+                                      (1, 70, 1, 18), (1, 150, 2, 256), (1, 257, 2, 192)])
+def test_flash_training_kernels_match_plain(cuda, b, t, nh, d, dtype):
+    _flash_training_kernels_match_plain(cuda, b, t, nh, d, dtype)
+
+
+# T = 2 tiles + 1 of the fp32 K3's key tiles and K4b's query tiles: the
+# ring's chunks of a third, partial tile, at D=192, 24 (16-byte rows padded
+# to 64 columns) and 18 (plain loads)
+@pytest.mark.parametrize("b,t,nh,d", sorted({(1, 2 * tile + 1, nh, d)
+                                             for tile in (AK.K3_KEY_TILE_F32,
+                                                          AK.K4B_QUERY_TILE_F32)
+                                             for nh, d in ((2, 192), (3, 24), (1, 18))}))
+def test_fp32_flash_training_kernels_match_plain_at_the_tile_edges(cuda, b, t, nh, d):
+    _flash_training_kernels_match_plain(cuda, b, t, nh, d, torch.float32)
 
 
 @pytest.mark.parametrize("attention", ["xla", "pallas"])
@@ -372,15 +387,14 @@ def test_flash_kernel_matches_plain(cuda, b, t, nh, d, dtype):
     assert bool(((got - ref).abs() <= rtol * ref.abs() + ptol * ref_abs_v).all())
 
 
-@pytest.mark.parametrize("b,t,nh,d", [(2, 257, 4, 192), (1, 70, 1, 18)])
-def test_flash_kernels_repeat_bit_identical(cuda, b, t, nh, d):
+def _flash_kernels_repeat_bit_identical(cuda, b, t, nh, d, dtype):
     """K3 (without and with lse), K4a and K4b, whose tiles stream through a
     ring of shared-memory stages, launched 5 times on the same inputs: the
     same bits every time (a stage read before it is refilled shows as a
     difference)."""
     rng = np.random.default_rng(t + d + 2)
     q, k, v, do = (torch.from_numpy((m * rng.standard_normal((b, t, nh, d))).astype(np.float32))
-                   .to(cuda, torch.bfloat16) for m in (6.0, 1.0, 1.0, 1.0))
+                   .to(cuda, dtype) for m in (6.0, 1.0, 1.0, 1.0))
     scale = d**-0.5
     calls = (lambda: (AK.flash_attention_clamped(q, k, v, scale),),
              lambda: AK.flash_attention_clamped_fwd(q, k, v, scale))
@@ -394,6 +408,19 @@ def test_flash_kernels_repeat_bit_identical(cuda, b, t, nh, d):
         for _ in range(4):
             again = call()
             assert all(torch.equal(x, y) for x, y in zip(again, first))
+
+
+REPEAT_SHAPES = [(2, 257, 4, 192), (1, 70, 1, 18)]
+
+
+@pytest.mark.parametrize("b,t,nh,d", REPEAT_SHAPES)
+def test_flash_kernels_repeat_bit_identical(cuda, b, t, nh, d):
+    _flash_kernels_repeat_bit_identical(cuda, b, t, nh, d, torch.bfloat16)
+
+
+@pytest.mark.parametrize("b,t,nh,d", REPEAT_SHAPES)
+def test_fp32_flash_kernels_repeat_bit_identical(cuda, b, t, nh, d):
+    _flash_kernels_repeat_bit_identical(cuda, b, t, nh, d, torch.float32)
 
 
 def test_flash_wrappers_raise_on_shapes_the_kernels_do_not_take(cuda):
