@@ -69,7 +69,8 @@ Phases, in order; any failure exits non-zero:
      fp32, element by element, K3 with lse, K4a and K4b launched 5 times
      with bit-identical outputs, with the scores of a backward without the
      clamp gate, of one skipping the last partial key tile, of K4a's plain
-     dq skipping the last partial key tile or reading a stale k / v stage,
+     dq skipping the last partial key tile, reading a stale k / v stage or
+     dropping one warp pair's partial dq (the fp32 kernel's pair sum),
      and of K4b's plain version skipping the last partial query tile or
      reading a stale q / dO stage (each at the dtype's tiles), all of which
      must fail the bound;
@@ -100,7 +101,11 @@ Phases, in order; any failure exits non-zero:
      K2b by 4; per validation batch K3 (no lse) by 1 and K1 by 4; model_best's
      sidecar must say "pallas". Warm steps timed beside phase 6's, one
      profiled, and one full-width fp32 flash step on the card against the CPU
-     (K3 with lse, K4a and K4b in fp32, once each);
+     (K3 with lse, K4a and K4b in fp32, once each); then warm full-width fp32
+     steps on a seeded batch of 12 chunks of 30 s, attention "pallas" (K3
+     with lse, K4a and K4b once a step) and "xla" (none) in turns, their
+     medians, launches and peak memory, and the flash kernels' share of a
+     profiled "pallas" step;
   8. evaluate on the card with python -m music_transcription_tpu_torch.evaluate
      (in this process): phase 7's model_best on the cache's validation split
      with a tuned threshold (K1 4 and K3 1 per batch of 8), and phase 6's
@@ -631,10 +636,11 @@ def check_k4(torch, ak, rows):
     times with bit-identical outputs; the scores of a backward without the
     clamp gate, of one skipping the last partial key tile, (K4a's ring:
     ``ak.faulty_dq_plain``, dq alone) of one skipping the last partial key
-    tile and of one reading a stale k / v stage, and (K4b's ring:
-    ``ak.faulty_dkv_plain``) of one skipping the last partial query tile and
-    of one reading a stale q / dO stage, each at the dtype's tiles, must fail
-    the bound. Returns the records of the three, by dtype."""
+    tile, of one reading a stale k / v stage and (fp32 alone) of the fp32
+    kernel's sum of its two warp pairs' partial dq with one dropped, and
+    (K4b's ring: ``ak.faulty_dkv_plain``) of one skipping the last partial
+    query tile and of one reading a stale q / dO stage, each at the dtype's
+    tiles, must fail the bound. Returns the records of the three, by dtype."""
     from music_transcription_tpu_torch.ops.precision import full_fp32
 
     rng = np.random.default_rng(SEED + 8)
@@ -680,7 +686,8 @@ def check_k4(torch, ak, rows):
             del skipped
             dq_faults = {name: k4_score([ak.faulty_dq_plain(
                 q, k, v, ref_o, do, ref_lse, scale, clip, fault=name, tile=dq_tile)], ref[:1],
-                mag[:1], dtype) for name in ak.DQ_FAULTS}
+                mag[:1], dtype) for name in ak.DQ_FAULTS
+                if not (bf16 and name == "dropped_pair_partial")}  # no pair sum in bf16
             dkv_faults = {name: k4_score(ak.faulty_dkv_plain(
                 q, k, v, ref_o, do, ref_lse, scale, clip, fault=name, tile=dkv_tile), ref[1:],
                 mag[1:], dtype) for name in ak.DKV_FAULTS}
@@ -1497,6 +1504,89 @@ def check_fp32_step(torch, mcfg, tcfg, rows) -> None:
         raise AssertionError(rows[-1])
 
 
+FP32_STEP_ROWS = 12  # chunks of the timed fp32 flash step: a world-2 rank's share of 24
+FP32_STEP_REPS = 4  # warm steps a route, the routes in turns
+
+
+def time_fp32_flash_steps(torch, ak) -> dict:
+    """Warm full-width fp32 train steps: the default model with
+    compute_dtype="float32" and TrainConfig() on a seeded batch of
+    FP32_STEP_ROWS 30 s chunks staged on the card, through attention
+    "pallas" (K3 with lse, K4a and K4b once a step) and "xla" (none) in
+    turns: one untimed step a route, then FP32_STEP_REPS a route, host clock
+    to the step's host read; medians, each route's launches and peak device
+    memory. Then one "pallas" step under torch.profiler: the three flash
+    kernels' device time (K4b's delta pre-pass included) and its share of
+    the step. Returns the readings."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from music_transcription_tpu_torch.config import AudioConfig, ModelConfig, TrainConfig
+    from music_transcription_tpu_torch.parallel.train_step import init_train_state, train_step
+
+    acfg, tcfg = AudioConfig(), TrainConfig()
+    mcfg = ModelConfig(compute_dtype="float32", lstm_backend="pallas")
+    n, t = FP32_STEP_ROWS, acfg.mel_frames_per_chunk
+    state = init_train_state(mcfg, tcfg, "cuda")
+    rng = np.random.default_rng(SEED + 9)
+    batch = tuple(torch.from_numpy(a).cuda() for a in (
+        rng.standard_normal((n, 1, mcfg.n_mels, t)).astype(np.float32),
+        (rng.random((n, 88, t)) > 0.95).astype(np.float32),
+        np.full((n,), t, np.int32)))
+    flash = (ak.flash_attention_clamped_fwd, ak.flash_attention_clamped_dq,
+             ak.flash_attention_clamped_dkv)
+    routes = ("pallas", "xla")
+    times, launches, peaks, losses = ({r: [] for r in routes} for _ in range(4))
+
+    def step(route):
+        state.model.set_attention_backend(route)
+        for counter in flash:
+            counter.launches = 0
+        t_start = time.perf_counter()
+        metrics = train_step(state, batch, SEED + 1, max_grad_norm=tcfg.max_grad_norm)
+        ms = (time.perf_counter() - t_start) * 1e3
+        launches[route].append(tuple(c.launches for c in flash))
+        losses[route].append(metrics["loss"] if not metrics["skipped"] else float("nan"))
+        return ms
+
+    for route in routes:
+        step(route)
+    for _ in range(FP32_STEP_REPS):
+        for route in routes:
+            torch.cuda.synchronize()
+            gc.collect()
+            torch.cuda.reset_peak_memory_stats()
+            times[route].append(step(route))
+            peaks[route].append(torch.cuda.max_memory_allocated())
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t_start = time.perf_counter()
+        step("pallas")
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t_start) * 1e3
+    flash_ns = sum(e.duration_ns() for e in prof.profiler.kineto_results.events()
+                   if e.device_type() == DeviceType.CUDA and "flash_" in e.name())
+    out = {f"{r}_ms": float(np.median(times[r])) for r in routes}
+    out.update({f"{r}_peak_gib": max(peaks[r]) / 2**30 for r in routes})
+    out.update(profiled_ms=wall_ms, busy_ms=device_busy_union_ms(prof), flash_ms=flash_ns / 1e6)
+    ok = (set(launches["pallas"]) == {(1, 1, 1)} and set(launches["xla"]) == {(0, 0, 0)}
+          and all(np.isfinite(v) for r in routes for v in losses[r]))
+    print(f"    fp32 train step, full width, {n} x 30 s chunks (T={t}), medians of "
+          f"{FP32_STEP_REPS} in turns: attention 'pallas' {out['pallas_ms']:.1f} ms "
+          f"(K3+lse/K4a/K4b launches a step {launches['pallas'][-1]}, peak "
+          f"{out['pallas_peak_gib']:.2f} GiB) against 'xla' {out['xla_ms']:.1f} ms "
+          f"({launches['xla'][-1]}, peak {out['xla_peak_gib']:.2f} GiB); steps "
+          f"{[round(v, 1) for v in times['pallas']]} / {[round(v, 1) for v in times['xla']]}; "
+          f"one 'pallas' step under torch.profiler: {wall_ms:.1f} ms, device busy "
+          f"{out['busy_ms']:.1f} ms, the flash kernels {out['flash_ms']:.2f} ms "
+          f"({out['flash_ms'] / wall_ms:.3f} of the step) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"fp32 flash steps: launches {launches}, losses {losses}")
+    del state, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 MEL_DEVICE_TOL = 6e-2  # dB: the device mel against the host's, the JAX package's own bound
 
 
@@ -1716,6 +1806,7 @@ def flash_train_phase(torch, lk, ak, rows, xla_ms):
     fp32_launches = {c.__name__: c.launches for c in flash}
     if set(fp32_launches.values()) != {1}:
         raise AssertionError(f"the fp32 flash step should launch each kernel once: {fp32_launches}")
+    time_fp32_flash_steps(torch, ak)
     return launches, best, fp32_launches
 
 
@@ -3252,6 +3343,16 @@ def surfaces_phase(torch, lk, ak, pth, wav30, server, card):
     print(f"    phase 11 wall {time.perf_counter() - t_phase:.1f} s")
 
 
+def print_ptxas(reports: dict) -> None:
+    """ptxas's lines of each kernel (registers, shared memory, spills) from
+    ``_build.build()``'s reports."""
+    for name, log in reports.items():
+        for line in log.splitlines():
+            if ("ptxas info" in line and ("Used" in line or "spill" in line or "Compiling" in line)
+                    or re.search(r"[1-9]\d* bytes spill", line)):
+                print(f"    {name}: {line.strip()}")
+
+
 def main() -> int:
     import torch
 
@@ -3276,11 +3377,7 @@ def main() -> int:
     t0 = time.perf_counter()
     reports = _build.build()
     print(f"[1] built {', '.join(_build.SOURCES)} in {time.perf_counter() - t0:.1f} s")
-    for name, log in reports.items():
-        for line in log.splitlines():
-            if ("ptxas info" in line and ("Used" in line or "spill" in line or "Compiling" in line)
-                    or re.search(r"[1-9]\d* bytes spill", line)):
-                print(f"    {name}: {line.strip()}")
+    print_ptxas(reports)
     # 2. kernels against their plain versions at the serving shapes
     rows = []
     k1 = check_k1(torch, lk, rows)

@@ -83,13 +83,13 @@
 //
 // fp32 inputs: the tensor cores take no full-fp32 operands, so every product
 // is an fp32 FMA on the CUDA cores (67 TFLOP/s at most; no TF32).
-//   * K3-fp32 (with and without lse) and K4b-fp32 are register-tiled, in
-//     blocks of 4 warps, two blocks an SM (under 113 KB of shared memory
-//     each, up to 255 registers a thread). A thread holds an 8 x 4 block of
-//     the 64-column score tile and 8 rows x DP / 16 columns of the
-//     accumulator (O in K3; dV or dK in K4b), reads its operands from
-//     shared memory as 16-byte vectors (128 FMAs for every 12 vectors in the
-//     score product, 96 for every 5 in the accumulating one) and combines
+//   * K3-fp32 (with and without lse), K4a-fp32 and K4b-fp32 are register-
+//     tiled, in blocks of 4 warps, two blocks an SM (at most 113 KB of
+//     shared memory each, up to 255 registers a thread). A thread holds an 8 x 4
+//     block of the 64-column score tile and 8 rows x DP / 16 columns of the
+//     accumulator (O in K3; dQ in K4a; dV or dK in K4b), reads its operands
+//     from shared memory as 16-byte vectors (128 FMAs for every 12 vectors in
+//     the score product, 96 for every 5 in the accumulating one) and combines
 //     row statistics by shuffles over the 16 lanes of a row. p (and dS)
 //     cross from the score layout to the accumulating one through a padded
 //     [64][16] tile a warp. head_dim is padded to 64, 128, 192 or 256 (a
@@ -99,21 +99,27 @@
 //     chunks are in flight during the products on this one. K3: block =
 //     (batch*head, 64 query rows), q loaded once; a key tile of 64 comes as
 //     DP / 32 chunks of k (64 keys x 32 columns) for S, then 8 chunks of v
-//     (8 keys x DP) for P v, with the online softmax between them. K4b: block
-//     = (batch*head, 32 key rows), k and v loaded once; warps 0-1 compute
-//     S^T, p and dV, warps 2-3 dP^T, dS and dK; a query tile of 64 comes as
-//     DP / 16 chunks of q and dO (the last with the tile's lse and delta)
-//     for the score products, then chunks of 8 rows (4 at DP = 256) of q and
-//     dO for the accumulating ones; the gated p crosses from warps 0-1 to
-//     2-3 through a shared tile, which warps 2-3 overwrite with dS. delta
-//     comes from the same pre-pass kernel as in bf16, launched by the entry.
+//     (8 keys x DP) for P v, with the online softmax between them. K4a:
+//     block = (batch*head, 32 query rows), q and dO loaded once, the rows'
+//     lse and delta (from o, before the loop) in their padding; warps 0-1
+//     compute S, warps 2-3 dP; a key tile of 64 comes as DP / 32 chunks
+//     (DP / 16 at DP = 256) of k and v for the score products, then chunks
+//     of 16 keys (8 at DP = 256) of k for dQ += dS K. The keys fall in runs
+//     of 8 (4) that alternate between the warp pairs: each pair forms p and
+//     dS of its own keys (the two cross z - lse and dP - delta through a
+//     shared tile, each taking half the exponentials) and a partial dQ, and
+//     warps 0-1 add the two at the end. K4b: block = (batch*head, 32 key
+//     rows), k and v loaded once; warps 0-1 compute S^T, p and dV, warps 2-3
+//     dP^T, dS and dK; a query tile of 64 comes as DP / 16 chunks of q and
+//     dO (the last with the tile's lse and delta) for the score products,
+//     then chunks of 8 rows (4 at DP = 256) of q and dO for the accumulating
+//     ones; the gated p crosses from warps 0-1 to 2-3 through a shared tile,
+//     which warps 2-3 overwrite with dS. K4b's delta comes from the same
+//     pre-pass kernel as in bf16, launched by the entry.
 //     At D=192 K3-fp32 takes 107,520 bytes (4 stages) and 255 registers,
-//     K4b-fp32 108,288 (3 stages) and 247, with no spills; at D=256 both
-//     spill (148 and 28 bytes a thread).
-//   * K4a-fp32: 256 threads per 64 query rows, key tiles of 32 rows loaded
-//     between two barriers, four lanes per query row, each owning key
-//     columns part, part+4, ... of the score tile and dQ columns part,
-//     part+4, ... in registers; rows of the shared tiles padded by one word.
+//     K4a-fp32 115,712 (3 stages) and 255, K4b-fp32 108,288 (3 stages) and
+//     247, with no spills; at D=256 all three spill (148, 60 and 28 bytes a
+//     thread).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -132,16 +138,6 @@ constexpr int kThreads = 256, kWarps = kThreads / 32;
 constexpr int kMaxD = 256;
 constexpr int kSmemLimit = 232448;  // bytes of shared memory a block may have
 constexpr float kNegInf = -1e9f;
-
-// Rows [t0, t0+rows) of head h of batch b into a [rows][stride] fp32 shared
-// tile, zero-filling rows >= T.
-__device__ void load_tile_f32(float* dst, int stride, const float* __restrict__ src, int b, int h,
-                              int t0, int rows, int T, int NH, int D) {
-  for (int e = threadIdx.x; e < rows * D; e += kThreads) {
-    const int r = e / D, d = e % D;
-    dst[r * stride + d] = t0 + r < T ? src[(((size_t)b * T + t0 + r) * NH + h) * D + d] : 0.0f;
-  }
-}
 
 __device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ float to_f32(float x) { return x; }
@@ -303,11 +299,14 @@ __device__ __forceinline__ void init_ring(uint32_t bars, int stages) {
   __syncthreads();
 }
 
+// Named barrier `id` of N threads (the two consumer warpgroups by default).
+template <int N = kConsumers>
 __device__ __forceinline__ void named_sync(int id) {
-  asm volatile("bar.sync %0, 256;\n" ::"r"(id) : "memory");
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "n"(N) : "memory");
 }
+template <int N = kConsumers>
 __device__ __forceinline__ void named_arrive(int id) {
-  asm volatile("bar.arrive %0, 256;\n" ::"r"(id) : "memory");
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "n"(N) : "memory");
 }
 
 // o's or a gradient's values of one row, cols c * 64 + 8 j + 2 quad (+1), from
@@ -542,19 +541,19 @@ __device__ __forceinline__ void load_rows_f32(float* dst, const float* __restric
   }
 }
 
-// acc[i][j] += sum_{d < N} a[2 i * LDA + d] * b[16 j * LDB + d]: the
+// acc[i][j] += sum_{d < N} a[2 i * LDA + d] * b[JS j * LDB + d]: the
 // thread's 8 rows, 2 apart, of the resident tile (a at the first) against its
-// 4 rows, 16 apart, of a streamed chunk (b at the first), both read as 16-byte
+// 4 rows, JS apart, of a streamed chunk (b at the first), both read as 16-byte
 // vectors: 128 FMAs for every 12 vectors. d runs in order, as in a plain dot
 // product.
-template <int N, int LDA, int LDB>
+template <int N, int LDA, int LDB, int JS = 16>
 __device__ __forceinline__ void score_product(float (&acc)[kF32Ri][4], const float* a,
                                               const float* b) {
 #pragma unroll
   for (int d = 0; d < N; d += 4) {
     float4 bv[4];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) bv[j] = *reinterpret_cast<const float4*>(b + 16 * j * LDB + d);
+    for (int j = 0; j < 4; ++j) bv[j] = *reinterpret_cast<const float4*>(b + JS * j * LDB + d);
 #pragma unroll
     for (int i = 0; i < kF32Ri; ++i) {
       const float4 av = *reinterpret_cast<const float4*>(a + 2 * i * LDA + d);
@@ -1309,92 +1308,276 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// K4a, fp32 (CUDA cores)
+// K4a (dQ), fp32 (CUDA cores): register-tiled products fed by a cp.async ring
 // ---------------------------------------------------------------------------
 
-constexpr int BK32 = 32;                // key rows per tile
-constexpr int PS = BK32 + 1;            // padded row stride of an fp32 [rows][BK32] tile
-constexpr int kColsPerLane = kMaxD / 4;  // output columns a lane accumulates
+// K4a-fp32: block = (batch*head, 32 query rows), q and dO loaded once. Warps
+// 0 and 1 (group 0) compute S = Q K^T, warps 2 and 3 (group 1) delta of the
+// rows (from o, before the key loop) and dP = dO V^T. Warp 2 g + w owns query
+// rows 16 w .. 16 w + 15, lane (rg, kg) rows 16 w + rg + 2 i. A key tile of
+// 64 comes through the ring as DP / kCW chunks of k and v (64 keys x kCW
+// columns each) for the score products, then chunks of 2 kRW keys x DP of k
+// for dQ += dS K: group g takes the g-th kRW keys of each chunk, so the keys
+// of the tile fall in runs of kRW that alternate between the groups. A lane's
+// 4 score columns are one key of each of 4 consecutive runs (keys kg % kRW +
+// 4 kRW (kg / kRW) + kRW j), so that keys j = 0, 2 are group 0's and j = 1, 3
+// group 1's. After the last score chunk the two groups cross what the other
+// needs through the crossing tiles xs (two named barriers): group 0 the
+// exponent z - lse of group 1's keys, group 1 dP - delta of group 0's; then
+// each forms p (half the exponentials each) and dS of its own keys in place
+// and accumulates a partial dQ of the thread's 8 rows x DP / 16 columns. At
+// the end group 1's partial dQ goes to group 0 through shared memory, and
+// group 0 adds it to its own (one fixed order, so the bits are the same from
+// run to run) and stores.
+template <int DP>
+struct F32DqTiles {
+  static constexpr int kRows = kF32Rows / 2;  // query rows a block: 16 a warp of each group
+  static constexpr int kCW = DP > 192 ? 16 : 32;  // columns of a score chunk
+  static constexpr int kRW = DP > 192 ? 4 : 8;    // keys of a dQ chunk each group takes
+  static constexpr int kRS = DP + 4;  // row stride of q, dO and the dQ chunks (4 words of padding)
+  static constexpr int kQD = kRows * kRS;     // floats of q or dO
+  static constexpr int kX = 2 * BK * kPL;     // crossing tiles: warps w, 2 + w share the w-th
+  static constexpr int kStage1 = 2 * BK * (kCW + 4);  // k and v chunks
+  static constexpr int kStage2 = 2 * kRW * kRS;       // a k chunk of 2 kRW keys
+  static constexpr int kStage = kStage1 > kStage2 ? kStage1 : kStage2;
+  static constexpr int kFit = (kF32Smem / 4 - 2 * kQD - kX) / kStage;
+  static constexpr int kStages = kFit < kF32Stages ? kFit : kF32Stages;
+  static_assert(kStages >= 2, "K4a-fp32's ring needs two stages");
+  static_assert(kRows * kRS >= kF32Threads / 2 * kF32Ri * DP / 16,
+                "group 1's partial dQ fits in the q tile");
+  static constexpr int kChunks = DP / kCW, kSteps = kChunks + BK / (2 * kRW);  // stages a key tile
+  static constexpr size_t kSmem = 4 * (2 * (size_t)kQD + kX + (size_t)kStages * kStage);
+};
 
-size_t smem_bytes_dq_f32(int D) {
-  return sizeof(float) * (2 * (size_t)(BQ + BK32) * (D + 1) + (size_t)BQ * PS);
-}
-
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                        const float* __restrict__ v, const float* __restrict__ o,
-                        const float* __restrict__ dout, const float* __restrict__ lse,
-                        float* __restrict__ dq, int T, int NH, int D, float scale, float clip) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  const int DS = D + 1;
-  float* qs = reinterpret_cast<float*>(smem_raw);  // [BQ][DS]
-  float* dos = qs + BQ * DS;                        // [BQ][DS] dO
-  float* ks = dos + BQ * DS;                        // [BK32][DS]
-  float* vs = ks + BK32 * DS;                       // [BK32][DS]
-  float* dss = vs + BK32 * DS;                      // [BQ][PS] dS
-
-  const int bh = blockIdx.y, b = bh / NH, h = bh % NH;
-  const int q0 = blockIdx.x * BQ;
-  const int r = threadIdx.x / 4, part = threadIdx.x % 4;
-  const bool row_ok = q0 + r < T;
-
-  load_tile_f32(qs, DS, q, b, h, q0, BQ, T, NH, D);
-  load_tile_f32(dos, DS, dout, b, h, q0, BQ, T, NH, D);
-  __syncthreads();
-  float delta = 0.0f;
-  if (row_ok) {
-    const float* orow = o + (((size_t)b * T + q0 + r) * NH + h) * D;
-    for (int d = part; d < D; d += 4) delta += dos[r * DS + d] * orow[d];
-  }
-  delta += __shfl_xor_sync(0xffffffffu, delta, 1);
-  delta += __shfl_xor_sync(0xffffffffu, delta, 2);
-  const float lse_r = row_ok ? lse[(size_t)bh * T + q0 + r] : 0.0f;
-
-  float acc[kColsPerLane];
+// delta = sum_d dO[d] o[d] in fp32 of rows t0 + 2 i (i < 8; 0 at rows >= T),
+// by the 16 lanes of a half-warp: lane kg takes columns 64 c + 4 kg .. + 3
+// (`vec`: 16-byte loads, all of a row's issued before its multiplies) or
+// kg, kg + 16, ..., then four shuffles.
+template <int DP>
+__device__ __forceinline__ void half_warp_row_dots(float (&delta)[kF32Ri],
+                                                   const float* __restrict__ dout,
+                                                   const float* __restrict__ o, size_t stride,
+                                                   int t0, int T, int D, bool vec, int kg) {
+  constexpr int NC = DP / 64;
 #pragma unroll
-  for (int i = 0; i < kColsPerLane; ++i) acc[i] = 0.0f;
-
-  for (int k0 = 0; k0 < T; k0 += BK32) {
-    __syncthreads();  // the previous tile's ks, vs and dss are consumed
-    load_tile_f32(ks, DS, k, b, h, k0, BK32, T, NH, D);
-    load_tile_f32(vs, DS, v, b, h, k0, BK32, T, NH, D);
-    __syncthreads();
-
-    float s[BK32 / 4], dp[BK32 / 4];
+  for (int i = 0; i < kF32Ri; ++i) {
+    const int t = t0 + 2 * i;
+    const float* a = dout + (size_t)t * stride;
+    const float* b = o + (size_t)t * stride;
+    float acc = 0.0f;
+    if (t < T) {
+      if (vec) {
+        float4 x[NC], y[NC];
 #pragma unroll
-    for (int j = 0; j < BK32 / 4; ++j) s[j] = dp[j] = 0.0f;
-    for (int d = 0; d < D; ++d) {
-      const float qd = qs[r * DS + d], gd = dos[r * DS + d];
+        for (int c = 0; c < NC; ++c) {
+          const int col = 64 * c + 4 * kg;
+          const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+          x[c] = col < D ? __ldg(reinterpret_cast<const float4*>(a + col)) : zero;
+          y[c] = col < D ? __ldg(reinterpret_cast<const float4*>(b + col)) : zero;
+        }
 #pragma unroll
-      for (int j = 0; j < BK32 / 4; ++j) {
-        s[j] = fmaf(qd, ks[(part + 4 * j) * DS + d], s[j]);
-        dp[j] = fmaf(gd, vs[(part + 4 * j) * DS + d], dp[j]);
+        for (int c = 0; c < NC; ++c) {
+          acc = fmaf(x[c].x, y[c].x, acc);
+          acc = fmaf(x[c].y, y[c].y, acc);
+          acc = fmaf(x[c].z, y[c].z, acc);
+          acc = fmaf(x[c].w, y[c].w, acc);
+        }
+      } else {
+        for (int d = kg; d < D; d += 16) acc = fmaf(a[d], b[d], acc);
       }
     }
 #pragma unroll
-    for (int j = 0; j < BK32 / 4; ++j) {
-      const float z = s[j] * scale;
-      float ds = 0.0f;
-      if (k0 + part + 4 * j < T && z >= -clip && z <= clip)
-        ds = expf(z - lse_r) * (dp[j] - delta) * scale;
-      dss[r * PS + part + 4 * j] = ds;
-    }
-    __syncwarp();  // row r's dS comes from the four lanes of this warp
+    for (int off = 8; off; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+    delta[i] = acc;
+  }
+}
 
-    for (int c = 0; c < BK32; ++c) {
-      const float g = dss[r * PS + c];
-      const float* krow = ks + c * DS + part;
+template <int DP>
+__global__ void __launch_bounds__(kF32Threads, 2)
+flash_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                        const float* __restrict__ v, const float* __restrict__ o,
+                        const float* __restrict__ dout, const float* __restrict__ lse,
+                        float* __restrict__ dq, int T, int NH, int D, float scale, float clip,
+                        int vec) {
+  using L = F32DqTiles<DP>;
+  constexpr int S = L::kStages, NC = DP / 64, LC = L::kCW + 4, R = kF32Ri;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  float* qs = reinterpret_cast<float*>(smem_raw);  // [32][kRS]
+  float* dos = qs + L::kQD;
+  float* xs = dos + L::kQD;  // tile w ([64 keys][16 rows], p, then dS) at xs + 64 kPL w
+  float* ring = xs + L::kX;
+  const int bh = blockIdx.y, b = bh / NH, h = bh % NH;
+  const int q0 = blockIdx.x * L::kRows;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int grp = warp / 2, gw = warp % 2, rg = lane / 16, kg = lane % 16;
+  const int row0 = 16 * gw + rg;
+  const size_t head = ((size_t)b * T * NH + h) * D, stride = (size_t)NH * D;
+  const int steps = (T + BK - 1) / BK * L::kSteps;
+
+  auto issue = [&](int it) {
+    if (it < steps) {
+      float* st = ring + (it % S) * L::kStage;
+      const int t0 = it / L::kSteps * BK, c = it % L::kSteps;
+      if (c < L::kChunks) {
+        load_rows_f32<BK, L::kCW>(st, k + head, stride, t0, c * L::kCW, T, D, vec);
+        load_rows_f32<BK, L::kCW>(st + BK * LC, v + head, stride, t0, c * L::kCW, T, D, vec);
+      } else {
+        load_rows_f32<2 * L::kRW, DP>(st, k + head, stride,
+                                      t0 + (c - L::kChunks) * 2 * L::kRW, 0, T, D, vec);
+      }
+    }
+    cp_async_commit();
+  };
+  load_rows_f32<L::kRows, DP>(qs, q + head, stride, q0, 0, T, D, vec);
+  load_rows_f32<L::kRows, DP>(dos, dout + head, stride, q0, 0, T, D, vec);
+  for (int s = 0; s + 1 < S; ++s) issue(s);  // q and dO land with stage 0
+
+  // lse (group 0) or delta (group 1) of the thread's rows, kept in the first
+  // padding word of each row of q or dO (row row0 + 2 i at rvals[2 i kRS]):
+  // the score products read columns < DP. delta from o, read once, while the
+  // ring fills.
+  const float* a = (grp == 0 ? qs : dos) + row0 * L::kRS;
+  float* rvals = (grp == 0 ? qs : dos) + row0 * L::kRS + DP;
+  if (grp == 0) {
+    if (kg == 0) {
 #pragma unroll
-      for (int i = 0; i < kColsPerLane; ++i)
-        if (part + 4 * i < D) acc[i] = fmaf(g, krow[4 * i], acc[i]);
+      for (int i = 0; i < R; ++i) {
+        const int t = q0 + row0 + 2 * i;
+        rvals[2 * i * L::kRS] = t < T ? lse[(size_t)bh * T + t] : 0.0f;
+      }
+    }
+  } else {
+    float delta[R];
+    half_warp_row_dots<DP>(delta, dout + head, o + head, stride, q0 + row0, T, D, vec, kg);
+    if (kg == 0) {
+#pragma unroll
+      for (int i = 0; i < R; ++i) rvals[2 * i * L::kRS] = delta[i];
     }
   }
 
-  if (row_ok) {
-    float* out = dq + (((size_t)b * T + q0 + r) * NH + h) * D;
+  const int key0 = kg % L::kRW + 4 * L::kRW * (kg / L::kRW);  // the lane's first key of a tile
+  float* xt = xs + BK * kPL * gw + R * rg;  // the thread's rows of its crossing tile
+  float acc[R][4 * NC], sc[R][4];
 #pragma unroll
-    for (int i = 0; i < kColsPerLane; ++i)
-      if (part + 4 * i < D) out[part + 4 * i] = acc[i];
+  for (int i = 0; i < R; ++i)
+#pragma unroll
+    for (int e = 0; e < 4 * NC; ++e) acc[i][e] = 0.0f;
+
+  // the thread's 8 rows of score column j in its crossing tile: two 16-byte
+  // vectors
+  auto column = [&](int j) { return reinterpret_cast<float4*>(xt + kPL * (key0 + L::kRW * j)); };
+  for (int it = 0; it < steps; ++it) {
+    cp_async_wait<S - 2>();
+    __syncthreads();  // stage it has landed; every thread is done with stage it - 1's slot
+    issue(it + S - 1);
+    const float* st = ring + (it % S) * L::kStage;
+    const int c = it % L::kSteps;
+    if (c < L::kChunks) {
+      if (c == 0) {
+#pragma unroll
+        for (int i = 0; i < R; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) sc[i][j] = 0.0f;
+      }
+      // S over q and the k chunk (group 0), dP over dO and the v chunk (1)
+      score_product<L::kCW, L::kRS, LC, L::kRW>(sc, a + c * L::kCW,
+                                                st + grp * BK * LC + key0 * LC);
+      if (c == L::kChunks - 1) {
+        // dS = p (dP - delta) scale, p = exp(z - lse) gated on the pre-clip z
+        // (where the gate passes, clip(z) = z) and 0 at keys >= T (only the
+        // last tile has any)
+        const int t0 = it / L::kSteps * BK;
+        if (grp == 0) {
+#pragma unroll
+          for (int i = 0; i < R; ++i)
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              const float z = sc[i][j] * scale;
+              const bool pass = t0 + key0 + L::kRW * j < T && z >= -clip && z <= clip;
+              sc[i][j] = pass ? z - rvals[2 * i * L::kRS] : kNegInf;  // exp(kNegInf) = 0
+            }
+#pragma unroll
+          for (int j = 1; j < 4; j += 2) {
+            column(j)[0] = make_float4(sc[0][j], sc[1][j], sc[2][j], sc[3][j]);
+            column(j)[1] = make_float4(sc[4][j], sc[5][j], sc[6][j], sc[7][j]);
+          }
+          named_arrive<kF32Threads>(1);
+#pragma unroll
+          for (int i = 0; i < R; ++i)
+#pragma unroll
+            for (int j = 0; j < 4; j += 2) sc[i][j] = expf(sc[i][j]);
+          named_sync<kF32Threads>(2);  // group 1's dP - delta of group 0's keys is in xs
+          // dS of group 0's keys in place: p (dP - delta) scale
+#pragma unroll
+          for (int j = 0; j < 4; j += 2)
+#pragma unroll
+            for (int hf = 0; hf < 2; ++hf) {
+              const float4 y = column(j)[hf];
+              const int i = 4 * hf;
+              column(j)[hf] = make_float4(sc[i][j] * y.x * scale, sc[i + 1][j] * y.y * scale,
+                                          sc[i + 2][j] * y.z * scale, sc[i + 3][j] * y.w * scale);
+            }
+        } else {
+#pragma unroll
+          for (int i = 0; i < R; ++i)
+#pragma unroll
+            for (int j = 0; j < 4; ++j) sc[i][j] -= rvals[2 * i * L::kRS];
+#pragma unroll
+          for (int j = 0; j < 4; j += 2) {
+            column(j)[0] = make_float4(sc[0][j], sc[1][j], sc[2][j], sc[3][j]);
+            column(j)[1] = make_float4(sc[4][j], sc[5][j], sc[6][j], sc[7][j]);
+          }
+          named_arrive<kF32Threads>(2);
+          named_sync<kF32Threads>(1);  // group 0's z - lse of group 1's keys is in xs
+          // dS of group 1's keys in place: exp(z - lse) (dP - delta) scale
+#pragma unroll
+          for (int j = 1; j < 4; j += 2)
+#pragma unroll
+            for (int hf = 0; hf < 2; ++hf) {
+              const float4 x = column(j)[hf];
+              const int i = 4 * hf;
+              column(j)[hf] = make_float4(
+                  expf(x.x) * sc[i][j] * scale, expf(x.y) * sc[i + 1][j] * scale,
+                  expf(x.z) * sc[i + 2][j] * scale, expf(x.w) * sc[i + 3][j] * scale);
+            }
+        }
+        __syncwarp();  // the dQ product reads the rows' dS from the warp's 16 lanes
+      }
+    } else {
+      // dQ += dS K over the group's kRW keys of the chunk
+      const int key = (c - L::kChunks) * 2 * L::kRW + grp * L::kRW;
+      accumulate_product<L::kRW, NC, L::kRS>(acc, xt + kPL * key,
+                                             st + grp * L::kRW * L::kRS + 4 * kg);
+    }
+  }
+  cp_async_wait<0>();
+
+  // group 1's partial dQ to group 0 through the q tile (no longer read: its
+  // last reader passed the barrier of the last tile's first dQ step)
+  float4* part = reinterpret_cast<float4*>(qs) + threadIdx.x % (kF32Threads / 2);
+  if (grp == 1) {
+#pragma unroll
+    for (int i = 0; i < R; ++i)
+#pragma unroll
+      for (int c = 0; c < NC; ++c)
+        part[(i * NC + c) * (kF32Threads / 2)] =
+            make_float4(acc[i][4 * c], acc[i][4 * c + 1], acc[i][4 * c + 2], acc[i][4 * c + 3]);
+  }
+  __syncthreads();
+  if (grp == 0) {
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        const float4 x = part[(i * NC + c) * (kF32Threads / 2)];
+        acc[i][4 * c] += x.x;
+        acc[i][4 * c + 1] += x.y;
+        acc[i][4 * c + 2] += x.z;
+        acc[i][4 * c + 3] += x.w;
+      }
+      const int t = q0 + row0 + 2 * i;
+      if (t < T) store_row_f32<NC>(dq + head + (size_t)t * stride, acc[i], 1.0f, kg, D, vec);
+    }
   }
 }
 
@@ -1463,6 +1646,16 @@ int forward_f32(const float* q, const float* k, const float* v, float* o, float*
                   lse, T, NH, D, scale, clip, vec);
   return launch(flash_fwd_f32_kernel<DP, false>, grid, kF32Threads, L::kSmem, stream, q, k, v, o,
                 lse, T, NH, D, scale, clip, vec);
+}
+
+template <int DP>
+int dq_f32(const float* q, const float* k, const float* v, const float* o, const float* dout,
+           const float* lse, float* dq, int B, int T, int NH, int D, float scale, float clip,
+           int vec, void* stream) {
+  using L = F32DqTiles<DP>;
+  return launch(flash_bwd_dq_f32_kernel<DP>, dim3((T + L::kRows - 1) / L::kRows, B * NH),
+                kF32Threads, L::kSmem, stream, q, k, v, o, dout, lse, dq, T, NH, D, scale, clip,
+                vec);
 }
 
 template <int DP>
@@ -1575,11 +1768,20 @@ int flash_attention_clamped_backward_dq_f32(const void* q, const void* k, const 
                                             void* dq, int B, int T, int NH, int D, float scale,
                                             float clip, void* stream) {
   if (bad_shape(B, T, NH, D)) return cudaErrorInvalidValue;
-  return launch(flash_bwd_dq_f32_kernel, dim3((T + BQ - 1) / BQ, B * NH), kThreads,
-                smem_bytes_dq_f32(D), stream, static_cast<const float*>(q),
-                static_cast<const float*>(k), static_cast<const float*>(v),
-                static_cast<const float*>(o), static_cast<const float*>(dout),
-                static_cast<const float*>(lse), static_cast<float*>(dq), T, NH, D, scale, clip);
+  const auto* qp = static_cast<const float*>(q);
+  const auto* kp = static_cast<const float*>(k);
+  const auto* vp = static_cast<const float*>(v);
+  const auto* op = static_cast<const float*>(o);
+  const auto* gp = static_cast<const float*>(dout);
+  const auto* lp = static_cast<const float*>(lse);
+  auto* dqp = static_cast<float*>(dq);
+  const int vec = rows16(D, 4, {q, k, v, o, dout, dq});
+  switch (padded_dim(D)) {
+    case 64: return dq_f32<64>(qp, kp, vp, op, gp, lp, dqp, B, T, NH, D, scale, clip, vec, stream);
+    case 128: return dq_f32<128>(qp, kp, vp, op, gp, lp, dqp, B, T, NH, D, scale, clip, vec, stream);
+    case 192: return dq_f32<192>(qp, kp, vp, op, gp, lp, dqp, B, T, NH, D, scale, clip, vec, stream);
+    default: return dq_f32<256>(qp, kp, vp, op, gp, lp, dqp, B, T, NH, D, scale, clip, vec, stream);
+  }
 }
 
 // K4b, fp32: as the bf16 entry, delta scratch included.

@@ -38,7 +38,8 @@ K3_KEY_TILE = 64  # keys a bf16 K3 stage holds
 K4A_KEY_TILE = 64  # keys a bf16 K4a stage holds
 K4B_QUERY_TILE = 64  # query rows a bf16 K4b stage holds
 K3_KEY_TILE_F32 = 64  # keys of an fp32 K3 tile (its ring's k and v chunks)
-K4A_KEY_TILE_F32 = 32  # keys of an fp32 K4a tile
+K4A_KEY_TILE_F32 = 64  # keys of an fp32 K4a tile (its ring's k and v chunks)
+K4A_QUERY_ROWS_F32 = 32  # query rows of an fp32 K4a block
 K4B_QUERY_TILE_F32 = 64  # query rows of an fp32 K4b tile (its ring's q and dO chunks)
 _SUFFIX = {torch.bfloat16: "", torch.float32: "_f32"}  # of each launch function's name
 
@@ -153,7 +154,15 @@ def faulty_dkv_plain(q, k, v, o, do, lse, scale: float, clip_val: float = 10.0, 
     return attention_clamped_bwd_plain(q, k, v, o, do, lse, scale, clip_val)[1:]
 
 
-DQ_FAULTS = ("skip_last_key_tile", "stale_key_stage")
+DQ_FAULTS = ("skip_last_key_tile", "stale_key_stage", "dropped_pair_partial")
+
+
+def k4a_pair_keys_f32(d: int) -> int:
+    """The fp32 K4a's key tiles alternate between its two warp pairs in runs
+    of this many keys (``F32DqTiles::kRW``): 8, or 4 at head_dim > 192
+    (padded to 256), where the ring's stages must be smaller to fit beside
+    the resident q and dO."""
+    return 4 if d > 192 else 8
 
 
 def faulty_dq_plain(q, k, v, o, do, lse, scale: float, clip_val: float = 10.0, *, fault: str,
@@ -162,9 +171,17 @@ def faulty_dq_plain(q, k, v, o, do, lse, scale: float, clip_val: float = 10.0, *
     "skip_last_key_tile" leaves out the keys past the last whole tile of
     ``tile`` (``K4A_KEY_TILE`` in bf16, ``K4A_KEY_TILE_F32`` in fp32: the
     partial tail); "stale_key_stage" gives key tile ``nk // 2`` the k and v
-    of the tile before it. For showing that K4a's tolerance catches either."""
+    of the tile before it; "dropped_pair_partial" is the fp32 kernel's sum of
+    its two warp pairs' partial dq with one of them dropped: dq from every
+    other run of ``k4a_pair_keys_f32(D)`` keys only (fp32 alone: the bf16
+    kernel has no such sum). For showing that K4a's tolerance catches each."""
     t = k.shape[1]
-    if fault == "skip_last_key_tile":
+    if fault == "dropped_pair_partial":
+        # a zero row of k zeroes its key's term of dq = dS k (its dS changes
+        # too, but multiplies that zero row) and leaves the other keys' terms
+        dropped = (torch.arange(t, device=k.device) // k4a_pair_keys_f32(k.shape[-1])) % 2 == 1
+        k = k.masked_fill(dropped[None, :, None, None], 0)
+    elif fault == "skip_last_key_tile":
         kept = t // tile * tile
         k, v = k[:, :kept], v[:, :kept]
     elif fault == "stale_key_stage":

@@ -218,13 +218,14 @@ def test_faulty_dkv_plain_fails_where_plain_passes(fault, t):
     *(pytest.param(f, t, AK.K4A_KEY_TILE, id=f"{f}-{t}")
       for f, t in [("skip_last_key_tile", 37), ("skip_last_key_tile", 130),
                    ("stale_key_stage", 130)]),
-    # the fp32 K4a's 32-key tile, at T = 2 tiles + 1
-    *(pytest.param(f, 2 * AK.K4A_KEY_TILE_F32 + 1, AK.K4A_KEY_TILE_F32,
-                   id=f"{f}-fp32_tile{AK.K4A_KEY_TILE_F32}") for f in AK.DQ_FAULTS)])
+    # the fp32 K4a's sum of its two warp pairs' partial dq, at T = 2 key tiles + 1
+    # (its tile faults are the bf16 cases': both kernels take key tiles of 64)
+    pytest.param("dropped_pair_partial", 2 * AK.K4A_KEY_TILE_F32 + 1, AK.K4A_KEY_TILE_F32,
+                 id=f"dropped_pair_partial-fp32_tile{AK.K4A_KEY_TILE_F32}")])
 def test_faulty_dq_plain_fails_where_plain_passes(fault, t, tile):
     """K4a's ring faults: dq far outside the tolerance that the plain backward
     meets against JAX's VJP (at T=37 the only key tile is partial, so skipping
-    it leaves nothing), at the bf16 kernel's key tile and the fp32 one's."""
+    it leaves nothing), and the fp32 kernel's dropped pair sum."""
     q, k, v, do = _small_inputs(t, seed=t + 13)
     scale = D_SMALL**-0.5
     args = [jnp.asarray(x) for x in (q, k, v)]
@@ -236,6 +237,31 @@ def test_faulty_dq_plain_fails_where_plain_passes(fault, t, tile):
     faulty = AK.faulty_dq_plain(tq, tk, tv, o, tdo, lse, scale, fault=fault, tile=tile)
     assert np.abs(plain.numpy() - ref).max() < GRAD_FP32_TOL
     assert np.abs(faulty.numpy() - ref).max() > 100 * GRAD_FP32_TOL
+
+
+@pytest.mark.parametrize("d,run", [(24, 8), (192, 8), (200, 4), (256, 4)])
+def test_dropped_pair_partial_follows_the_kernels_key_runs(d, run):
+    """The fault drops the keys of the fp32 K4a's second warp pair: runs of
+    8 keys (4 at head_dim > 192, ``F32DqTiles::kRW``) alternating with the
+    first pair's. A change to the k row of a dropped key leaves the faulty dq
+    as it was; one to a kept key's row moves it."""
+    assert AK.k4a_pair_keys_f32(d) == run
+    rng = np.random.default_rng(d)
+    t = 4 * run
+    q, k, v, do = (torch.from_numpy(rng.standard_normal((1, t, 1, d)).astype(np.float32))
+                   for _ in range(4))
+    scale = d**-0.5
+    o, lse = AK.attention_clamped_fwd_plain(q, k, v, scale)
+
+    def faulty(k_):
+        return AK.faulty_dq_plain(q, k_, v, o, do, lse, scale, fault="dropped_pair_partial")
+
+    base = faulty(k)
+    assert not torch.equal(base, AK.attention_clamped_bwd_plain(q, k, v, o, do, lse, scale)[0])
+    for key, dropped in ((run - 1, False), (run, True), (2 * run - 1, True), (2 * run, False)):
+        moved = k.clone()
+        moved[:, key] += 1.0
+        assert torch.equal(faulty(moved), base) == dropped, key
 
 
 def test_delta_plain_matches_jax_recompute():

@@ -185,11 +185,14 @@ def test_flash_training_kernels_match_plain(cuda, b, t, nh, d, dtype):
     _flash_training_kernels_match_plain(cuda, b, t, nh, d, dtype)
 
 
-# T = 2 tiles + 1 of the fp32 K3's key tiles and K4b's query tiles: the
-# ring's chunks of a third, partial tile, at D=192, 24 (16-byte rows padded
-# to 64 columns) and 18 (plain loads)
+# T = 2 tiles + 1 of the fp32 K3's and K4a's key tiles, K4a's query-row
+# blocks and K4b's query tiles: the ring's chunks of a third, partial tile
+# (a third, partial block), at D=192, 24 (16-byte rows padded to 64 columns)
+# and 18 (plain loads)
 @pytest.mark.parametrize("b,t,nh,d", sorted({(1, 2 * tile + 1, nh, d)
                                              for tile in (AK.K3_KEY_TILE_F32,
+                                                          AK.K4A_KEY_TILE_F32,
+                                                          AK.K4A_QUERY_ROWS_F32,
                                                           AK.K4B_QUERY_TILE_F32)
                                              for nh, d in ((2, 192), (3, 24), (1, 18))}))
 def test_fp32_flash_training_kernels_match_plain_at_the_tile_edges(cuda, b, t, nh, d):
@@ -423,15 +426,12 @@ def test_fp32_flash_kernels_repeat_bit_identical(cuda, b, t, nh, d):
     _flash_kernels_repeat_bit_identical(cuda, b, t, nh, d, torch.float32)
 
 
-def test_flash_wrappers_raise_on_shapes_the_kernels_do_not_take(cuda):
-    """head_dim past 256 (the kernels' shared-memory tiles) and more than
-    65535 (batch, head) pairs (the grids' second dimension): ValueError from
-    K3, K3 with lse, K4a and K4b in bf16, and no launch counted."""
+def _flash_wrappers_raise_on_shapes_the_kernels_do_not_take(cuda, dtype):
     counters = (AK.flash_attention_clamped, AK.flash_attention_clamped_fwd,
                 AK.flash_attention_clamped_dq, AK.flash_attention_clamped_dkv)
     before = [c.launches for c in counters]
     for shape in ((1, 4, 1, 264), (8193, 1, 8, 8)):
-        x = torch.zeros(shape, device=cuda, dtype=torch.bfloat16)
+        x = torch.zeros(shape, device=cuda, dtype=dtype)
         lse = torch.zeros((shape[0], shape[2], shape[1]), device=cuda)
         with pytest.raises(ValueError):
             AK.flash_attention_clamped(x, x, x, 1.0)
@@ -442,6 +442,18 @@ def test_flash_wrappers_raise_on_shapes_the_kernels_do_not_take(cuda):
         with pytest.raises(ValueError):
             AK.flash_attention_clamped_dkv(x, x, x, x, x, lse, 1.0)
     assert [c.launches for c in counters] == before
+
+
+def test_flash_wrappers_raise_on_shapes_the_kernels_do_not_take(cuda):
+    """head_dim past 256 (the kernels' shared-memory tiles) and more than
+    65535 (batch, head) pairs (the grids' second dimension): ValueError from
+    K3, K3 with lse, K4a and K4b in bf16, and no launch counted."""
+    _flash_wrappers_raise_on_shapes_the_kernels_do_not_take(cuda, torch.bfloat16)
+
+
+def test_fp32_flash_wrappers_raise_on_shapes_the_kernels_do_not_take(cuda):
+    """The same in fp32."""
+    _flash_wrappers_raise_on_shapes_the_kernels_do_not_take(cuda, torch.float32)
 
 
 def test_wrappers_raise_on_inputs_the_kernels_do_not_take(cuda):
