@@ -18,6 +18,9 @@ package's ``data/pipeline.py``.
   * ``epoch_index_batches``: the index batches of one epoch over a staged set
   * ``device_prefetch``: a loader's batches moved to the rank's device by a
     producer thread, ``depth`` batches ahead, through pinned memory
+
+Under a profiler the staged loaders' gather and widening of a batch is the
+span ``data.gather`` (``tracing.py``).
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ import torch
 
 from music_transcription_tpu_torch.config import NUM_KEYS
 from music_transcription_tpu_torch.data.cache import PCM16_SCALE, quantize_i16
+from music_transcription_tpu_torch.tracing import span
 
 
 def pad_to_multiple(x: np.ndarray, multiple: int, axis: int = 0) -> tuple[np.ndarray, int]:
@@ -280,13 +284,14 @@ class DeviceStagedLoader:
                                       seed=self.seed, epoch=self.epoch, drop_last=self.drop_last)
         self.epoch += 1
         for idx in batches:
-            n_real = len(idx)
-            if n_real < self.batch_size and self.pad_last_batch:
-                idx = np.pad(idx, (0, self.batch_size - n_real))
-            sel = torch.from_numpy(idx.astype(np.int64)).to(self.device)
-            out = list(self.dequantize(tuple(a.index_select(0, sel) for a in self.arrays)))
-            if self.pad_last_batch:
-                out[-1][n_real:] = 0
+            with span("data.gather"):
+                n_real = len(idx)
+                if n_real < self.batch_size and self.pad_last_batch:
+                    idx = np.pad(idx, (0, self.batch_size - n_real))
+                sel = torch.from_numpy(idx.astype(np.int64)).to(self.device)
+                out = list(self.dequantize(tuple(a.index_select(0, sel) for a in self.arrays)))
+                if self.pad_last_batch:
+                    out[-1][n_real:] = 0
             yield tuple(out)
 
 
@@ -404,8 +409,9 @@ class SlabRotatingLoader:
         return arrays, ready
 
     def _gather(self, arrays, positions):
-        sel = torch.from_numpy(positions.astype(np.int64)).to(self.device)
-        return self.dequantize(tuple(a.index_select(0, sel) for a in arrays))
+        with span("data.gather"):
+            sel = torch.from_numpy(positions.astype(np.int64)).to(self.device)
+            return self.dequantize(tuple(a.index_select(0, sel) for a in arrays))
 
     def __iter__(self):
         plan = self.plan(self.epoch)

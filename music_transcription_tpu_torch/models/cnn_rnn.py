@@ -41,6 +41,12 @@ kept for the reference's state_dict names; a loaded ``bias_hh`` is folded
 into ``bias_ih``.
 
 Layout is the reference's NCHW, H = mel bins, W = frames.
+
+Under a profiler each forward opens the spans of ``tracing.py``:
+``model.cnn`` (the convolutions to the (B, T, C*F) features, channel
+dropout included), ``model.rnn`` (the BiLSTM stacks and their
+concatenation), ``model.attention`` (with its residual LayerNorm) and
+``model.heads``.
 """
 
 from __future__ import annotations
@@ -59,6 +65,7 @@ from music_transcription_tpu_torch.ops.attention_kernel import (
 from music_transcription_tpu_torch.ops.dropout import channel_dropout, dropout
 from music_transcription_tpu_torch.ops.lstm import bilstm_stack
 from music_transcription_tpu_torch.parallel.distributed import all_reduce_sum
+from music_transcription_tpu_torch.tracing import span
 
 # flax BatchNorm(momentum=0.9): running = 0.9 * running + (1 - 0.9) * batch
 BN_MOMENTUM = 0.9
@@ -282,11 +289,15 @@ class CNNRNN(nn.Module):
         dt = self.dtype
         if x.shape[-1] == 0:  # zero-length input
             return torch.zeros(x.shape[0], NUM_KEYS, 1, device=x.device)
-        h = _to_nchw(x).to(dt)
-        h = _maxpool_freq(_conv_bn_relu(h, self.cnn[0], self.cnn[1], dt))
-        h = _maxpool_freq(_conv_bn_relu(h, self.cnn[4], self.cnn[5], dt))
-        rnn_out = self.rnn(_flatten_ct(h), dt, generator)
-        return _dense(rnn_out, self.fc, torch.float32).transpose(1, 2)
+        with span("model.cnn"):
+            h = _to_nchw(x).to(dt)
+            h = _maxpool_freq(_conv_bn_relu(h, self.cnn[0], self.cnn[1], dt))
+            h = _maxpool_freq(_conv_bn_relu(h, self.cnn[4], self.cnn[5], dt))
+            feats = _flatten_ct(h)
+        with span("model.rnn"):
+            rnn_out = self.rnn(feats, dt, generator)
+        with span("model.heads"):
+            return _dense(rnn_out, self.fc, torch.float32).transpose(1, 2)
 
 
 class CNNRNNLarge(nn.Module):
@@ -356,19 +367,25 @@ class CNNRNNLarge(nn.Module):
             if self.use_onset_offset_heads and return_all_heads:
                 return {"frame": zero, "onset": zero, "offset": zero}
             return zero
-        h = self.cnn_features(_to_nchw(x), generator)
-        feats = _flatten_ct(channel_dropout(h, d3, generator))  # (B, T, 256 * n_mels//8)
-        rnn_out = torch.cat([self.rnn_main(feats, dt, generator),
-                             self.rnn_local(feats, dt, generator)], dim=-1)
+        with span("model.cnn"):
+            h = self.cnn_features(_to_nchw(x), generator)
+            feats = _flatten_ct(channel_dropout(h, d3, generator))  # (B, T, 256 * n_mels//8)
+        with span("model.rnn"):
+            rnn_out = torch.cat([self.rnn_main(feats, dt, generator),
+                                 self.rnn_local(feats, dt, generator)], dim=-1)
         if self.use_attention:
-            attn_out = self.attention(rnn_out, dt, generator)
-            rnn_out = _layer_norm(rnn_out + attn_out.float(), self.attention_norm)
+            with span("model.attention"):
+                attn_out = self.attention(rnn_out, dt, generator)
+                rnn_out = _layer_norm(rnn_out + attn_out.float(), self.attention_norm)
         head_rate = 1.5 * self.dropout if train else 0.0
-        if not self.use_onset_offset_heads:
-            logits = dropout(_dense(rnn_out.to(dt), self.fc, torch.float32), head_rate, generator)
-            return logits.transpose(1, 2)
-        shared = dropout(F.relu(_dense(rnn_out, self.shared_fc, dt)), head_rate, generator)
-        heads = ("frame", "onset", "offset") if return_all_heads else ("frame",)
-        out = {name: _dense(shared, getattr(self, f"{name}_head"), torch.float32).transpose(1, 2)
-               for name in heads}
+        with span("model.heads"):
+            if not self.use_onset_offset_heads:
+                logits = dropout(_dense(rnn_out.to(dt), self.fc, torch.float32), head_rate,
+                                 generator)
+                return logits.transpose(1, 2)
+            shared = dropout(F.relu(_dense(rnn_out, self.shared_fc, dt)), head_rate, generator)
+            heads = ("frame", "onset", "offset") if return_all_heads else ("frame",)
+            out = {name: _dense(shared, getattr(self, f"{name}_head"),
+                                torch.float32).transpose(1, 2)
+                   for name in heads}
         return out if return_all_heads else out["frame"]

@@ -54,6 +54,7 @@ from music_transcription_tpu_torch.models.cnn_rnn import set_sync_batch_norm
 from music_transcription_tpu_torch.models.transcription import TranscriptionModel
 from music_transcription_tpu_torch.ops.precision import full_fp32
 from music_transcription_tpu_torch.parallel.mesh import data_index, mesh_group, replicate
+from music_transcription_tpu_torch.tracing import span
 from music_transcription_tpu_torch.train.optim import clip_gradients, make_optimizer
 
 # the partitionings whose state FSDP2 holds: parameters, gradients and
@@ -139,43 +140,53 @@ def train_step(state: TrainState, batch, dropout_seed: int, *, max_grad_norm: fl
     """One guarded update. ``batch`` = (mel (B, 1, M, T), roll (B, 88, T),
     lengths (B,)) on the model's device: under data parallelism this rank's
     rows. Returns {"loss", "grad_norm", "skipped"} as floats, the global
-    ones, the same on every rank."""
+    ones, the same on every rank. Under a profiler each phase is a span
+    (``tracing.py``) inside ``train.step``; the data-parallel reductions
+    outside backward sit in none of the phases."""
     model, optimizer, group = state.model, state.optimizer, state.group
     mel, roll, lengths = batch
-    model.train()
-    stats = _running_stats(model)
-    saved = [s.clone() for s in stats]
-    optimizer.zero_grad(set_to_none=True)
-    index = None if group is None else state.data_index
-    out = model(mel, return_all_heads=model.multi_head,
-                generator=dropout_generator(dropout_seed, state.step, mel.device, index))
-    loss = model.loss(out, roll, lengths)
-    if group is None:
-        with full_fp32():  # fp32 gradients in fp32, not TF32, as the forward
-            loss.backward()
-    else:
-        frames = valid_frames(roll, lengths)
-        total = frames.clone()
-        dist.all_reduce(total, group=group)
-        weight = frames / total.clamp(min=1.0)
-        # FSDP2's reductions average over the ranks; the others sum
-        fsdp2 = state.partitioning in FSDP2
-        scale = group.size() if fsdp2 else 1
-        with full_fp32():
-            (loss * (weight * scale)).backward()
-        if not fsdp2:
-            _sum_gradients(model.parameters(), group)
-        loss = loss.detach().float() * weight
-        dist.all_reduce(loss, group=group)
-    grad_norm = clip_gradients(model.parameters(), max_grad_norm)
-    loss_v, norm_v = (float(x) for x in torch.stack([loss.detach().float(), grad_norm.float()]).cpu())
-    finite = bool(np.isfinite(loss_v) and np.isfinite(norm_v))
-    if finite:
-        optimizer.step()
-    else:
-        with torch.no_grad():
-            for s, old in zip(stats, saved):
-                s.copy_(old)
+    with span("train.step"):
+        model.train()
+        stats = _running_stats(model)
+        saved = [s.clone() for s in stats]
+        optimizer.zero_grad(set_to_none=True)
+        index = None if group is None else state.data_index
+        with span("train.forward"):
+            out = model(mel, return_all_heads=model.multi_head,
+                        generator=dropout_generator(dropout_seed, state.step, mel.device, index))
+        with span("train.loss"):
+            loss = model.loss(out, roll, lengths)
+        if group is None:
+            # fp32 gradients in fp32, not TF32, as the forward
+            with span("train.backward"), full_fp32():
+                loss.backward()
+        else:
+            frames = valid_frames(roll, lengths)
+            total = frames.clone()
+            dist.all_reduce(total, group=group)
+            weight = frames / total.clamp(min=1.0)
+            # FSDP2's reductions average over the ranks; the others sum
+            fsdp2 = state.partitioning in FSDP2
+            scale = group.size() if fsdp2 else 1
+            with span("train.backward"), full_fp32():
+                (loss * (weight * scale)).backward()
+            if not fsdp2:
+                _sum_gradients(model.parameters(), group)
+            loss = loss.detach().float() * weight
+            dist.all_reduce(loss, group=group)
+        with span("train.clip"):
+            grad_norm = clip_gradients(model.parameters(), max_grad_norm)
+        with span("train.host_read"):
+            loss_v, norm_v = (float(x) for x in
+                              torch.stack([loss.detach().float(), grad_norm.float()]).cpu())
+            finite = bool(np.isfinite(loss_v) and np.isfinite(norm_v))
+        with span("train.update"):
+            if finite:
+                optimizer.step()
+            else:
+                with torch.no_grad():
+                    for s, old in zip(stats, saved):
+                        s.copy_(old)
     state.step += 1
     return {"loss": loss_v, "grad_norm": norm_v, "skipped": 0.0 if finite else 1.0}
 

@@ -118,7 +118,8 @@ def build_parser() -> argparse.ArgumentParser:
     e.add_argument("--log_file", type=str, default=None,
                    help="log file path for background mode (auto-generated if not specified)")
     e.add_argument("--profile_steps", type=int, default=0,
-                   help="trace the first N train steps with torch.profiler")
+                   help="trace the first N train steps with torch.profiler; the trace "
+                        "carries the step's and the model's spans (train.*, model.*)")
     e.add_argument("--rng_impl", type=str, default="auto",
                    choices=["auto", "threefry2x32", "rbg"],
                    help="kept for sidecar parity; the port's dropout draws from a "

@@ -18,7 +18,9 @@ run's files.
     ``training_log.txt`` (one line per epoch), ``loss_curve.png`` and
     ``loss_per_step.png`` when matplotlib imports
   * early stop, the stall watchdog (exit 66) and the RSS recycle (exit 67)
-  * ``profile_steps``: the first N train steps under ``torch.profiler``
+  * ``profile_steps``: the first N train steps under ``torch.profiler``; the
+    Chrome trace carries the step's and the model's spans (``tracing.py``:
+    ``train.*``, ``model.*``) on the clock of the device's kernels
   * batches reach the device through ``data/pipeline.device_prefetch``
 """
 
@@ -168,7 +170,10 @@ def _plot_curves(run_dir, train_losses, val_losses, all_step_losses):
 def _profile(state, loader, steps: int, trace_dir: str, *, dropout_seed: int,
              max_grad_norm: float, verbose: bool) -> None:
     """The first ``steps`` train steps under torch.profiler (they update the
-    state as any step does); a Chrome trace goes into ``trace_dir``."""
+    state as any step does); a Chrome trace goes into ``trace_dir``, with
+    the spans of ``tracing.py`` that the steps and the model open. The
+    loader's ``data.gather`` runs on ``device_prefetch``'s thread, which the
+    profiler does not record."""
     from torch.profiler import ProfilerActivity, profile
 
     device = next(state.model.parameters()).device
