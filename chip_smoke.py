@@ -73,12 +73,16 @@ Phases, in order; any failure exits non-zero:
      dropping one warp pair's partial dq (the fp32 kernel's pair sum),
      and of K4b's plain version skipping the last partial query tile or
      reading a stale q / dO stage (each at the dtype's tiles), all of which
-     must fail the bound;
+     must fail the bound; split_bf16 (matmul_f32's backward) against its
+     plain version bit for bit at a layer-0 projection's gradient (22512 x
+     2048) and the plain attention's scores (192 x 938 x 938, blocks of
+     944), launched 5 times with identical bits, timed beside its byte bound;
   6. train the default 89M cnn_rnn_large (TrainConfig defaults, batch 24)
      through the training CLI on a seeded synthetic cache written here (48
      train and 24 validation chunks of 30 s): 2 epochs of 2 steps with the
      cache staged on the card. The loss must be finite with no step skipped,
-     K2a and K2b must rise by 4 per train step and K1 by 4 per validation
+     K2a and K2b must rise by 4 per train step, split_bf16 by 10 (the 8
+     projections and the attention's 2 products) and K1 by 4 per validation
      batch; model_best must serve the phase-3 WAV; --resume auto must
      continue from model_epoch_2. Then time warm train steps, profile one,
      and hold one full-width fp32 step on the card against the CPU;
@@ -139,7 +143,8 @@ Phases, in order; any failure exits non-zero:
      p = 1 when the first pass's 2 x 255 argmax tokens agree; the median warm
      pretrain, token and scheduled-sampling steps (the token steps under
      set_sync_debug_mode("error") until their loss read), the peak device
-     memory, one token step profiled. No hand-written kernel may launch;
+     memory, one token step profiled. None of K1-K6 may launch (split_bf16,
+     the bf16 attention backward's, does: its launches are printed);
   9. data-parallel training at world 2 on the one card (the ranks share it
      over gloo, time-sliced), each rank a process of torchrun's (this script
      with a private argument, so that it reads its own kernel counters):
@@ -191,8 +196,9 @@ Phases, in order; any failure exits non-zero:
      the card (its roll equal to transcribe_chunks) and the CLI (a PNG, or
      exit 1 naming matplotlib); 11c bench.attention at its defaults and at
      --batch 4 --t 938 (K3 in the "pallas" forward, K3 with lse, K4a and
-     K4b in its forward + backward, none under "xla"); 11d bench.components
-     at --batch_size 16 (K2a and K2b 4 a LSTM-tier call); 11e bench.train at
+     K4b in its forward + backward; under "xla" split_bf16 2 a forward +
+     backward); 11d bench.components at --batch_size 16 (K2a and K2b 4 a
+     LSTM-tier call, split_bf16 8; split_bf16 2 an attention call); 11e bench.train at
      its defaults; 11f bench.loader on phase 6b's card-built cache, with the
      card feed and with --no_device; 11g example.sh eval on phase 6's run
      and cache, EVAL_MEAN_F1 within 1e-6 of the evaluation CLI's; the
@@ -200,8 +206,8 @@ Phases, in order; any failure exits non-zero:
  12. print the kernels line (JSON: launches on the main path, error against
      the plain version, times, bound, and for K1, K2a and K2b the sequential
      floor; the fp32 variants of K3, K3 with lse, K4a and K4b as rows of
-     their own, "_f32", with phase 4's and phase 7's fp32 launches; a failed
-     check has already exited),
+     their own, "_f32", with phase 4's and phase 7's fp32 launches;
+     split_bf16 with phase 6's launches; a failed check has already exited),
      the card's name and power limit, and as the last line
      {"ok": true, "device": {...}}.
 
@@ -752,6 +758,43 @@ def check_k4(torch, ak, rows):
         records[dtype] = rec
         del q, k, v, do, o, lse, ref_o, ref_lse, dq, dk, dv, ref, got
     return records
+
+
+def check_split(torch, rows):
+    """split_bf16 (the exact three-term bf16 split of the fp32 gradient in
+    matmul_f32's backward) against split_bf16_plain, bit for bit, at the
+    gradients the main path splits: a layer-0 projection's (M = 24 x 938
+    rows, N = 4H = 2048) and the plain attention's scores (B x heads = 192,
+    T = 938, each block padded to 944 columns). Values from 2^-140 to 2^119,
+    zeros and both signs; REPEATS launches bit-identical; timed (CUDA
+    events) beside the plain version and its byte bound (4 bytes read a
+    value, 6 written a padded column). Returns the projection's record."""
+    from music_transcription_tpu_torch.ops import precision
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 23)
+    records = {}
+    for shape, width in (((22512, 2048), None), ((192, 938, 938), 944)):
+        w = width or shape[-1]
+        mag = torch.exp2(torch.randint(-140, 120, shape, device="cuda", generator=gen).float())
+        g = torch.randn(shape, device="cuda", generator=gen) * mag
+        g.view(-1)[::17] = 0.0
+        bits = lambda: precision.split_bf16(g, width).view(torch.int16)  # noqa: E731
+        got = bits()
+        err = int((got != precision.split_bf16_plain(g, width).view(torch.int16)).sum())
+        same = repeats_identical(torch, bits, got)
+        ms = cuda_ms(lambda: precision.split_bf16(g, width), reps=5)
+        plain_ms = cuda_ms(lambda: precision.split_bf16_plain(g, width), reps=2)
+        b_ms, b_by = bound(0.0, PEAK_BF16, 4.0 * g.numel() + 6.0 * g.numel() // shape[-1] * w)
+        ok = err == 0 and same
+        rows.append(f"split_bf16 {'x'.join(map(str, shape))} width {w}: bits unlike the plain "
+                    f"version's {err} ms={ms:.4f} plain_ms={plain_ms:.3f} bound_ms={b_ms:.4f} "
+                    f"({b_by}) {REPEATS} launches bit-identical={same} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(rows[-1])
+        records[shape] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                              bound_by=b_by, library_ms=None, repeats_identical=same)
+        del g, got
+    return records[(22512, 2048)]
 
 
 def conv_stage_bounds() -> dict:
@@ -1339,6 +1382,7 @@ def train_phase(torch, lk, ak, wav30, rows):
     (ms) and the path of model_best."""
     from music_transcription_tpu_torch.config import AudioConfig, ModelConfig, TrainConfig
     from music_transcription_tpu_torch.data.midi import load_midi
+    from music_transcription_tpu_torch.ops import precision
     from music_transcription_tpu_torch.train import __main__ as train_cli
     from music_transcription_tpu_torch.transcribe import transcribe_audio
 
@@ -1355,7 +1399,7 @@ def train_phase(torch, lk, ak, wav30, rows):
             "--num_workers", "4", "--seed", str(SEED)]
     with recorded_steps() as steps:
         for counter in (lk.lstm_recurrence, lk.lstm_recurrence_fwd, lk.lstm_recurrence_bwd,
-                        ak.flash_attention_clamped):
+                        ak.flash_attention_clamped, precision.split_bf16):
             counter.launches = 0
         t0 = time.perf_counter()
         rc = train_cli.main(argv + ["--epochs", "2"])
@@ -1363,7 +1407,8 @@ def train_phase(torch, lk, ak, wav30, rows):
         launches = {"lstm_recurrence": lk.lstm_recurrence.launches,
                     "lstm_recurrence_fwd": lk.lstm_recurrence_fwd.launches,
                     "lstm_recurrence_bwd": lk.lstm_recurrence_bwd.launches,
-                    "flash_attention_clamped": ak.flash_attention_clamped.launches}
+                    "flash_attention_clamped": ak.flash_attention_clamped.launches,
+                    "split_bf16": precision.split_bf16.launches}
     with open(os.path.join(run_dir, "training_log.txt")) as f:
         log = [line.split() for line in f if line.strip()]
     losses = [float(r[k].split("=")[1]) for r in log for k in (2, 3)]
@@ -1375,8 +1420,10 @@ def train_phase(torch, lk, ak, wav30, rows):
     if (rc != 0 or len(steps) != 4 or any(m["skipped"] for m in steps)
             or not all(np.isfinite(m["loss"]) for m in steps + [{"loss": v} for v in losses])):
         raise AssertionError("training run failed")
+    # a step's split backwards: 8 BiLSTM projections and the plain attention's 2 products
     if (launches["lstm_recurrence_fwd"] != 4 * len(steps)
             or launches["lstm_recurrence_bwd"] != 4 * len(steps)
+            or launches["split_bf16"] != 10 * len(steps)
             or launches["lstm_recurrence"] != 4 * n_val_batches * 2):
         raise AssertionError(f"training missed a kernel: {launches}")
 
@@ -2225,13 +2272,14 @@ def ast_train_phase(torch, counters, card):
     (pretraining, the frozen transplant, token training with scheduled
     sampling, pitch weights and note-F1 selection), evaluate_ast on its
     model_best, a step on the card against the CPU and the steps' times,
-    through no hand-written kernel."""
+    through none of K1-K6."""
     from music_transcription_tpu_torch.config import AudioConfig, ModelConfig, config_from_dict
     from music_transcription_tpu_torch.data.maestro import MaestroDataset
     from music_transcription_tpu_torch.data.pipeline import collate_tokens, collate_wave_roll
     from music_transcription_tpu_torch.models.remi_tokenizer import REMITokenizer
     from music_transcription_tpu_torch.models.transcription import TranscriptionModel
     from music_transcription_tpu_torch.models.transformer import encoder_state_dict
+    from music_transcription_tpu_torch.ops import precision
     from music_transcription_tpu_torch.transcribe import load_model
 
     root = os.path.join(WORK, "maestro_ast")
@@ -2247,6 +2295,7 @@ def ast_train_phase(torch, counters, card):
 
     for c in counters:
         c.launches = 0
+    split0 = precision.split_bf16.launches
     t_phase = t0 = time.perf_counter()
     run_train_ast(["--root_dir", root, "--pretrain_frames", "--epochs", "2", "--val_split",
                    "validation", "--device_data", "on", "--compact_data", "--run_dir", pre_dir])
@@ -2317,7 +2366,8 @@ def ast_train_phase(torch, counters, card):
     time_ast_steps(torch, *(torch.from_numpy(a) for a in (wave, roll, lengths, tokens)), card)
     if any(launches().values()):
         raise AssertionError(f"AST training launched a hand-written kernel: {launches()}")
-    print(f"    hand-written kernel launches in the phase: {launches()}; phase wall "
+    print(f"    K1-K6 launches in the phase: {launches()}; split_bf16 launches (the bf16 "
+          f"attention backward) {precision.split_bf16.launches - split0}; phase wall "
           f"{time.perf_counter() - t_phase:.1f} s")
 
 
@@ -3251,7 +3301,9 @@ def bench_phase(torch, lk, ak, card):
         got = totals()
         print(f"    launches in the run {got}; wall {time.perf_counter() - t0:.1f} s")
         for r in rows:
-            ok = (r["fwd_launches"] == {} and r["fwdbwd_launches"] == {} if r["backend"] == "xla"
+            # the plain route's backward: q @ k^T and p @ v, a split each
+            ok = (r["fwd_launches"] == {} and r["fwdbwd_launches"] == {"split_bf16": 2.0}
+                  if r["backend"] == "xla"
                   else r["fwd_launches"] == {"K3": 1.0} and r["fwdbwd_launches"] == flash)
             if not ok:
                 raise AssertionError(f"11c: {r['backend']} at T={r['t']} launched "
@@ -3265,8 +3317,11 @@ def bench_phase(torch, lk, ak, card):
     results = bench_components.run(bench_components.build_parser().parse_args([]))
     got = totals()
     print(f"    launches in the run {got}; wall {time.perf_counter() - t0:.1f} s")
-    if (results["lstm_tier"]["launches"] != {"K2a": 4.0, "K2b": 4.0}
-            or results["conv_stack"]["launches"] or results["attention"]["launches"]
+    # a split a projection's backward (4 layers x 2 directions) and a
+    # product's of the plain attention (2)
+    if (results["lstm_tier"]["launches"] != {"K2a": 4.0, "K2b": 4.0, "split_bf16": 8.0}
+            or results["conv_stack"]["launches"]
+            or results["attention"]["launches"] != {"split_bf16": 2.0}
             or set(got) != {"K2a", "K2b"}):
         raise AssertionError(f"11d: K2a and K2b should launch 4 times a LSTM-tier call: "
                              f"{ {k: r['launches'] for k, r in results.items()} }")
@@ -3483,6 +3538,7 @@ def main() -> int:
     rows = []
     k2 = check_k2(torch, lk, rows)
     k4 = check_k4(torch, ak, rows)
+    split = check_split(torch, rows)
     print("[5] training kernels vs plain versions on " + card)
     for r in rows:
         print("    " + r)
@@ -3501,8 +3557,10 @@ def main() -> int:
     # 8. evaluation on the card
     eval_phase(torch, lk, ak, flash_best, xla_best)
 
-    # 8b. the AST tier's inference path, 8c. its training: no hand-written
-    # kernel may launch
+    # 8b. the AST tier's inference path, 8c. its training: no port of the
+    # JAX package's kernels (K1-K6) may launch. split_bf16 is not among the
+    # counters: the token model's bf16 attention backward takes it by design
+    # (8c prints its launches)
     counters = (lk.lstm_recurrence, lk.lstm_recurrence_fwd, lk.lstm_recurrence_bwd,
                 ak.flash_attention_clamped, ak.flash_attention_clamped_fwd,
                 ak.flash_attention_clamped_dq, ak.flash_attention_clamped_dkv,
@@ -3567,6 +3625,11 @@ def main() -> int:
              source="music_transcription_tpu_torch/csrc/res_block.cu",
              replaces="music_transcription_tpu/ops/conv_pallas.py:214",
              launches=conv_launches["fused_res_block"], ok=True, **k6),
+        # the port's own: no JAX kernel to replace (XLA transposes the
+        # product itself); launches on phase 6's steps
+        dict(name="split_bf16", route="cuda",
+             source="music_transcription_tpu_torch/csrc/split_bf16.cu", replaces=None,
+             launches=train_launches["split_bf16"], ok=True, **split),
     ]
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi_line())

@@ -22,6 +22,7 @@ import numpy as np
 
 from music_transcription_tpu_torch.ops import attention_kernel as _ak
 from music_transcription_tpu_torch.ops import lstm_kernel as _lk
+from music_transcription_tpu_torch.ops import precision as _precision
 
 # the hand-written kernels the benches reach, by the ids of the port's records
 KERNELS = {
@@ -32,6 +33,7 @@ KERNELS = {
     "K3+lse": _ak.flash_attention_clamped_fwd,
     "K4a": _ak.flash_attention_clamped_dq,
     "K4b": _ak.flash_attention_clamped_dkv,
+    "split_bf16": _precision.split_bf16,
 }
 
 

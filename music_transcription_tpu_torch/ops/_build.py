@@ -24,7 +24,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("lstm_recurrence", "flash_attention_clamped", "conv_bn_relu", "res_block")
+SOURCES = ("lstm_recurrence", "flash_attention_clamped", "conv_bn_relu", "res_block", "split_bf16")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -3,7 +3,11 @@ recurrence, as in the JAX package's ``ops/lstm.py``.
 
   * The input projection ``x @ W_ih + b`` for all timesteps is one large
     matmul per direction, hoisted out of the recurrence; it runs in
-    ``proj_dtype`` (bf16 in the default model) with fp32 accumulation.
+    ``proj_dtype`` (bf16 in the default model) with fp32 accumulation
+    (``ops.precision.matmul_f32``). On the card its backward runs on the
+    tensor cores too, over an exact three-term bf16 split of the fp32
+    gradient: every product exact, every sum in fp32. dW_hh, the recurrent
+    weights' gradient, is an fp32 product.
   * The backward direction's projections are time-reversed and stacked on
     the batch axis (2B rows), so one recurrence serves both directions.
   * Gate order is torch's (i, f, g, o) and the bias is one combined bias

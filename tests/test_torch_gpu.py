@@ -23,6 +23,7 @@ from music_transcription_tpu_torch.models.transcription import TranscriptionMode
 from music_transcription_tpu_torch.ops import attention_kernel as AK
 from music_transcription_tpu_torch.ops import conv_kernel as CK
 from music_transcription_tpu_torch.ops import lstm_kernel as LK
+from music_transcription_tpu_torch.ops import precision as P
 from music_transcription_tpu_torch.ops.mel import log_mel_batch
 from music_transcription_tpu_torch.parallel.train_step import TrainState, train_step
 from music_transcription_tpu_torch.train.optim import make_optimizer
@@ -243,6 +244,110 @@ def test_train_step_on_card_matches_cpu(cuda, monkeypatch, attention):
             continue
         tol = 1e-2 if name in cnn else 1e-3
         assert float((other - p.grad).abs().max()) <= tol * float(p.grad.abs().max()), name
+
+
+
+
+# the gradients the main path splits: a projection's (M, 4H), the plain
+# attention's scores (B x heads, T, T) padded to 944 and its output
+# (B x heads, T, D); odd and small widths, pads, and an input 4 bytes off a
+# 16-byte boundary (the kernel's 4-, 2- and 1-wide paths)
+@pytest.mark.parametrize("shape,width,offset", [((22512, 2048), None, 0), ((192, 938, 938), 944, 0),
+                                                ((192, 938, 192), None, 0), ((7, 5), 8, 0),
+                                                ((3, 33), None, 0), ((4, 6), 6, 0),
+                                                ((64, 96), 104, 1), ((5, 10), None, 1)])
+def test_split_kernel_matches_plain(cuda, shape, width, offset):
+    """The split kernel against ``split_bf16_plain`` bit for bit, over values
+    from 2^-140 to fp32's largest, zeros and both signs; launched twice,
+    bit-identical; a NaN or an infinity gives non-finite terms."""
+    gen = torch.Generator(device=cuda).manual_seed(sum(shape) + offset)
+    numel = int(np.prod(shape))
+    mag = torch.exp2(torch.randint(-140, 120, (numel,), device=cuda, generator=gen).float())
+    vals = torch.randn(numel, device=cuda, generator=gen) * mag
+    vals[::17] = 0.0
+    vals[1::29] = torch.finfo(torch.float32).max
+    g = torch.empty(numel + offset, device=cuda)[offset:].view(shape)
+    g.copy_(vals.view(shape))
+    before = P.split_bf16.launches
+    got = P.split_bf16(g, width)
+    again = P.split_bf16(g, width)
+    want = P.split_bf16_plain(g, width)
+    assert P.split_bf16.launches - before == 2
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+    assert torch.equal(again.view(torch.int16), got.view(torch.int16))
+    bad = [0, numel // 2, numel - 1]
+    g.view(-1)[bad] = torch.tensor([float("nan"), float("inf"), float("-inf")], device=cuda)
+    w = width or shape[-1]
+    lo, mid, hi = P.split_bf16(g, w).float().split(w, dim=-1)
+    total = ((hi + mid) + lo)[..., :shape[-1]].reshape(-1)
+    assert not torch.isfinite(total[bad]).any()
+
+
+# (batch, M, K, N) at M = 24 x 938 rows: the main path's projections, layer
+# 0 (I = 256 x 40 inputs; N = 4H = 2048 for rnn_main, 1024 for rnn_local and
+# at hidden_size=256) and layers 1-2 (I = 2H); the base model's layer 0 (I =
+# 64 x 80); layers 1-2 at hidden_size=256 (I = 512, N = 1024). The plain
+# attention's two bmm products at B x heads = 192, T = 938, D = 192: q @ k^T
+# (b a transposed view) and p @ v. The AST tier's at its training defaults
+# (batch 4, 6 heads of 64, 78 encoder patches, 256 tokens): the encoder's
+# self-attention, the decoder's, and its cross-attention
+@pytest.mark.parametrize("lead,m,k,n,b_view", [((), 22512, 10240, 2048, False),
+                                               ((), 22512, 10240, 1024, False),
+                                               ((), 22512, 1024, 2048, False),
+                                               ((), 22512, 5120, 2048, False),
+                                               ((), 22512, 512, 1024, False),
+                                               ((192,), 938, 192, 938, True),
+                                               ((192,), 938, 938, 192, False),
+                                               ((24,), 78, 64, 78, True),
+                                               ((24,), 78, 78, 64, False),
+                                               ((24,), 256, 64, 256, True),
+                                               ((24,), 256, 256, 64, False),
+                                               ((24,), 256, 64, 78, True),
+                                               ((24,), 256, 78, 64, False)])
+def test_split_backward_on_card_is_as_accurate_as_the_fp32_one(cuda, lead, m, k, n, b_view):
+    """grad_a = grad @ b^T and grad_b = a^T @ grad on the tensor cores over
+    the gradient's three-term split: the largest error against an fp64
+    product at most 2x that of the fp32 backward on the CUDA cores; the
+    one-term backward (the gradient rounded to bf16 before a tensor-core
+    product) misses that bound."""
+    gen = torch.Generator(device=cuda).manual_seed(m + k + n)
+    a = torch.randn(*lead, m, k, device=cuda, generator=gen).bfloat16()
+    b = (torch.randn(*lead, *((n, k) if b_view else (k, n)), device=cuda, generator=gen)
+         / k ** 0.5).bfloat16()
+    if b_view:
+        b = b.transpose(-1, -2)
+    g = 1e-3 * torch.randn(*lead, m, n, device=cuda, generator=gen)
+    t = lambda x: x.transpose(-1, -2)  # noqa: E731
+    with P.full_fp32():
+        split = P.split_backward(a, b, g)
+        fp32 = P.fp32_backward(a, b, g)
+        one_term = (P._tensor_core_product(g.bfloat16(), t(b)),
+                    P._tensor_core_product(t(a), g.bfloat16()))
+    for i, ref in enumerate((g.double() @ t(b).double(), t(a).double() @ g.double())):
+        err = [float((x[i].double() - ref).abs().max()) for x in (split, fp32, one_term)]
+        print(f"{'ab'[i]}: split {err[0]:.3e}, fp32 {err[1]:.3e}, one-term {err[2]:.3e}")
+        assert err[0] <= 2 * err[1] and err[2] > 2 * err[1], err
+
+
+@pytest.mark.parametrize("model_type,split", [("cnn_rnn_large", 10), ("cnn_rnn", 6)])
+def test_bf16_train_step_on_card_takes_the_split_backward(cuda, model_type, split):
+    """A bf16 step of each model: the BiLSTM projections (``rnn_main`` 3
+    layers x 2 directions; the large model's ``rnn_local`` 1 x 2) and the
+    large model's plain attention (q @ k^T, p @ v) take the split backward,
+    10 and 6 a step. TF32 stays off."""
+    torch.manual_seed(0)
+    cfg = ModelConfig(n_mels=64, hidden_size=32, num_layers=3, model_type=model_type,
+                      attention_backend="xla")
+    m = TranscriptionModel(cfg).to(cuda)
+    rng = np.random.default_rng(4)
+    batch = (torch.from_numpy((rng.standard_normal((3, 1, 64, 63)) * 10).astype(np.float32)),
+             torch.from_numpy((rng.random((3, 88, 63)) > 0.9).astype(np.float32)),
+             torch.tensor([63, 50, 20], dtype=torch.int32))
+    before = P.matmul_f32.split_backwards
+    got = train_step(TrainState(m, make_optimizer(m.parameters(), TrainConfig())),
+                     tuple(x.to(cuda) for x in batch), 1, max_grad_norm=1.0)
+    assert P.matmul_f32.split_backwards - before == split
+    assert got["skipped"] == 0.0 and not torch.backends.cuda.matmul.allow_tf32
 
 
 def _sharded_step_at_world_1(cuda, tmp_path, strategy: str, mesh_shape: tuple):
