@@ -2,8 +2,11 @@
 
 The port's own copy of the dataclasses in ``music_transcription_tpu.config``
 (``AudioConfig``, ``ModelConfig``, ``TrainConfig``) and of its cache check.
-Field names and defaults are identical, so a sidecar ``config.json`` written
-by either package loads in both.
+Field names and defaults are identical, but for the fields of the port's own
+model, the hFT-Transformer (``model_type="hft"``), which follow the JAX
+package's in ``ModelConfig`` and which ``config_to_dict`` writes for that
+model alone: a sidecar ``config.json`` of any other model holds the JAX
+package's keys, and loads in both packages.
 """
 
 from __future__ import annotations
@@ -15,12 +18,15 @@ from typing import Any, Mapping
 # The piano-roll layout shared by every layer: 88 keys, MIDI notes 21..108.
 NUM_KEYS = 88
 MIN_MIDI = 21
+# the hFT-Transformer's front end: hop 256 (62.5 frames a second)
+HFT_HOP_LENGTH = 256
 
 
 @dataclass(frozen=True)
 class AudioConfig:
     """Audio frontend configuration: sr=16000, hop=512, n_mels=320, 30 s
-    chunks. ``frame_rate`` is the piano-roll frame rate, 31.25 fps."""
+    chunks. ``frame_rate`` is the piano-roll frame rate, 31.25 fps (62.5 at
+    the hFT-Transformer's hop of 256, ``HFT_HOP_LENGTH``)."""
 
     sample_rate: int = 16000
     hop_length: int = 512
@@ -64,7 +70,7 @@ class AudioConfig:
 class ModelConfig:
     """Model architecture configuration (the JAX package's field set)."""
 
-    model_type: str = "cnn_rnn_large"  # cnn_rnn | cnn_rnn_large | ast
+    model_type: str = "cnn_rnn_large"  # cnn_rnn | cnn_rnn_large | ast | hft
     n_mels: int = 320
     hidden_size: int = 512
     num_layers: int = 3
@@ -97,6 +103,16 @@ class ModelConfig:
     # hand-written clamped flash kernel, ops/attention_kernel.py) or "auto"
     # (flash once the fp32 score tensor passes 1.5e9 bytes).
     attention_backend: str = "xla"
+    # hFT-Transformer fields (models/hft.py), beside n_mels (bins),
+    # hidden_size, num_layers (a stage), num_attention_heads and dropout:
+    # the FFN width, the time conv's channels and kernel, and a segment's
+    # trained frames with the margin frames on each side.
+    ffn_dim: int = 512
+    conv_channels: int = 4
+    conv_kernel: int = 5
+    segment_frames: int = 128
+    margin_frames: int = 32
+    velocity_classes: int = 128
 
     def __post_init__(self):
         object.__setattr__(self, "model_type", canonical_model_type(self.model_type))
@@ -109,6 +125,15 @@ class ModelConfig:
     def is_large(self) -> bool:
         return self.model_type == "cnn_rnn_large"
 
+    @property
+    def is_hft(self) -> bool:
+        return self.model_type == "hft"
+
+    @property
+    def input_frames(self) -> int:
+        """hFT's frames a segment: the trained ones and both margins."""
+        return self.segment_frames + 2 * self.margin_frames
+
 
 def canonical_model_type(model_type: str) -> str:
     """Normalize model-type aliases."""
@@ -119,6 +144,8 @@ def canonical_model_type(model_type: str) -> str:
         return "cnn_rnn_large"
     if mt in ("ast", "transformer", "audio_transformer"):
         return "ast"
+    if mt in ("hft", "hft_transformer"):
+        return "hft"
     raise ValueError(f"Unknown model type: {model_type}")
 
 
@@ -208,8 +235,20 @@ def validate_compatibility(*, model_n_mels: int | None = None,
     return warnings
 
 
+# the fields of the port's own model alone, after the JAX package's
+HFT_FIELDS = ("ffn_dim", "conv_channels", "conv_kernel", "segment_frames", "margin_frames",
+              "velocity_classes")
+
+
 def config_to_dict(cfg) -> dict:
-    return dataclasses.asdict(cfg)
+    """A config's fields as a dict. A ``ModelConfig`` of any model but hFT
+    leaves out hFT's fields, so that its sidecar holds the JAX package's keys
+    alone, which that package's scripts read with ``ModelConfig(**...)``."""
+    out = dataclasses.asdict(cfg)
+    if isinstance(cfg, ModelConfig) and not cfg.is_hft:
+        for k in HFT_FIELDS:
+            del out[k]
+    return out
 
 
 def config_from_dict(cls, d: Mapping[str, Any]):

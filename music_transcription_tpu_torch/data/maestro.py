@@ -13,6 +13,8 @@ module.
     the binarized 88-key roll sampled at fs = sr / hop over
     ``np.linspace(start, end, int(dur * fs))``, both cut to the shorter length
   * ``return_waveform`` returns the samples instead of the log-mel
+  * ``velocity`` gives a velocity roll (``MidiFile.keys_roll``: 1-127 where
+    a key is on, 0 elsewhere) for the hFT-Transformer's targets
 """
 
 from __future__ import annotations
@@ -65,7 +67,7 @@ class MaestroDataset:
     def __init__(self, root_dir, csv_path=None, year=None, split: str | None = "train",
                  audio_cfg: AudioConfig | None = None, subset_size: int | None = None,
                  chunk_length: float | None = None, overlap: float = 0.0,
-                 return_waveform: bool = False):
+                 return_waveform: bool = False, velocity: bool = False):
         self.root_dir = str(root_dir)
         self.cfg = audio_cfg or AudioConfig()
         if chunk_length is not None and chunk_length != self.cfg.chunk_length:
@@ -76,6 +78,7 @@ class MaestroDataset:
         self.chunk_length = chunk_length
         self.overlap = overlap
         self.return_waveform = return_waveform
+        self.velocity = velocity
         if csv_path is None:
             for name in ("maestro-v3.0.0.csv", "maestro-v2.0.0.csv"):
                 csv_path = os.path.join(self.root_dir, name)
@@ -126,7 +129,8 @@ class MaestroDataset:
         if self.chunk_length is None:
             audio_path, midi_path = self._paths(self.rows[idx])
             y, _ = audio_io.load_audio(audio_path, sr=self.cfg.sample_rate, mono=True)
-            return self._pack(y, self._midi(midi_path).keys_roll(fs=self.cfg.frame_rate))
+            return self._pack(y, self._midi(midi_path).keys_roll(fs=self.cfg.frame_rate,
+                                                                 velocity=self.velocity))
         info = self.chunks[idx]
         audio_path, midi_path = self._paths(self.rows[info["file_idx"]])
         dur = (info["end_sample"] - info["start_sample"]) / self.cfg.sample_rate
@@ -135,7 +139,8 @@ class MaestroDataset:
         fs = self.cfg.frame_rate
         times = np.linspace(info["start_time"], info["end_time"],
                             int((info["end_time"] - info["start_time"]) * fs))
-        return self._pack(y, self._midi(midi_path).keys_roll(fs=fs, times=times))
+        return self._pack(y, self._midi(midi_path).keys_roll(fs=fs, times=times,
+                                                             velocity=self.velocity))
 
     def _pack(self, y: np.ndarray, roll: np.ndarray):
         if self.return_waveform:

@@ -87,11 +87,19 @@ class MidiFile:
             out[:, : r.shape[1]] += r
         return out
 
-    def keys_roll(self, fs: float, times: np.ndarray | None = None) -> np.ndarray:
+    def keys_roll(self, fs: float, times: np.ndarray | None = None,
+                  velocity: bool = False) -> np.ndarray:
         """Binarized 88-key roll, sliced [MIN_MIDI : MIN_MIDI+88] and > 0
-        (reference data/dataset.py:141-146)."""
-        full = self.piano_roll(fs=fs, times=times)
-        return (full[MIN_MIDI : MIN_MIDI + NUM_KEYS] > 0).astype(np.float32)
+        (reference data/dataset.py:141-146). With ``velocity`` the frames
+        that are on hold velocities instead: the piano roll's value rounded
+        and held within 1-127 (a note alone gives its own velocity exactly;
+        notes summed on one key, or a frame's mean over a part of a note,
+        give their rounded sum or mean), and the off frames 0, so that
+        ``roll > 0`` is the binary roll."""
+        full = self.piano_roll(fs=fs, times=times)[MIN_MIDI : MIN_MIDI + NUM_KEYS]
+        if velocity:
+            return np.where(full > 0, np.clip(np.rint(full), 1, 127), 0).astype(np.float32)
+        return (full > 0).astype(np.float32)
 
 
 def _fill_roll(notes, fs: float, n_cols: int) -> np.ndarray:

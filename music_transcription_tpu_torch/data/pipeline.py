@@ -10,7 +10,8 @@ package's ``data/pipeline.py``.
     JAX package's batches in the JAX package's order
   * ``DeviceStagedLoader``: the whole dataset (or its first ``limit``
     items) staged on the card once (mel as bf16 and the binary roll as uint8
-    under bf16 compute, waves as int16 PCM with ``compact_fields``), batches
+    under bf16 compute, a velocity roll as uint8 too, waves as int16 PCM
+    with ``compact_fields``), batches
     gathered there by index, so a step moves one index vector to the card
   * ``SlabRotatingLoader``: for caches larger than the staging limit, each
     epoch's permutation cut into equal slabs, one slab staged at a time
@@ -166,14 +167,16 @@ class Loader:
 
 def collate_subset(dataset, collate, indices, *, pad_to: int | None = None,
                    num_workers: int = 4, compact_fields: tuple[int, ...] = (),
-                   bf16_fields: tuple[int, ...] = (),
-                   u8_fields: tuple[int, ...] = ()) -> list[torch.Tensor]:
+                   bf16_fields: tuple[int, ...] = (), u8_fields: tuple[int, ...] = (),
+                   velocity_fields: tuple[int, ...] = ()) -> list[torch.Tensor]:
     """The items at ``indices`` collated into one batch per field, as CPU
     tensors in their staged dtypes: ``compact_fields`` as int16 at PCM16
     scale (``quantize_i16``: exact for audio decoded from 16-bit PCM),
     ``bf16_fields`` as bfloat16 (for model inputs under bf16 compute, whose
     first layer makes the same round-to-nearest cast), ``u8_fields`` as
-    uint8 (binary piano rolls, exact; anything but 0 and 1 raises)."""
+    uint8 (binary piano rolls, exact; anything but 0 and 1 raises),
+    ``velocity_fields`` as uint8 too (velocity rolls, exact; anything but the
+    whole numbers 0 to 127 raises)."""
     indices = [int(i) for i in indices]
     if num_workers > 0:
         with ThreadPoolExecutor(max_workers=num_workers) as pool:
@@ -197,13 +200,20 @@ def collate_subset(dataset, collate, indices, *, pad_to: int | None = None,
             raise ValueError(f"u8 field {i} must be a binary float array (piano roll); "
                              f"got dtype={a.dtype}")
         host[i] = a.to(torch.uint8)
+    for i in velocity_fields:
+        a = host[i]
+        if not a.is_floating_point() or not bool(((a >= 0) & (a <= 127) & (a == a.round())).all()):
+            raise ValueError(f"velocity field {i} must hold whole numbers 0 to 127 (a velocity "
+                             f"roll); got dtype={a.dtype}")
+        host[i] = a.to(torch.uint8)
     return host
 
 
 def stage_to_device(dataset, collate, *, device, pad_to: int | None = None,
                     limit: int | None = None, num_workers: int = 4, verbose: bool = False,
                     compact_fields: tuple[int, ...] = (), bf16_fields: tuple[int, ...] = (),
-                    u8_fields: tuple[int, ...] = (), indices=None):
+                    u8_fields: tuple[int, ...] = (), velocity_fields: tuple[int, ...] = (),
+                    indices=None):
     """Collate the dataset (its first ``limit`` items, or the items at
     ``indices``) into one batch per field, in the dtypes of
     ``collate_subset``, and put it on ``device``. Returns (tensors, n_items)."""
@@ -211,7 +221,7 @@ def stage_to_device(dataset, collate, *, device, pad_to: int | None = None,
         indices = range(len(dataset) if limit is None else min(limit, len(dataset)))
     host = collate_subset(dataset, collate, indices, pad_to=pad_to, num_workers=num_workers,
                           compact_fields=compact_fields, bf16_fields=bf16_fields,
-                          u8_fields=u8_fields)
+                          u8_fields=u8_fields, velocity_fields=velocity_fields)
     if verbose:
         mb = sum(a.numel() * a.element_size() for a in host) / 1e6
         print(f"Staging {len(indices)} items ({mb:.0f} MB) on {device}...")
@@ -224,12 +234,12 @@ def dequantize_i16(a: torch.Tensor) -> torch.Tensor:
     return a.float() * (1.0 / PCM16_SCALE)
 
 
-def _make_dequantizer(compact_fields=(), bf16_fields=(), u8_fields=()):
+def _make_dequantizer(compact_fields=(), bf16_fields=(), u8_fields=(), velocity_fields=()):
     """Per field, the inverse of the staged dtype: int16 PCM dequantized,
     bf16 and uint8 widened to float32, so gathered batches come out in the
     streaming Loader's dtypes."""
     cf = frozenset(compact_fields)
-    widen = frozenset(bf16_fields) | frozenset(u8_fields)
+    widen = frozenset(bf16_fields) | frozenset(u8_fields) | frozenset(velocity_fields)
 
     def dq(out):
         return tuple(dequantize_i16(a) if i in cf else a.float() if i in widen else a
@@ -262,10 +272,10 @@ class DeviceStagedLoader:
                  num_workers: int = 4, drop_last: bool = False, pad_last_batch: bool = False,
                  verbose: bool = False, limit: int | None = None,
                  compact_fields: tuple[int, ...] = (), bf16_fields: tuple[int, ...] = (),
-                 u8_fields: tuple[int, ...] = ()):
+                 u8_fields: tuple[int, ...] = (), velocity_fields: tuple[int, ...] = ()):
         self.device = torch.device(device)
         fields = dict(compact_fields=tuple(compact_fields), bf16_fields=tuple(bf16_fields),
-                      u8_fields=tuple(u8_fields))
+                      u8_fields=tuple(u8_fields), velocity_fields=tuple(velocity_fields))
         self.arrays, self.n = stage_to_device(
             dataset, collate, device=self.device, pad_to=pad_to, limit=limit,
             num_workers=num_workers, verbose=verbose, **fields)
@@ -328,7 +338,7 @@ class SlabRotatingLoader:
                  passes_per_slab: int = 1, seed: int = 0, num_workers: int = 4,
                  verbose: bool = False,
                  compact_fields: tuple[int, ...] = (), bf16_fields: tuple[int, ...] = (),
-                 u8_fields: tuple[int, ...] = ()):
+                 u8_fields: tuple[int, ...] = (), velocity_fields: tuple[int, ...] = ()):
         self.device = torch.device(device)
         self.dataset = dataset
         self.batch_size = batch_size
@@ -338,7 +348,8 @@ class SlabRotatingLoader:
         self.num_workers = num_workers
         self.verbose = verbose
         self.fields = dict(compact_fields=tuple(compact_fields),
-                           bf16_fields=tuple(bf16_fields), u8_fields=tuple(u8_fields))
+                           bf16_fields=tuple(bf16_fields), u8_fields=tuple(u8_fields),
+                           velocity_fields=tuple(velocity_fields))
         self.dequantize = _make_dequantizer(**self.fields)
         self.passes_per_slab = max(1, int(passes_per_slab))
         self.epoch = 0
@@ -351,7 +362,7 @@ class SlabRotatingLoader:
             b = int(np.asarray(a).nbytes)
             if i in compact_fields or i in bf16_fields:
                 b //= 2  # staged as int16 / bfloat16
-            elif i in u8_fields:
+            elif i in u8_fields or i in velocity_fields:
                 b //= 4  # staged as uint8
             item_bytes += b
         budget_items = max(batch_size, int(slab_bytes // max(1, item_bytes)))

@@ -20,7 +20,9 @@ The port of the JAX package's ``data/preprocess.py``, with its two paths:
 
 Metadata per split has the reference's keys (num_chunks, chunk_length,
 overlap, n_mels, sr, hop_length, return_waveform, tokenize) plus token_len,
-compact and the chunk index, and is written only when no chunk failed.
+compact, the chunk index and, for a cache of velocity rolls (1-127, the
+hFT-Transformer's targets), velocity; it is written only when no chunk
+failed.
 """
 
 from __future__ import annotations
@@ -39,9 +41,9 @@ from music_transcription_tpu_torch.models.remi_tokenizer import REMITokenizer
 from music_transcription_tpu_torch.ops.mel import log_mel_batch, log_mel_numpy, num_frames
 
 
-def _dataset_kwargs(root_dir, split, audio_cfg, chunk_length, overlap):
+def _dataset_kwargs(root_dir, split, audio_cfg, chunk_length, overlap, velocity=False):
     return dict(root_dir=root_dir, split=split, audio_cfg=audio_cfg,
-                chunk_length=chunk_length, overlap=overlap,
+                chunk_length=chunk_length, overlap=overlap, velocity=velocity,
                 return_waveform=True)  # decode once; the mel is computed here
 
 
@@ -51,14 +53,16 @@ def _tokens_for(roll, max_len=512):
 
 def _compact_arrays(arrays):
     """Compact storage: the waveform as int16 at PCM16 scale (exact for
-    16-bit PCM sources, half an LSB after resampling), a binary roll as
-    uint8. ``cache.load_chunk`` widens both back to float32."""
+    16-bit PCM sources, half an LSB after resampling), a binary or velocity
+    roll as uint8. ``cache.load_chunk`` widens both back to float32."""
     out = dict(arrays)
     if "waveform" in out:
         out["waveform"] = C.quantize_i16(out["waveform"])
     roll = out.get("roll")
-    # only a strictly binary roll is exact as uint8; anything else stays float32
-    if roll is not None and roll.size and np.isin(roll, (0.0, 1.0)).all():
+    # only a roll of whole numbers 0-127 is exact as uint8; anything else
+    # stays float32
+    if (roll is not None and roll.size and (roll >= 0).all() and (roll <= 127).all()
+            and (roll == np.rint(roll)).all()):
         out["roll"] = roll.astype(np.uint8)
     return out
 
@@ -115,13 +119,14 @@ def preprocess_split(*, root_dir, cache_dir, split: str, audio_cfg: AudioConfig,
                      force: bool = False, num_workers: int = 1, device="cuda",
                      use_device: bool | None = None, device_batch: int = 32,
                      verbose: bool = True, compact: bool = False,
-                     token_len: int = 512) -> dict:
+                     token_len: int = 512, velocity: bool = False) -> dict:
     """Preprocess one split; returns {total, processed, skipped, failed}.
+    ``velocity`` stores velocity rolls (``MidiFile.keys_roll``).
 
     ``use_device=None`` takes the device path exactly when ``device`` is a
     CUDA device and the cache is a mel cache; ``True`` runs the device path
     on ``device`` (a CPU device too), ``False`` the host path."""
-    ds_kwargs = _dataset_kwargs(root_dir, split, audio_cfg, chunk_length, overlap)
+    ds_kwargs = _dataset_kwargs(root_dir, split, audio_cfg, chunk_length, overlap, velocity)
     dataset = MaestroDataset(**ds_kwargs)
     n = len(dataset)
     split_dir = os.path.join(str(cache_dir), split)
@@ -137,6 +142,8 @@ def preprocess_split(*, root_dir, cache_dir, split: str, audio_cfg: AudioConfig,
         "token_len": int(token_len) if tokenize else None,
         "compact": bool(compact),
         "chunks": dataset.chunks,
+        # the key only where it is set: a binary cache's metadata is the JAX package's
+        **({"velocity": True} if velocity else {}),
     }
 
     todo = [i for i in range(n) if force or not os.path.exists(C.chunk_path(split_dir, i))]

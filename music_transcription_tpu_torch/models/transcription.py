@@ -3,8 +3,10 @@
 Port of the JAX package's ``models/transcription.py``: the two CNN-RNN
 types (frame logits, thresholded rolls) and the AST tier (token logits with
 ``targets``, generated ids without; ``predict`` decodes the ids to rolls
-through the checkpoint's tokenizer). The wrapped module sits under the
-attribute ``model``, so this wrapper's state_dict keys carry the
+through the checkpoint's tokenizer); and the port's own hFT-Transformer
+(``models/hft.py``: eight logits a segment, trained by
+``losses.hft_loss``). The wrapped module sits under the attribute
+``model``, so this wrapper's state_dict keys carry the
 reference's ``model.`` prefix. The forward follows the module's mode:
 ``.train()`` gives the training forward (batch-statistics BatchNorm, dropout
 masks from ``generator``), ``.eval()`` the inference one.
@@ -52,6 +54,15 @@ def build_module(cfg: ModelConfig) -> nn.Module:
             use_mock_encoder=cfg.use_mock_encoder, freeze_encoder=cfg.freeze_encoder,
             compute_dtype=dtype,
         )
+    if cfg.is_hft:
+        from music_transcription_tpu_torch.models.hft import HFTTranscriber
+
+        return HFTTranscriber(
+            n_mels=cfg.n_mels, hidden_size=cfg.hidden_size, num_layers=cfg.num_layers,
+            num_heads=cfg.num_attention_heads, ffn_dim=cfg.ffn_dim, dropout=cfg.dropout,
+            conv_channels=cfg.conv_channels, conv_kernel=cfg.conv_kernel,
+            segment_frames=cfg.segment_frames, margin_frames=cfg.margin_frames,
+            velocity_classes=cfg.velocity_classes, compute_dtype=dtype)
     raise ValueError(f"Unknown model type: {cfg.model_type}")
 
 
@@ -80,8 +91,13 @@ class TranscriptionModel(nn.Module):
 
         AST: (B, L) audio -> (B, T, V) logits with ``targets=``, else
         generated ids; ``kwargs`` go to ``ASTTranscriber.forward``
-        (``generate_max_len``, ``beam_size``, ``allowed_next``, ...)."""
+        (``generate_max_len``, ``beam_size``, ``allowed_next``, ...).
+
+        hFT: (B, [1,] n_mels, F + 2 * margin) segments -> the dict of its
+        eight logits, in training and inference alike."""
         with full_fp32():
+            if self.config.is_hft:
+                return self.model(x, generator=generator)
             if self.config.is_ast:
                 return self.model(x, generator=generator, **kwargs)
             if self.config.is_large:
@@ -90,7 +106,11 @@ class TranscriptionModel(nn.Module):
 
     def loss(self, logits, targets: torch.Tensor, lengths: torch.Tensor | None = None):
         """Masked BCE, or the 0.5/0.25/0.25 multi-head loss for a dict; token
-        cross-entropy (ignoring <pad>) for the AST."""
+        cross-entropy (ignoring <pad>) for the AST; for hFT the sum over both
+        stages of the BCEs and the velocity cross-entropy on the segments'
+        trained frames (``targets`` a velocity roll; ``lengths`` unused)."""
+        if self.config.is_hft:
+            return losses.hft_loss(logits, targets, self.config.margin_frames)
         if self.config.is_ast:
             return losses.token_cross_entropy(logits, targets)
         return losses.transcription_loss(logits, targets, lengths)
@@ -114,6 +134,8 @@ class TranscriptionModel(nn.Module):
         each row decoded to a roll of at most ``max_T`` frames by the
         tokenizer, padded to the longest (a CPU tensor); ``constrained``
         masks generation with the tokenizer's ``transition_mask()``."""
+        if self.config.is_hft:  # the second stage's frame activity, trained frames
+            return (torch.sigmoid(self(x)["mpe_time"]) > threshold).float()
         if not self.config.is_ast:
             return (torch.sigmoid(self(x)) > threshold).float()
         tok = self.tokenizer()

@@ -92,15 +92,20 @@ def _gelu(x: torch.Tensor) -> torch.Tensor:
     return 0.5 * x * torch.erfc(-x * sqrt_half)
 
 
-def _attention(q, k, v, mask, dtype: torch.dtype) -> torch.Tensor:
+def _attention(q, k, v, mask, dtype: torch.dtype, dropout_rate: float = 0.0,
+               generator=None) -> torch.Tensor:
     """(B, H, T, D) attention -> (B, T, H * D) fp32; ``mask`` (Tq, Tk) bool,
-    True where a key is seen."""
+    True where a key is seen. ``dropout_rate`` > 0 drops the fp32 weights
+    (B * H, Tq, Tk) after the softmax, masks from ``generator`` (the
+    hFT-Transformer's blocks; the AST tier passes none)."""
     b, h, tq, d = q.shape
     logits = matmul_f32(q.reshape(b * h, tq, d), k.reshape(b * h, -1, d).transpose(1, 2))
     logits = logits * d**-0.5
     if mask is not None:
         logits = logits.masked_fill(~mask, NEG)
     w = torch.softmax(logits, dim=-1)
+    if dropout_rate:
+        w = dropout(w, dropout_rate, generator)
     out = matmul_f32(w.to(dtype), v.reshape(b * h, -1, d))  # (B*H, Tq, D)
     return out.view(b, h, tq, d).transpose(1, 2).reshape(b, tq, h * d)
 
@@ -119,10 +124,10 @@ class MultiHeadProj(nn.Module):
         b, t, _ = x.shape
         return x.view(b, t, self.heads, self.dim // self.heads).transpose(1, 2)
 
-    def forward(self, x_q, x_kv, mask=None):
+    def forward(self, x_q, x_kv, mask=None, dropout_rate: float = 0.0, generator=None):
         q, k, v = (self.heads_split(f(x)) for f, x in ((self.q, x_q), (self.k, x_kv),
                                                          (self.v, x_kv)))
-        return self.o(_attention(q, k, v, mask, self.compute_dtype))
+        return self.o(_attention(q, k, v, mask, self.compute_dtype, dropout_rate, generator))
 
     # --- cached single-step path (generation) ---
     def step(self, x_q1: torch.Tensor, cache: torch.Tensor, pos: int) -> torch.Tensor:

@@ -7,6 +7,9 @@
   * multi-head loss 0.5 frame + 0.25 onset + 0.25 offset, the onset/offset
     targets derived from the frame targets' differences
   * token cross-entropy with ignore index 2 (<pad>) and optional class weights
+  * the hFT-Transformer's loss (``hft_loss``): over both output stages, the
+    mean BCE of onset, offset and frame activity and the mean velocity
+    cross-entropy, summed with weights 1, on a segment's trained frames
 """
 
 from __future__ import annotations
@@ -91,3 +94,36 @@ def token_cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
     if class_weights is not None:
         keep = keep * class_weights.float()[targets]
     return (nll * keep).sum() / torch.clamp(keep.sum(), min=1.0)
+
+
+def hft_targets(roll: torch.Tensor, margin: int):
+    """A velocity roll (B, 88, F + 2 * margin) (0 = off, 1-127 = on) -> the
+    targets of its trained frames [margin, margin + F): (onset, offset, mpe)
+    as floats (B, 88, F) and the velocity class (B, 88, F) as int64. mpe is
+    roll > 0; onset and offset are ``derive_onset_offset_targets`` of mpe
+    over the whole segment, so a note begun in the margin has no onset in
+    the trained frames; the velocity class is the roll's value at an onset
+    and 0 elsewhere."""
+    mpe = (roll > 0).float()
+    onset, offset = derive_onset_offset_targets(mpe)
+    kept = slice(margin, roll.shape[-1] - margin)
+    onset, offset, mpe = onset[..., kept], offset[..., kept], mpe[..., kept]
+    velocity = torch.where(onset > 0, roll[..., kept].float(), 0.0).long()
+    return onset, offset, mpe, velocity
+
+
+def hft_loss(logits: dict, roll: torch.Tensor, margin: int) -> torch.Tensor:
+    """The sum over the ``freq`` and ``time`` stages of the mean BCE with
+    logits of onset, offset and mpe and the mean cross-entropy of velocity
+    over its classes, each over every (pitch, frame) of the batch. BCE with
+    logits stands where the published code takes a sigmoid and BCELoss: the
+    same function, without the sigmoid's rounding."""
+    onset, offset, mpe, velocity = hft_targets(roll, margin)
+    total = torch.zeros((), device=roll.device)
+    for stage in ("freq", "time"):
+        for name, target in (("onset", onset), ("offset", offset), ("mpe", mpe)):
+            total = total + bce_with_logits(logits[f"{name}_{stage}"], target).mean()
+        v = logits[f"velocity_{stage}"]
+        total = total + torch.nn.functional.cross_entropy(
+            v.reshape(-1, v.shape[-1]).float(), velocity.reshape(-1))
+    return total

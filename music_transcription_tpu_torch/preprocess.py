@@ -9,7 +9,9 @@ The flags and their defaults are those of the JAX package's
 ``--waveform``) with ``--token_len``, ``--compact``, the cache directory
 named by data type and n_mels when ``--cache_dir`` is left out,
 ``--dry_run``, ``--show_cache_info``, ``--verify``, ``--background`` with
-``--log_file``, and a warning when the disk is short of space.
+``--log_file``, and a warning when the disk is short of space. ``--velocity``,
+the port's own, stores velocity rolls for the hFT-Transformer (with
+``--hop_length 256 --n_mels 256``).
 
 ``--device`` takes ``cuda`` (the default: a mel cache's log-mel runs on the
 card in batches of ``--device_batch``; the run exits 1 when no card is
@@ -53,6 +55,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "rolls as uint8 (~2.2x smaller waveform caches; "
                         "exact for 16-bit-PCM sources, half-LSB error after "
                         "resampling). Readers dequantize transparently")
+    p.add_argument("--velocity", action="store_true",
+                   help="store velocity rolls (1-127 where a key is on, 0 elsewhere; "
+                        "uint8 with --compact), the hFT model's targets, in place of "
+                        "binary ones")
     p.add_argument("--force", action="store_true", help="recompute existing chunks")
     p.add_argument("--num_workers", type=int, default=1)
     p.add_argument("--device", "-d", type=str, default="cuda", choices=["cuda", "cpu"],
@@ -181,7 +187,8 @@ def main(argv=None) -> int:
             audio_cfg=audio_cfg, chunk_length=args.chunk_length, overlap=args.overlap,
             return_waveform=args.waveform, tokenize=args.tokenize, force=args.force,
             num_workers=args.num_workers, device=args.device,
-            device_batch=args.device_batch, compact=args.compact, token_len=args.token_len)
+            device_batch=args.device_batch, compact=args.compact, token_len=args.token_len,
+            velocity=args.velocity)
         if args.verify:
             ok, msg = verify_cache(args.cache_dir, split)
             print(f"[{split}] verify: {'OK' if ok else 'FAILED'} — {msg}")

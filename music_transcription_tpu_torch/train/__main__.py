@@ -1,8 +1,21 @@
-"""Training CLI for the CNN-RNN transcription models on a CUDA card.
+"""Training CLI for the CNN-RNN transcription models, and the port's
+hFT-Transformer, on a CUDA card.
 
     python -m music_transcription_tpu_torch.train --root_dir maestro-v3.0.0 \\
         --cache_dir cached --model_type cnn_rnn_large --n_mels 320 --epochs 100 \\
         --batch_size 24 [-d cuda|cpu]
+
+The hFT-Transformer at its published settings (hop 256, which this model
+takes; segments of 128 frames with 32 margin frames on each side, so
+``--chunk_length`` 3.072 s; ``--chunk_overlap`` a third, the margins'
+1.024 s, so that the segments' trained frames tile the audio, the same
+share as the preprocessing CLI's ``--overlap``; the rolls carry
+velocities, from a cache written by the preprocessing CLI's
+``--velocity``):
+
+    python -m music_transcription_tpu_torch.train --model_type hft --n_mels 256 \\
+        --hidden_size 256 --num_layers 3 --num_attention_heads 4 --dropout 0.1 \\
+        --chunk_length 3.072 --chunk_overlap 0.3333333333333333 --batch_size 8
 
 Data-parallel training runs one process a rank, launched by torchrun:
 
@@ -78,11 +91,12 @@ def build_parser() -> argparse.ArgumentParser:
 
     m = p.add_argument_group("model")
     m.add_argument("--model_type", "--model", type=str, default="cnn_rnn_large",
-                   choices=["cnn_rnn", "cnn_rnn_large"])
+                   choices=["cnn_rnn", "cnn_rnn_large", "hft"])
     m.add_argument("--n_mels", type=int, default=320)
     m.add_argument("--hidden_size", type=int, default=512)
     m.add_argument("--num_layers", type=int, default=3)
     m.add_argument("--dropout", type=float, default=0.2)
+    m.add_argument("--num_attention_heads", type=int, default=8)
     m.add_argument("--no_attention", action="store_true")
     m.add_argument("--no_onset_offset_heads", action="store_true")
     m.add_argument("--use_attention", action="store_true", default=True, help=argparse.SUPPRESS)
@@ -199,6 +213,7 @@ def _train(args, multi: bool, device) -> int:
         latest_resumable_checkpoint,
     )
     from music_transcription_tpu_torch.config import (
+        HFT_HOP_LENGTH,
         AudioConfig,
         CompatibilityError,
         ModelConfig,
@@ -226,13 +241,22 @@ def _train(args, multi: bool, device) -> int:
     lstm_backend = args.lstm_backend
     if lstm_backend == "auto":
         lstm_backend = "pallas" if args.device != "cpu" and args.partitioning == "dp" else "scan"
-    audio_cfg = AudioConfig(n_mels=args.n_mels, chunk_length=args.chunk_length)
+    hft = args.model_type == "hft"
+    hop = HFT_HOP_LENGTH if hft else AudioConfig.hop_length
+    audio_cfg = AudioConfig(n_mels=args.n_mels, chunk_length=args.chunk_length, hop_length=hop)
     model_cfg = ModelConfig(
         model_type=args.model_type, n_mels=args.n_mels, hidden_size=args.hidden_size,
         num_layers=args.num_layers, dropout=args.dropout,
         use_attention=not args.no_attention,
         use_onset_offset_heads=not args.no_onset_offset_heads,
+        num_attention_heads=args.num_attention_heads,
         compute_dtype=args.compute_dtype, lstm_backend=lstm_backend)
+    if hft and audio_cfg.roll_frames_per_chunk != model_cfg.input_frames:
+        print(f"Error: hft trains on segments of {model_cfg.input_frames} frames "
+              f"({model_cfg.segment_frames} and 2 x {model_cfg.margin_frames} margin); "
+              f"--chunk_length {args.chunk_length} gives {audio_cfg.roll_frames_per_chunk} "
+              f"at hop {hop}")
+        return 1
     train_cfg = TrainConfig(
         epochs=args.epochs, batch_size=args.batch_size, learning_rate=args.lr,
         weight_decay=args.weight_decay, chunk_length=args.chunk_length,
@@ -258,8 +282,15 @@ def _train(args, multi: bool, device) -> int:
     common = dict(root_dir=args.root_dir, cache_dir=args.cache_dir,
                   chunk_length=args.chunk_length, audio_cfg=audio_cfg, year=args.year,
                   subset_size=args.subset_size)
+    if hft:  # targets from velocity rolls
+        common["velocity"] = True
     train_set = HybridMaestroDataset(split="train", overlap=args.chunk_overlap, **common)
     val_set = HybridMaestroDataset(split="validation", overlap=0.0, **common)
+    if hft and any(d.use_cache and not d.dataset.metadata.get("velocity")
+                   for d in (train_set, val_set)):
+        print(f"Error: the cache {args.cache_dir} holds binary rolls; hft trains on velocity "
+              f"rolls: preprocess with --velocity")
+        return 1
     print(f"Train set size: {len(train_set)} chunks")
     print(f"Validation set size: {len(val_set)} chunks")
     loader_batch = args.batch_size  # the global batch; each rank loads its share
@@ -271,7 +302,8 @@ def _train(args, multi: bool, device) -> int:
         val_set = ProcessShard(val_set, index, count)
         loader_batch = local_batch_size(args.batch_size, mp)
 
-    pad_to = audio_cfg.mel_frames_per_chunk  # fixed-shape batches
+    # fixed-shape batches: a chunk's frames, or hft's segment
+    pad_to = model_cfg.input_frames if hft else audio_cfg.mel_frames_per_chunk
     # Under bf16 compute the mel is staged as bf16 (the first convolution
     # makes the same cast) and the binary roll as uint8: about 43% of fp32.
     compact = args.compute_dtype == "bfloat16"
@@ -282,7 +314,8 @@ def _train(args, multi: bool, device) -> int:
                                                and est_bytes < STAGE_LIMIT_BYTES)
     use_slab = not use_staged and (args.device_data == "slab"
                                    or (args.device_data == "auto" and one_card))
-    staged_kw = dict(bf16_fields=(0,), u8_fields=(1,)) if compact else {}
+    roll_field = "velocity_fields" if hft else "u8_fields"
+    staged_kw = {"bf16_fields": (0,), roll_field: (1,)} if compact else {}
     if use_staged:
         train_loader = DeviceStagedLoader(
             train_set, loader_batch, device=device, shuffle=True, seed=args.seed,

@@ -20,7 +20,8 @@ from music_transcription_tpu.config import TrainConfig as JTrainConfig
 from music_transcription_tpu.models.transcription import TranscriptionModel as JModel
 from music_transcription_tpu.train.checkpoints import export_torch_state_dict, save_torch_checkpoint
 from music_transcription_tpu_torch.checkpoints import load_torch_checkpoint, state_dict_from_jax
-from music_transcription_tpu_torch.config import AudioConfig, ModelConfig, TrainConfig, config_to_dict
+from music_transcription_tpu_torch.config import (AudioConfig, ModelConfig, TrainConfig, config_from_dict,
+                                                  config_to_dict)
 from music_transcription_tpu_torch.models.transcription import TranscriptionModel
 
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
@@ -116,11 +117,24 @@ def test_predict_thresholds_sigmoid():
     assert np.array_equal(got, ref)
 
 
+# the port's own model's fields, after the JAX package's (models/hft.py)
+HFT_FIELDS = [("ffn_dim", 512), ("conv_channels", 4), ("conv_kernel", 5),
+              ("segment_frames", 128), ("margin_frames", 32), ("velocity_classes", 128)]
+
+
 def test_config_copies_keep_the_jax_fields_and_defaults():
     for ours, ref in ((AudioConfig, JAudioConfig), (ModelConfig, JModelConfig),
                       (TrainConfig, JTrainConfig)):
         assert [(f.name, f.default) for f in dataclasses.fields(ours)] == \
-            [(f.name, f.default) for f in dataclasses.fields(ref)]
+            [(f.name, f.default) for f in dataclasses.fields(ref)] + \
+            (HFT_FIELDS if ours is ModelConfig else [])
+    # a model section written by the port holds the JAX package's keys, but
+    # for hFT, and loads there, and back
+    model = config_to_dict(ModelConfig(n_mels=64, hidden_size=32))
+    assert model == config_to_dict(JModelConfig(**model))
+    assert config_to_dict(config_from_dict(ModelConfig, model)) == model
+    hft = config_to_dict(ModelConfig(model_type="hft"))
+    assert [k for k in hft if k not in model] == [k for k, _ in HFT_FIELDS]
     # a parameters.json section written by either package loads in the other
     train = config_to_dict(JTrainConfig(epochs=3, partitioning="dp", stall_timeout_s=5.0))
     assert config_to_dict(TrainConfig(**train)) == train

@@ -26,7 +26,7 @@ from music_transcription_tpu.models.transformer import encoder_param_subtrees
 from music_transcription_tpu.ops import losses as jlosses
 from music_transcription_tpu_torch import train_ast
 from music_transcription_tpu_torch.checkpoints import state_dict_from_jax
-from music_transcription_tpu_torch.config import ModelConfig
+from music_transcription_tpu_torch.config import ModelConfig, config_to_dict
 from music_transcription_tpu_torch.models.transcription import TranscriptionModel
 from music_transcription_tpu_torch.models.transformer import (
     ASTEncoderPretrainer,
@@ -120,7 +120,7 @@ def test_transplant_refusals_give_jax_messages(pretrained, tmp_path):
     with open(path[:-4] + ".json") as f:
         (jdir / "config.json").write_text(f.read())
     deeper = ModelConfig(**{**pm.config.__dict__, "encoder_layers": 3})
-    j_deeper = JModelConfig(**{**pm.config.__dict__, "encoder_layers": 3})
+    j_deeper = JModelConfig(**{**config_to_dict(pm.config), "encoder_layers": 3})
     ours = _exit_message(lambda: train_ast.transplant_encoder(
         TranscriptionModel(deeper).model, path, deeper))
     theirs = _exit_message(lambda: jax_script.transplant_encoder(
@@ -130,7 +130,7 @@ def test_transplant_refusals_give_jax_messages(pretrained, tmp_path):
     _, mock_vars, mock = pair("float32", use_mock_encoder=True)
     ours = _exit_message(lambda: train_ast.transplant_encoder(mock.model, path, mock.config))
     theirs = _exit_message(lambda: jax_script.transplant_encoder(
-        mock_vars, str(jdir), JModelConfig(**mock.config.__dict__)))
+        mock_vars, str(jdir), JModelConfig(**config_to_dict(mock.config))))
     assert ours == theirs and "mock encoder has no parameters" in ours
 
     sd = torch.load(path)
